@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``ops/csrc/`` have a plain C interface. They are compiled
+with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started
+together, then one link) into ``ops/_build/libapv_kernels-<hash>.so`` and
+loaded with ``ctypes``. The file name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused.
+
+Nothing here runs at import: the build happens the first time a CUDA tensor
+reaches a kernel, or when ``library()`` is called.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# No --use_fast_math: __expf/__logf lose the t -> 0 branch of log(expm1(t)).
+COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
+# C symbol -> argtypes; every entry point returns its launch's cudaError_t.
+SIGNATURES = {
+    "apv_disc_logistic": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P),
+    "apv_kl": (_P, _P, _P, _I64, _I64, _P),
+    "apv_reparam": (_P, _P, _P, _I64, _I64, _U64, _U64, _P),
+}
+
+build_seconds: float | None = None   # wall time of this process's build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from ops/csrc/ with the CUDA toolkit's nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with nvcc's output on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{out}")
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet."""
+    global build_seconds
+    lib = BUILD_DIR / f"libapv_kernels-{_digest()}.so"
+    if lib.exists():
+        return lib
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC),
+                   "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(_sources(), objs)])
+        staged = Path(tmp) / lib.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged),
+                   *map(str, objs)]])
+        os.replace(staged, lib)      # atomic: a concurrent build is harmless
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

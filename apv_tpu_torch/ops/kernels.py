@@ -1,0 +1,234 @@
+"""Hand-written CUDA kernels of the scoring path, their ctypes wrappers,
+launch counters and plain PyTorch versions.
+
+Each kernel replaces one Pallas TPU kernel of ``apv_tpu/ops/kernels.py``
+and computes the same function (not the same blocks):
+
+* ``disc_logistic`` (``csrc/disc_logistic.cu``) replaces
+  ``_disc_logistic_fwd`` / ``_disc_logistic_kernel``. Bound: memory, 3 f32
+  reads per element (59.0 MB at the IWAE chunk [1600, 3072]). Design: one
+  256-thread block per row, float4 loads, register sums reduced by warp
+  shuffles, [rows] written.
+* ``kl`` (``csrc/kl.cu``) replaces ``_kl_fwd`` / ``_kl_kernel``. Bound:
+  launch latency (65.5 KB at [64, 128]). Design: one warp per row.
+* ``reparam`` (``csrc/reparam.cu``) replaces ``_reparam_fwd`` /
+  ``_reparam_kernel``. Bound: launch latency (0.82 MB written at
+  [25, 64, 128]). Design: Philox4x32-10 + Box-Muller inside the kernel;
+  mean and logvar are read as [B, Z] for all S samples.
+
+The wrappers (``*_cuda``) take CUDA tensors only: they check device, dtype,
+shape and contiguity, allocate the output with ``torch.empty``, launch on
+the current stream, raise on a nonzero ``cudaError_t``, and add one to
+``launches[name]`` per launch. They are forward only: the backward kernels
+come with the port's training slice, so an input that requires grad
+raises rather than returning a tensor with no gradient path.
+
+The plain versions (``*_plain``) compute the same functions with torch
+ops. The dispatch layer (``ops/dispatch.py``) sends CPU tensors to them;
+``chip_smoke.py`` holds each kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from apv_tpu_torch.core import distributions as D
+
+# Launch count per kernel, incremented by the wrappers only.
+launches: dict[str, int] = {"reparam": 0, "kl": 0, "disc_logistic": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# wrapper plumbing
+# ---------------------------------------------------------------------------
+
+def _check(name: str, *tensors: torch.Tensor) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward only (its backward "
+            "kernel comes with the port's training slice); call it "
+            "under torch.inference_mode() or on detached tensors")
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: CUDA kernel got a tensor on "
+                             f"{t.device}; the plain version takes CPU ones")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expects float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+    first = tensors[0]
+    for t in tensors[1:]:
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError(f"{name}: inputs differ in shape or device: "
+                             f"{tuple(first.shape)}@{first.device} vs "
+                             f"{tuple(t.shape)}@{t.device}")
+
+
+def _launch(name: str, fn, *args, device: torch.device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = fn(*args, stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t "
+                           f"{status}")
+    launches[name] += 1
+
+
+def _lib():
+    from apv_tpu_torch.ops import _build
+    return _build.library()
+
+
+# ---------------------------------------------------------------------------
+# disc_logistic
+# ---------------------------------------------------------------------------
+
+def disc_logistic_plain(x: torch.Tensor, mean: torch.Tensor,
+                        log_scale: torch.Tensor,
+                        bin_size: float = 1.0 / 255.0) -> torch.Tensor:
+    """Per-row sum of the discretized-logistic log pmf -> [rows]."""
+    ll = D.discretized_logistic_logpmf(x, mean, log_scale, bin_size=bin_size)
+    return ll.reshape(ll.shape[0], -1).sum(dim=-1)
+
+
+def disc_logistic_cuda(x: torch.Tensor, mean: torch.Tensor,
+                       log_scale: torch.Tensor,
+                       bin_size: float = 1.0 / 255.0) -> torch.Tensor:
+    """Kernel version of ``disc_logistic_plain`` on f32 [rows, E] inputs."""
+    _check("disc_logistic", x, mean, log_scale)
+    if x.dim() != 2:
+        raise ValueError(f"disc_logistic: expects [rows, E], got "
+                         f"{tuple(x.shape)}")
+    rows, event = x.shape
+    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        _launch("disc_logistic", _lib().apv_disc_logistic, x.data_ptr(),
+                mean.data_ptr(), log_scale.data_ptr(), out.data_ptr(), rows,
+                event, float(bin_size), device=x.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kl
+# ---------------------------------------------------------------------------
+
+def kl_plain(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Per-row KL(q || N(0, I)) -> [rows]."""
+    kl = D.gaussian_kl_standard(mean, logvar)
+    return kl.reshape(kl.shape[0], -1).sum(dim=-1)
+
+
+def kl_cuda(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Kernel version of ``kl_plain`` on f32 [rows, Z] inputs."""
+    _check("kl", mean, logvar)
+    if mean.dim() != 2:
+        raise ValueError(f"kl: expects [rows, Z], got {tuple(mean.shape)}")
+    rows, event = mean.shape
+    out = torch.empty(rows, dtype=torch.float32, device=mean.device)
+    if rows:
+        _launch("kl", _lib().apv_kl, mean.data_ptr(), logvar.data_ptr(),
+                out.data_ptr(), rows, event, device=mean.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# reparam: Philox4x32-10 + Box-Muller
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_TWO_PI_F32 = 6.2831855               # float32 nearest to 2*pi
+
+
+def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a*b for a, b < 2^32, in int64 without
+    overflow: b is multiplied by a's 16-bit halves (< 2^48 each)."""
+    t_hi = (a >> 16) * b
+    t_lo = (a & 0xFFFF) * b
+    lo = (((t_hi & 0xFFFF) << 16) + t_lo) & _MASK32
+    hi = (t_hi + (t_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(counter: tuple[torch.Tensor, ...],
+                  key: tuple[int, int]) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 on int64 tensors holding 32-bit words (the same
+    rounds as ``csrc/reparam.cu``)."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def _uniform_open(bits: torch.Tensor) -> torch.Tensor:
+    """23 random bits -> (m + 0.5) * 2^-23 in (0, 1), exact in float32."""
+    return ((bits >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+def philox_normals(total: int, seed: int, offset: int,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+    """The kernel's stream of ``total`` N(0, 1) draws for (seed, offset)."""
+    quads = (total + 3) // 4
+    q = torch.arange(quads, dtype=torch.int64, device=device)
+    full = torch.full_like
+    words = philox4x32_10(
+        (q & _MASK32, q >> 32, full(q, offset & _MASK32),
+         full(q, (offset >> 32) & _MASK32)),
+        (seed & _MASK32, (seed >> 32) & _MASK32))
+    out = []
+    for b1, b2 in ((words[0], words[1]), (words[2], words[3])):
+        u1 = torch.clamp_min(_uniform_open(b1), 1e-12)
+        u2 = _uniform_open(b2)
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        theta = _TWO_PI_F32 * u2
+        out += [r * torch.cos(theta), r * torch.sin(theta)]
+    return torch.stack(out, dim=1).reshape(-1)[:total]
+
+
+def draw_key(generator: torch.Generator | None) -> tuple[int, int]:
+    """(seed, offset) for one reparam call, from one CPU ``torch.randint``
+    on the caller's generator (``None``: torch's default CPU generator)."""
+    seed, offset = torch.randint(0, 2 ** 63 - 1, (2,), generator=generator,
+                                 dtype=torch.int64).tolist()
+    return seed, offset
+
+
+def reparam_from_eps(mean: torch.Tensor, logvar: torch.Tensor,
+                     eps: torch.Tensor) -> torch.Tensor:
+    """z = mean + exp(logvar/2) * eps (eps broadcasts over leading axes)."""
+    return mean.to(torch.float32) + torch.exp(
+        0.5 * logvar.to(torch.float32)) * eps
+
+
+def reparam_plain(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
+                  seed: int, offset: int) -> torch.Tensor:
+    """[samples, *mean.shape] draws, the same stream as ``reparam_cuda``."""
+    eps = philox_normals(samples * mean.numel(), seed, offset, mean.device)
+    return reparam_from_eps(mean, logvar,
+                            eps.reshape((samples,) + tuple(mean.shape)))
+
+
+def reparam_cuda(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
+                 seed: int, offset: int) -> torch.Tensor:
+    """Kernel version of ``reparam_plain``: f32 [*shape] -> [samples, *shape]."""
+    _check("reparam", mean, logvar)
+    if samples < 0:
+        raise ValueError(f"reparam: samples must be >= 0, got {samples}")
+    z = torch.empty((samples,) + tuple(mean.shape), dtype=torch.float32,
+                    device=mean.device)
+    if z.numel():
+        _launch("reparam", _lib().apv_reparam, mean.data_ptr(),
+                logvar.data_ptr(), z.data_ptr(), samples, mean.numel(),
+                seed, offset, device=mean.device)
+    return z

@@ -1,0 +1,1 @@
+"""Config and device helpers of the PyTorch port."""
