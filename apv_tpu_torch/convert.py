@@ -1,8 +1,9 @@
 """Carry flax weights of ``apv_tpu`` models into the port's modules.
 
-``params_from_flax`` maps a ``ResNetVAE`` params tree (numpy leaves) to a
-state dict of ``apv_tpu_torch.models.ResNetVAE``; ``d_params_from_flax``
-does the same for the latent discriminator. Layouts:
+``params_from_flax`` maps a ``ResNetVAE`` or ``ConvVAE`` params tree (numpy
+leaves; any tree of that structure, such as Adam's moments) to a state
+dict of the port's model of the same family; ``d_params_from_flax`` does
+the same for the latent discriminator. Layouts:
 
 * Dense kernels are (in, out) in flax and (out, in) in torch;
 * Conv kernels go HWIO -> OIHW;
@@ -87,8 +88,13 @@ def _stages(sd: dict, prefix: str, tree, n_stages: int, resample) -> None:
 
 
 def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
-    """flax ``ResNetVAE`` params -> ``apv_tpu_torch`` ``ResNetVAE`` state dict."""
+    """flax ``ResNetVAE`` or ``ConvVAE`` params -> the port's state dict.
+
+    The conv VAE's encoder holds a ``Dense_0`` trunk and no residual
+    blocks; that tells the two families apart."""
     enc, dec = flax_params["encoder"], flax_params["decoder"]
+    if "Dense_0" in enc:
+        return _conv_vae(enc, dec)
     sd: dict[str, torch.Tensor] = {}
 
     # encoder: Conv_0 is the stem, Conv_1.. the stride-2 downsamples
@@ -113,6 +119,24 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
     _put(sd, "decoder.dense", _dense(dec["Dense_0"]))
     _stages(sd, "decoder", dec, n_stages, up)
     _put(sd, "decoder.norm", _norm(dec, 0))
+    _put(sd, "decoder.head", _conv(dec["likelihood_head"]))
+    return sd
+
+
+def _conv_vae(enc, dec) -> dict[str, torch.Tensor]:
+    """Encoder ``Conv_0..`` (stride 2, stride 1 per width), ``Dense_0``,
+    ``gaussian_head``; decoder ``Dense_0``, ``Dense_1``, ``Conv_0..`` (two
+    per width), ``likelihood_head``. The Dense rows keep flax's (h, w, c)
+    flatten order: the port's models flatten and reshape in that order."""
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(_count(enc, "Conv")):
+        _put(sd, f"encoder.convs.{i}", _conv(enc[f"Conv_{i}"]))
+    _put(sd, "encoder.dense", _dense(enc["Dense_0"]))
+    _put(sd, "encoder.head", _dense(enc["gaussian_head"]))
+    _put(sd, "decoder.dense0", _dense(dec["Dense_0"]))
+    _put(sd, "decoder.dense1", _dense(dec["Dense_1"]))
+    for i in range(_count(dec, "Conv")):
+        _put(sd, f"decoder.convs.{i}", _conv(dec[f"Conv_{i}"]))
     _put(sd, "decoder.head", _conv(dec["likelihood_head"]))
     return sd
 

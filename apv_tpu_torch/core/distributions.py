@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -47,6 +48,17 @@ def gaussian_kl_standard(mean: torch.Tensor,
     """Elementwise KL( N(mean, exp(logvar)) || N(0, 1) )."""
     mean, logvar = _f32(mean), _f32(logvar)
     return 0.5 * (mean * mean + torch.exp(logvar) - 1.0 - logvar)
+
+
+def bernoulli_logpmf(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Elementwise log Bernoulli(x; sigmoid(logits)) = x·l − softplus(l).
+
+    The softplus is PyTorch's, whose autograd derivative is sigmoid(l)
+    everywhere (the max/abs form above has a kink at l = 0 under autograd),
+    so CPU training differentiates to the same rule as ``_bernoulli_bwd``.
+    """
+    x, logits = _f32(x), _f32(logits)
+    return x * logits - F.softplus(logits)
 
 
 def discretized_logistic_logpmf(x: torch.Tensor, mean: torch.Tensor,

@@ -2,7 +2,8 @@
 
 The sources in ``ops/csrc/`` have a plain C interface. They are compiled
 with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started
-together, then one link) into ``ops/_build/libapv_kernels-<hash>.so`` and
+together, then one link; each source holds an op's forward kernel and, where
+the op is differentiated, its backward kernel) into ``ops/_build/libapv_kernels-<hash>.so`` and
 loaded with ``ctypes``. The file name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused.
 
@@ -33,9 +34,13 @@ _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 # C symbol -> argtypes; every entry point returns its launch's cudaError_t.
 SIGNATURES = {
+    "apv_bernoulli": (_P, _P, _P, _I64, _I64, _P),
+    "apv_bernoulli_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "apv_disc_logistic": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P),
     "apv_kl": (_P, _P, _P, _I64, _I64, _P),
+    "apv_kl_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "apv_reparam": (_P, _P, _P, _I64, _I64, _U64, _U64, _P),
+    "apv_reparam_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
 }
 
 build_seconds: float | None = None   # wall time of this process's build

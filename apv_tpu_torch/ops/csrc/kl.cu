@@ -33,6 +33,21 @@ kl_rows(const float* __restrict__ mean, const float* __restrict__ logvar,
     if (lane == 0) out[row] = acc;
 }
 
+__global__ void __launch_bounds__(kThreads)
+kl_bwd_rows(const float* __restrict__ g, const float* __restrict__ mean,
+            const float* __restrict__ logvar, float* __restrict__ dmean,
+            float* __restrict__ dlogvar, int64_t rows, int64_t event) {
+    const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const float gr = g[row];
+    const int64_t base = row * event;
+    for (int64_t i = lane; i < event; i += 32) {
+        dmean[base + i] = gr * mean[base + i];
+        dlogvar[base + i] = gr * 0.5f * (expf(logvar[base + i]) - 1.0f);
+    }
+}
+
 }  // namespace
 
 extern "C" int apv_kl(const float* mean, const float* logvar, float* out,
@@ -41,5 +56,16 @@ extern "C" int apv_kl(const float* mean, const float* logvar, float* out,
     const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
     kl_rows<<<static_cast<unsigned>(blocks), kThreads, 0,
               static_cast<cudaStream_t>(stream)>>>(mean, logvar, out, rows, event);
+    return apv::launch_status();
+}
+
+extern "C" int apv_kl_bwd(const float* g, const float* mean, const float* logvar,
+                          float* dmean, float* dlogvar, int64_t rows,
+                          int64_t event, void* stream) {
+    if (rows <= 0) return 0;
+    const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    kl_bwd_rows<<<static_cast<unsigned>(blocks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(g, mean, logvar, dmean,
+                                                       dlogvar, rows, event);
     return apv::launch_status();
 }

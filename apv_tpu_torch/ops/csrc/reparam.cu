@@ -17,6 +17,20 @@
 // 0.82 MB, ~0.25 us at 3.35 TB/s, well under one launch; mean and logvar
 // ([B, Z], 65.5 KB) are read once from memory and then from cache for each
 // sample, instead of being broadcast to [S, B, Z] in memory first.
+//
+// Backward: replaces apv_tpu/ops/kernels.py::_reparam_bwd with
+// _unbroadcast, the custom_vjp rule written in jnp. With g the incoming
+// gradient [S, n] and z the forward's output [S, n]:
+//     dmean[i]   = sum_s g[s, i]
+//     dlogvar[i] = sum_s 0.5 * g[s, i] * (z[s, i] - mean[i])
+// (dz/dlogvar = 0.5 * sigma * eps = 0.5 * (z - mean)), summed over the
+// sample axis as _unbroadcast sums the broadcast one. Bound: memory, read g
+// and z once and write two [n] vectors; the train step's S = 1, n = 10240
+// moves 164 KB, launch-bound. Design: one thread per i walks s in order, so
+// each step of the walk is one coalesced row of g and z across the block,
+// no atomics are needed and the result is deterministic. The products and
+// sums use __fmul_rn/__fadd_rn so that nvcc does not contract them into an
+// FMA: each term rounds as the plain version's separate multiply and add.
 #include "common.cuh"
 
 namespace {
@@ -77,6 +91,23 @@ reparam_samples(const float* __restrict__ mean, const float* __restrict__ logvar
     }
 }
 
+__global__ void __launch_bounds__(kThreads)
+reparam_bwd_sum(const float* __restrict__ g, const float* __restrict__ z,
+                const float* __restrict__ mean, float* __restrict__ dmean,
+                float* __restrict__ dlogvar, int64_t samples, int64_t n) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    if (i >= n) return;
+    const float m = mean[i];
+    float dm = 0.0f, dlv = 0.0f;
+    for (int64_t s = 0; s < samples; ++s) {
+        const float gv = g[s * n + i];
+        dm = __fadd_rn(dm, gv);
+        dlv = __fadd_rn(dlv, __fmul_rn(__fmul_rn(gv, 0.5f), __fadd_rn(z[s * n + i], -m)));
+    }
+    dmean[i] = dm;
+    dlogvar[i] = dlv;
+}
+
 }  // namespace
 
 extern "C" int apv_reparam(const float* mean, const float* logvar, float* z,
@@ -89,5 +120,16 @@ extern "C" int apv_reparam(const float* mean, const float* logvar, float* z,
     reparam_samples<<<static_cast<unsigned>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         mean, logvar, z, n, total, seed, offset);
+    return apv::launch_status();
+}
+
+extern "C" int apv_reparam_bwd(const float* g, const float* z, const float* mean,
+                               float* dmean, float* dlogvar, int64_t samples,
+                               int64_t n, void* stream) {
+    if (n <= 0) return 0;
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    reparam_bwd_sum<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(g, z, mean, dmean,
+                                                           dlogvar, samples, n);
     return apv::launch_status();
 }

@@ -1,9 +1,13 @@
-"""Device dispatch for the scoring path's fused ops (counterpart of
+"""Device dispatch for the fused ops (counterpart of
 ``apv_tpu/ops/dispatch.py``).
 
-A CPU tensor goes to the op's plain PyTorch version; a CUDA tensor goes to
-its hand-written kernel, which launches or raises. There is no switch and
-no fallback that sends CUDA tensors to the plain versions.
+A CPU tensor goes to the op's plain PyTorch version, which autograd
+differentiates. A CUDA tensor goes to a ``torch.autograd.Function`` whose
+forward launches the op's hand-written kernel and whose backward launches
+its backward kernel: the counterpart of the reference's ``custom_vjp``.
+There is no switch and no fallback that sends CUDA tensors to the plain
+versions; an op whose backward kernel is not ported yet raises when a CUDA
+input requires grad.
 
 All ops take tensors whose axis 0 is the batch axis; the likelihood and
 divergence ops reduce every other axis to one value per sample.
@@ -30,11 +34,65 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# the CUDA path: forward kernel + backward kernel per op
+# ---------------------------------------------------------------------------
+# Inside Function.forward the inputs still carry requires_grad, and so do
+# the saved tensors in backward; the raw wrappers refuse those, so both
+# hand them detached.
+
+class _ReparamFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mean, logvar, samples, seed, offset):
+        mean, logvar = mean.detach(), logvar.detach()
+        z = K.reparam_cuda(mean, logvar, samples, seed, offset)
+        ctx.save_for_backward(z, mean)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        z, mean = ctx.saved_tensors      # z, an output, comes back with grad
+        dmean, dlogvar = K.reparam_bwd_cuda(g.contiguous(), z.detach(), mean)
+        return dmean, dlogvar, None, None, None
+
+
+class _KLFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mean, logvar):
+        mean, logvar = mean.detach(), logvar.detach()
+        ctx.save_for_backward(mean, logvar)
+        return K.kl_cuda(mean, logvar)
+
+    @staticmethod
+    def backward(ctx, g):
+        mean, logvar = ctx.saved_tensors
+        return K.kl_bwd_cuda(g.contiguous(), mean, logvar)
+
+
+class _BernoulliFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, logits):
+        x, logits = x.detach(), logits.detach()
+        ctx.save_for_backward(x, logits)
+        return K.bernoulli_cuda(x, logits)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logits = ctx.saved_tensors
+        return K.bernoulli_bwd_cuda(g.contiguous(), x, logits,
+                                    want_dx=ctx.needs_input_grad[0])
+
+
+# ---------------------------------------------------------------------------
+# public ops
+# ---------------------------------------------------------------------------
+
 def reparam_sample(mean: torch.Tensor, logvar: torch.Tensor,
                    samples: int | None = None, *,
                    generator: torch.Generator | None = None,
                    eps: torch.Tensor | None = None) -> torch.Tensor:
-    """z = mean + exp(logvar/2)·eps, eps ~ N(0, I).
+    """z = mean + exp(logvar/2)·eps, eps ~ N(0, I), differentiable in mean
+    and logvar.
 
     ``samples=None`` draws one z of mean's shape; ``samples=S`` draws
     [S, *mean.shape]. The noise comes from ``generator`` (a CPU
@@ -57,8 +115,8 @@ def reparam_sample(mean: torch.Tensor, logvar: torch.Tensor,
         if eps is not None:
             raise ValueError("reparam_sample: eps is accepted only for CPU "
                              "tensors; on CUDA the kernel draws the noise")
-        z = K.reparam_cuda(mean.contiguous(), logvar.contiguous(), s,
-                           *K.draw_key(generator))
+        z = _ReparamFn.apply(mean.contiguous(), logvar.contiguous(), s,
+                             *K.draw_key(generator))
     return z if samples is not None else z[0]
 
 
@@ -66,14 +124,32 @@ def kl_standard(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """Per-sample KL(q || N(0, I)), summed over event dims -> [B]."""
     if _on_cpu("kl_standard", mean, logvar):
         return K.kl_plain(mean, logvar)
-    return K.kl_cuda(_rows(mean), _rows(logvar))
+    return _KLFn.apply(_rows(mean), _rows(logvar))
+
+
+def bernoulli_recon_ll(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Per-sample Bernoulli log-likelihood, summed over pixels -> [B]."""
+    if _on_cpu("bernoulli_recon_ll", x, logits):
+        return K.bernoulli_plain(x, logits)
+    return _BernoulliFn.apply(_rows(x.to(torch.float32)),
+                              _rows(logits.to(torch.float32)))
 
 
 def disc_logistic_recon_ll(x: torch.Tensor, mean: torch.Tensor,
                            log_scale: torch.Tensor, *,
                            bin_size: float = 1.0 / 255.0) -> torch.Tensor:
-    """Per-sample discretized-logistic log-likelihood -> [B]."""
+    """Per-sample discretized-logistic log-likelihood -> [B].
+
+    Its backward kernel comes with the CIFAR training slice: on CUDA an
+    input that requires grad raises until then (on the CPU autograd
+    differentiates the plain version)."""
     if _on_cpu("disc_logistic_recon_ll", x, mean, log_scale):
         return K.disc_logistic_plain(x, mean, log_scale, bin_size)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, mean, log_scale)):
+        raise NotImplementedError(
+            "disc_logistic_recon_ll: the backward kernel of disc_logistic "
+            "(apv_tpu/ops/kernels.py::_disc_logistic_bwd) is not ported "
+            "yet; on CUDA it runs forward only")
     return K.disc_logistic_cuda(_rows(x), _rows(mean), _rows(log_scale),
                                 bin_size)

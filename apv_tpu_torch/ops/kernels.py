@@ -1,9 +1,16 @@
-"""Hand-written CUDA kernels of the scoring path, their ctypes wrappers,
-launch counters and plain PyTorch versions.
+"""Hand-written CUDA kernels, their ctypes wrappers, launch counters and
+plain PyTorch versions.
 
-Each kernel replaces one Pallas TPU kernel of ``apv_tpu/ops/kernels.py``
-and computes the same function (not the same blocks):
+Each forward kernel replaces one Pallas TPU kernel of
+``apv_tpu/ops/kernels.py`` and computes the same function (not the same
+blocks); each backward kernel replaces the jnp rule of that op's
+``custom_vjp``:
 
+* ``bernoulli`` (``csrc/bernoulli.cu``) replaces ``_bernoulli_fwd`` /
+  ``_bernoulli_kernel``. Bound: memory, 2 f32 reads per element (20.1 MB at
+  the MNIST IWAE chunk [3200, 784]). Design: one warp per row, float4
+  loads, warp-shuffle sum. ``bernoulli_bwd`` (same file) replaces
+  ``_bernoulli_bwd``: elementwise, dx written only when asked for.
 * ``disc_logistic`` (``csrc/disc_logistic.cu``) replaces
   ``_disc_logistic_fwd`` / ``_disc_logistic_kernel``. Bound: memory, 3 f32
   reads per element (59.0 MB at the IWAE chunk [1600, 3072]). Design: one
@@ -11,21 +18,27 @@ and computes the same function (not the same blocks):
   shuffles, [rows] written.
 * ``kl`` (``csrc/kl.cu``) replaces ``_kl_fwd`` / ``_kl_kernel``. Bound:
   launch latency (65.5 KB at [64, 128]). Design: one warp per row.
+  ``kl_bwd`` (same file) replaces ``_kl_bwd``.
 * ``reparam`` (``csrc/reparam.cu``) replaces ``_reparam_fwd`` /
   ``_reparam_kernel``. Bound: launch latency (0.82 MB written at
   [25, 64, 128]). Design: Philox4x32-10 + Box-Muller inside the kernel;
-  mean and logvar are read as [B, Z] for all S samples.
+  mean and logvar are read as [B, Z] for all S samples. ``reparam_bwd``
+  (same file) replaces ``_reparam_bwd`` + ``_unbroadcast``: one thread per
+  element sums over the sample axis, deterministic, no atomics.
 
 The wrappers (``*_cuda``) take CUDA tensors only: they check device, dtype,
-shape and contiguity, allocate the output with ``torch.empty``, launch on
+shape and contiguity, allocate the outputs with ``torch.empty``, launch on
 the current stream, raise on a nonzero ``cudaError_t``, and add one to
-``launches[name]`` per launch. They are forward only: the backward kernels
-come with the port's training slice, so an input that requires grad
-raises rather than returning a tensor with no gradient path.
+``launches[name]`` per launch. They record no gradient, so an input that
+requires grad raises: the differentiable path is ``ops/dispatch.py``, whose
+``torch.autograd.Function``s pair each forward kernel with its backward
+kernel and hand both detached tensors.
 
 The plain versions (``*_plain``) compute the same functions with torch
-ops. The dispatch layer (``ops/dispatch.py``) sends CPU tensors to them;
-``chip_smoke.py`` holds each kernel against them on the card.
+ops. The dispatch layer sends CPU tensors to the forward ones (autograd
+differentiates them there); the backward ones write out the JAX rules and
+serve the tests and ``chip_smoke.py``, which holds each kernel against its
+plain version on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +48,9 @@ import torch
 from apv_tpu_torch.core import distributions as D
 
 # Launch count per kernel, incremented by the wrappers only.
-launches: dict[str, int] = {"reparam": 0, "kl": 0, "disc_logistic": 0}
+launches: dict[str, int] = {
+    "reparam": 0, "kl": 0, "disc_logistic": 0, "bernoulli": 0,
+    "reparam_bwd": 0, "kl_bwd": 0, "bernoulli_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -48,11 +63,23 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 def _check(name: str, *tensors: torch.Tensor) -> None:
+    """Device, dtype, contiguity and no grad for all; equal shapes."""
+    _check_each(name, *tensors)
+    first = tensors[0]
+    for t in tensors[1:]:
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError(f"{name}: inputs differ in shape or device: "
+                             f"{tuple(first.shape)}@{first.device} vs "
+                             f"{tuple(t.shape)}@{t.device}")
+
+
+def _check_each(name: str, *tensors: torch.Tensor) -> None:
     if any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel is forward only (its backward "
-            "kernel comes with the port's training slice); call it "
-            "under torch.inference_mode() or on detached tensors")
+            f"{name}: the raw CUDA wrapper is forward only and records no "
+            "gradient; differentiate through apv_tpu_torch.ops (whose "
+            "autograd.Function pairs it with its backward kernel), or call "
+            "it under torch.inference_mode() or on detached tensors")
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: CUDA kernel got a tensor on "
@@ -61,12 +88,22 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: expects float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
-    first = tensors[0]
-    for t in tensors[1:]:
-        if t.shape != first.shape or t.device != first.device:
-            raise ValueError(f"{name}: inputs differ in shape or device: "
-                             f"{tuple(first.shape)}@{first.device} vs "
-                             f"{tuple(t.shape)}@{t.device}")
+
+
+def _check_row_grad(name: str, g: torch.Tensor,
+                    rows_like: torch.Tensor) -> None:
+    """g is the [rows] incoming gradient of a per-row reduction."""
+    _check_each(name, g)
+    if g.shape != rows_like.shape[:1] or g.device != rows_like.device:
+        raise ValueError(f"{name}: gradient {tuple(g.shape)}@{g.device} does "
+                         f"not match rows {tuple(rows_like.shape[:1])}@"
+                         f"{rows_like.device}")
+
+
+def _rows_2d(name: str, t: torch.Tensor) -> tuple[int, int]:
+    if t.dim() != 2:
+        raise ValueError(f"{name}: expects [rows, E], got {tuple(t.shape)}")
+    return t.shape[0], t.shape[1]
 
 
 def _launch(name: str, fn, *args, device: torch.device) -> None:
@@ -82,6 +119,58 @@ def _launch(name: str, fn, *args, device: torch.device) -> None:
 def _lib():
     from apv_tpu_torch.ops import _build
     return _build.library()
+
+
+# ---------------------------------------------------------------------------
+# bernoulli
+# ---------------------------------------------------------------------------
+
+def bernoulli_plain(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Per-row sum of x·l − softplus(l) -> [rows]."""
+    ll = D.bernoulli_logpmf(x, logits)
+    return ll.reshape(ll.shape[0], -1).sum(dim=-1)
+
+
+def bernoulli_cuda(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Kernel version of ``bernoulli_plain`` on f32 [rows, E] inputs."""
+    _check("bernoulli", x, logits)
+    rows, event = _rows_2d("bernoulli", x)
+    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        _launch("bernoulli", _lib().apv_bernoulli, x.data_ptr(),
+                logits.data_ptr(), out.data_ptr(), rows, event,
+                device=x.device)
+    return out
+
+
+def _per_row(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return g.reshape((g.shape[0],) + (1,) * (like.dim() - 1))
+
+
+def bernoulli_bwd_plain(g: torch.Tensor, x: torch.Tensor,
+                        logits: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_bernoulli_bwd``: (dx, dlogits) = (g·l, g·(x − σ(l))), g per row."""
+    gb = _per_row(g, x)
+    return gb * logits, gb * (x - torch.sigmoid(logits))
+
+
+def bernoulli_bwd_cuda(g: torch.Tensor, x: torch.Tensor,
+                       logits: torch.Tensor, *, want_dx: bool = True
+                       ) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Kernel version of ``bernoulli_bwd_plain`` on f32 g [rows] and x,
+    logits [rows, E]; dx is None unless ``want_dx``."""
+    _check("bernoulli_bwd", x, logits)
+    _check_row_grad("bernoulli_bwd", g, x)
+    rows, event = _rows_2d("bernoulli_bwd", x)
+    dl = torch.empty_like(logits)
+    dx = torch.empty_like(x) if want_dx else None
+    if rows:
+        _launch("bernoulli_bwd", _lib().apv_bernoulli_bwd, g.data_ptr(),
+                x.data_ptr(), logits.data_ptr(),
+                None if dx is None else dx.data_ptr(), dl.data_ptr(), rows,
+                event, device=x.device)
+    return dx, dl
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +190,7 @@ def disc_logistic_cuda(x: torch.Tensor, mean: torch.Tensor,
                        bin_size: float = 1.0 / 255.0) -> torch.Tensor:
     """Kernel version of ``disc_logistic_plain`` on f32 [rows, E] inputs."""
     _check("disc_logistic", x, mean, log_scale)
-    if x.dim() != 2:
-        raise ValueError(f"disc_logistic: expects [rows, E], got "
-                         f"{tuple(x.shape)}")
-    rows, event = x.shape
+    rows, event = _rows_2d("disc_logistic", x)
     out = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows:
         _launch("disc_logistic", _lib().apv_disc_logistic, x.data_ptr(),
@@ -126,14 +212,33 @@ def kl_plain(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
 def kl_cuda(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """Kernel version of ``kl_plain`` on f32 [rows, Z] inputs."""
     _check("kl", mean, logvar)
-    if mean.dim() != 2:
-        raise ValueError(f"kl: expects [rows, Z], got {tuple(mean.shape)}")
-    rows, event = mean.shape
+    rows, event = _rows_2d("kl", mean)
     out = torch.empty(rows, dtype=torch.float32, device=mean.device)
     if rows:
         _launch("kl", _lib().apv_kl, mean.data_ptr(), logvar.data_ptr(),
                 out.data_ptr(), rows, event, device=mean.device)
     return out
+
+
+def kl_bwd_plain(g: torch.Tensor, mean: torch.Tensor, logvar: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_kl_bwd``: (dmean, dlogvar) = (g·μ, g·0.5·(e^lv − 1)), g per row."""
+    gb = _per_row(g, mean)
+    return gb * mean, gb * 0.5 * (torch.exp(logvar) - 1.0)
+
+
+def kl_bwd_cuda(g: torch.Tensor, mean: torch.Tensor, logvar: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel version of ``kl_bwd_plain`` on f32 g [rows] and [rows, Z]."""
+    _check("kl_bwd", mean, logvar)
+    _check_row_grad("kl_bwd", g, mean)
+    rows, event = _rows_2d("kl_bwd", mean)
+    dmean, dlogvar = torch.empty_like(mean), torch.empty_like(logvar)
+    if rows:
+        _launch("kl_bwd", _lib().apv_kl_bwd, g.data_ptr(), mean.data_ptr(),
+                logvar.data_ptr(), dmean.data_ptr(), dlogvar.data_ptr(), rows,
+                event, device=mean.device)
+    return dmean, dlogvar
 
 
 # ---------------------------------------------------------------------------
@@ -232,3 +337,35 @@ def reparam_cuda(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
                 logvar.data_ptr(), z.data_ptr(), samples, mean.numel(),
                 seed, offset, device=mean.device)
     return z
+
+
+def reparam_bwd_plain(g: torch.Tensor, z: torch.Tensor, mean: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_reparam_bwd`` + ``_unbroadcast``: g and z [S, *shape], mean
+    [*shape] -> (Σ_s g, Σ_s 0.5·g·(z − μ)), each of mean's shape.
+
+    The sums run over s = 0, 1, ... in order, as the kernel's do (a
+    reduction in another order differs by a few ulps per sample)."""
+    terms = g * 0.5 * (z - mean)
+    dmean, dlogvar = torch.zeros_like(mean), torch.zeros_like(mean)
+    for s in range(g.shape[0]):
+        dmean, dlogvar = dmean + g[s], dlogvar + terms[s]
+    return dmean, dlogvar
+
+
+def reparam_bwd_cuda(g: torch.Tensor, z: torch.Tensor, mean: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel version of ``reparam_bwd_plain`` on f32 tensors."""
+    _check("reparam_bwd", g, z)
+    _check_each("reparam_bwd", mean)
+    if g.dim() < 1 or tuple(g.shape[1:]) != tuple(mean.shape) \
+            or mean.device != g.device:
+        raise ValueError(f"reparam_bwd: gradient {tuple(g.shape)} is not "
+                         f"[S, *{tuple(mean.shape)}] on {mean.device}")
+    dmean, dlogvar = torch.empty_like(mean), torch.empty_like(mean)
+    if mean.numel():
+        _launch("reparam_bwd", _lib().apv_reparam_bwd, g.data_ptr(),
+                z.data_ptr(), mean.data_ptr(), dmean.data_ptr(),
+                dlogvar.data_ptr(), g.shape[0], mean.numel(),
+                device=mean.device)
+    return dmean, dlogvar

@@ -1,1 +1,1 @@
-"""Loss terms of the PyTorch port."""
+"""Training of the PyTorch port: losses, optimizers, step and loop."""

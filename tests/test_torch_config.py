@@ -62,7 +62,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from apv_tpu_torch import (build_model, evaluate_nll, make_latent_d,
-                               make_scorer)
+                               make_scorer, make_train_fns, train_loop)
     from apv_tpu_torch.eval.iwae_eval import estimate_log_partition
     cfg = tcfg.apply_overrides(tcfg.get_preset("iwae_eval"), [
         "model.z_dim=8", "model.widths=[8,16]", "model.blocks_per_stage=1"])
@@ -75,6 +75,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: evaluate_nll(cfg, model, None, x_u8,
                              use_adversarial_prior=False),
         lambda: estimate_log_partition(lambda z: z[:, 0], 8),
+        lambda: make_train_fns(cfg),
+        lambda: train_loop(cfg, arrays={"image": x_u8}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="none is available"):
@@ -86,4 +88,6 @@ def test_ops_module_imports_without_cuda_or_nvcc():
     only touched when a CUDA tensor reaches a kernel."""
     from apv_tpu_torch.ops import _build, kernels
     assert _build.build_seconds is None
-    assert set(kernels.launches) == {"reparam", "kl", "disc_logistic"}
+    assert set(kernels.launches) == {"reparam", "kl", "disc_logistic",
+                                     "bernoulli", "reparam_bwd", "kl_bwd",
+                                     "bernoulli_bwd"}
