@@ -1,10 +1,10 @@
-"""Host batching (counterpart of ``apv_tpu/data/pipeline.py``): shuffled
-epochs over in-memory numpy arrays, the same permutations from the same
-seed as the reference's ``Batcher``, and grouping into k-step stacks.
+"""Host batching (counterpart of ``apv_tpu/data/pipeline.py``): epochs
+over in-memory numpy arrays, shuffled with the same permutations from the
+same seed as the reference's ``Batcher`` or in order (validation), the
+resume fast-forward ``iter_from``, and grouping into k-step stacks.
 
-Single host, from the first batch: the reference's multi-host row
-sharding, its prefetch to the device and its fast-forward for resume
-(``iter_from``) are not ported.
+Single host: the reference's multi-host row sharding and its prefetch to
+the device are not ported.
 """
 
 from __future__ import annotations
@@ -16,14 +16,14 @@ import numpy as np
 
 
 class Batcher:
-    """Shuffled epoch batching over in-memory numpy arrays (the
-    reference's training defaults: shuffled, remainder dropped).
+    """Epoch batching over in-memory numpy arrays, shuffled (training) or
+    in order (``shuffle=False``, validation); the remainder is dropped.
 
     Yields dict batches of equal ``batch_size``.
     """
 
     def __init__(self, arrays: dict[str, np.ndarray], batch_size: int, *,
-                 seed: int = 0):
+                 shuffle: bool = True, seed: int = 0):
         sizes = {k: len(v) for k, v in arrays.items()}
         if len(set(sizes.values())) != 1:
             raise ValueError(f"array length mismatch: {sizes}")
@@ -32,17 +32,20 @@ class Batcher:
         if batch_size > self.n:
             raise ValueError(f"batch_size {batch_size} > dataset size {self.n}")
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
 
     @property
     def batches_per_epoch(self) -> int:
         return self.n // self.batch_size
 
-    def epoch(self) -> Iterator[dict[str, np.ndarray]]:
+    def epoch(self, skip: int = 0) -> Iterator[dict[str, np.ndarray]]:
+        """One epoch's batches, from batch ``skip`` of it on."""
         idx = np.arange(self.n)
-        self._rng.shuffle(idx)
+        if self.shuffle:
+            self._rng.shuffle(idx)
         stop = self.batches_per_epoch * self.batch_size
-        for start in range(0, stop, self.batch_size):
+        for start in range(skip * self.batch_size, stop, self.batch_size):
             sel = idx[start:start + self.batch_size]
             yield {k: v[sel] for k, v in self.arrays.items()}
 
@@ -50,6 +53,18 @@ class Batcher:
         """Infinite stream of batches across epochs (training)."""
         while True:
             yield from self.epoch()
+
+    def iter_from(self, start_batch: int) -> Iterator[dict[str, np.ndarray]]:
+        """The infinite stream fast-forwarded to batch ``start_batch``, for
+        an exact resume: each skipped epoch still draws its permutation, so
+        the data order matches an uninterrupted run; skipped batches of the
+        current epoch are not gathered."""
+        bpe = self.batches_per_epoch
+        for _ in range(start_batch // bpe):
+            if self.shuffle:
+                self._rng.shuffle(np.arange(self.n))
+        yield from self.epoch(skip=start_batch % bpe)
+        yield from self
 
 
 def stack_batches(it: Iterable[dict[str, np.ndarray]],

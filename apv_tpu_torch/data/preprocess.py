@@ -1,6 +1,7 @@
 """Input preprocessing (counterpart of ``apv_tpu/data/preprocess.py``):
-static binarization and bit packing on the host in numpy, bit unpacking on
-the device in torch, and the eval-time level mapping.
+static binarization and bit packing on the host in numpy, bit unpacking and
+uniform dequantization on the device in torch, and the eval-time level
+mapping.
 
 The splitmix64 stream is the reference's numpy path, which is bit-identical
 to its C++ one (``apv_binarize_u8``), so a seed binarizes a dataset the same
@@ -60,6 +61,21 @@ def unpack_bits(packed: torch.Tensor,
 def to_unit_interval(images_u8: np.ndarray) -> np.ndarray:
     """uint8 levels -> bin centers i/255 in [0,1] (discretized-logistic grid)."""
     return images_u8.astype(np.float32) / 255.0
+
+
+def uniform_dequantize(images_u8: torch.Tensor,
+                       generator: torch.Generator | None = None, *,
+                       u: torch.Tensor | None = None) -> torch.Tensor:
+    """(x + u)/256 with u ~ U[0, 1) drawn on the images' device from
+    ``generator`` (a generator of that device), or the given ``u`` of the
+    images' shape: float32 in [0, 1)."""
+    if u is None:
+        u = torch.rand(images_u8.shape, generator=generator,
+                       device=images_u8.device)
+    elif u.shape != images_u8.shape:
+        raise ValueError(f"uniform_dequantize: u has shape {tuple(u.shape)}, "
+                         f"images {tuple(images_u8.shape)}")
+    return (images_u8.to(torch.float32) + u) / 256.0
 
 
 def normalize_center(x):

@@ -6,8 +6,7 @@ differentiates. A CUDA tensor goes to a ``torch.autograd.Function`` whose
 forward launches the op's hand-written kernel and whose backward launches
 its backward kernel: the counterpart of the reference's ``custom_vjp``.
 There is no switch and no fallback that sends CUDA tensors to the plain
-versions; an op whose backward kernel is not ported yet raises when a CUDA
-input requires grad.
+versions.
 
 All ops take tensors whose axis 0 is the batch axis; the likelihood and
 divergence ops reduce every other axis to one value per sample.
@@ -83,6 +82,23 @@ class _BernoulliFn(torch.autograd.Function):
                                     want_dx=ctx.needs_input_grad[0])
 
 
+class _DiscLogisticFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mean, log_scale, bin_size):
+        x, mean, log_scale = x.detach(), mean.detach(), log_scale.detach()
+        ctx.save_for_backward(x, mean, log_scale)
+        ctx.bin_size = bin_size
+        return K.disc_logistic_cuda(x, mean, log_scale, bin_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, log_scale = ctx.saved_tensors
+        dx, dmean, dls = K.disc_logistic_bwd_cuda(
+            g.contiguous(), x, mean, log_scale, ctx.bin_size,
+            want_dx=ctx.needs_input_grad[0])
+        return dx, dmean, dls, None
+
+
 # ---------------------------------------------------------------------------
 # public ops
 # ---------------------------------------------------------------------------
@@ -138,18 +154,11 @@ def bernoulli_recon_ll(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 def disc_logistic_recon_ll(x: torch.Tensor, mean: torch.Tensor,
                            log_scale: torch.Tensor, *,
                            bin_size: float = 1.0 / 255.0) -> torch.Tensor:
-    """Per-sample discretized-logistic log-likelihood -> [B].
-
-    Its backward kernel comes with the CIFAR training slice: on CUDA an
-    input that requires grad raises until then (on the CPU autograd
-    differentiates the plain version)."""
+    """Per-sample discretized-logistic log-likelihood -> [B]; x holds the
+    bin centres i/255."""
     if _on_cpu("disc_logistic_recon_ll", x, mean, log_scale):
         return K.disc_logistic_plain(x, mean, log_scale, bin_size)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, mean, log_scale)):
-        raise NotImplementedError(
-            "disc_logistic_recon_ll: the backward kernel of disc_logistic "
-            "(apv_tpu/ops/kernels.py::_disc_logistic_bwd) is not ported "
-            "yet; on CUDA it runs forward only")
-    return K.disc_logistic_cuda(_rows(x), _rows(mean), _rows(log_scale),
-                                bin_size)
+    return _DiscLogisticFn.apply(_rows(x.to(torch.float32)),
+                                 _rows(mean.to(torch.float32)),
+                                 _rows(log_scale.to(torch.float32)),
+                                 float(bin_size))

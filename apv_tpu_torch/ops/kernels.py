@@ -15,7 +15,10 @@ blocks); each backward kernel replaces the jnp rule of that op's
   ``_disc_logistic_fwd`` / ``_disc_logistic_kernel``. Bound: memory, 3 f32
   reads per element (59.0 MB at the IWAE chunk [1600, 3072]). Design: one
   256-thread block per row, float4 loads, register sums reduced by warp
-  shuffles, [rows] written.
+  shuffles, [rows] written. ``disc_logistic_bwd`` (same file) replaces
+  ``_disc_logistic_bwd``: elementwise in the same layout, bound by memory
+  (15.7 MB at the train step's [256, 3072] without dx), dx written only
+  when asked for.
 * ``kl`` (``csrc/kl.cu``) replaces ``_kl_fwd`` / ``_kl_kernel``. Bound:
   launch latency (65.5 KB at [64, 128]). Design: one warp per row.
   ``kl_bwd`` (same file) replaces ``_kl_bwd``.
@@ -50,7 +53,8 @@ from apv_tpu_torch.core import distributions as D
 # Launch count per kernel, incremented by the wrappers only.
 launches: dict[str, int] = {
     "reparam": 0, "kl": 0, "disc_logistic": 0, "bernoulli": 0,
-    "reparam_bwd": 0, "kl_bwd": 0, "bernoulli_bwd": 0}
+    "reparam_bwd": 0, "kl_bwd": 0, "bernoulli_bwd": 0,
+    "disc_logistic_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -197,6 +201,61 @@ def disc_logistic_cuda(x: torch.Tensor, mean: torch.Tensor,
                 mean.data_ptr(), log_scale.data_ptr(), out.data_ptr(), rows,
                 event, float(bin_size), device=x.device)
     return out
+
+
+def disc_logistic_bwd_plain(g: torch.Tensor, x: torch.Tensor,
+                            mean: torch.Tensor, log_scale: torch.Tensor,
+                            bin_size: float = 1.0 / 255.0
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``_disc_logistic_bwd`` written out: g per row -> (dx, dmean,
+    dlog_scale), each of x's shape.
+
+    With a = (x − μ + h)/s, b = (x − μ − h)/s and t = bin/s: interior
+    dμ = −(1 − σ(b) − σ(a))/s and dls = a·σ(a) − b·(1 − σ(b)) − t/(1 −
+    e^{−t}) (1 + t/2 for t ≤ 1e-4); low edge (x ≤ h) dμ = −σ(−a)/s, dls =
+    −a·σ(−a); high edge (x ≥ 1 − h) dμ = σ(b)/s, dls = b·σ(b); dx = −dμ."""
+    x, mu, ls = (t.to(torch.float32) for t in (x, mean, log_scale))
+    inv_s = torch.exp(-ls)
+    half = 0.5 * bin_size
+    a = (x - mu + half) * inv_s
+    b = (x - mu - half) * inv_s
+    t = bin_size * inv_s
+    sig_a, sig_b = torch.sigmoid(a), torch.sigmoid(b)
+    dmu_int = -inv_s * (1.0 - sig_b - sig_a)
+    t_term = torch.where(t > 1e-4, t / -torch.expm1(-torch.clamp_min(t, 1e-4)),
+                         1.0 + 0.5 * t)
+    dls_int = a * sig_a - b * (1.0 - sig_b) - t_term
+    is_low = x <= 0.0 + half
+    is_high = x >= 1.0 - half
+    dmu = torch.where(is_low, -inv_s * torch.sigmoid(-a),
+                      torch.where(is_high, inv_s * sig_b, dmu_int))
+    dls = torch.where(is_low, -a * torch.sigmoid(-a),
+                      torch.where(is_high, b * sig_b, dls_int))
+    gb = _per_row(g, x).to(torch.float32)
+    return -gb * dmu, gb * dmu, gb * dls
+
+
+def disc_logistic_bwd_cuda(g: torch.Tensor, x: torch.Tensor,
+                           mean: torch.Tensor, log_scale: torch.Tensor,
+                           bin_size: float = 1.0 / 255.0, *,
+                           want_dx: bool = True
+                           ) -> tuple[torch.Tensor | None, torch.Tensor,
+                                      torch.Tensor]:
+    """Kernel version of ``disc_logistic_bwd_plain`` on f32 g [rows] and x,
+    mean, log_scale [rows, E]; dx is None unless ``want_dx``."""
+    _check("disc_logistic_bwd", x, mean, log_scale)
+    _check_row_grad("disc_logistic_bwd", g, x)
+    rows, event = _rows_2d("disc_logistic_bwd", x)
+    dmean, dls = torch.empty_like(mean), torch.empty_like(log_scale)
+    dx = torch.empty_like(x) if want_dx else None
+    if rows:
+        _launch("disc_logistic_bwd", _lib().apv_disc_logistic_bwd,
+                g.data_ptr(), x.data_ptr(), mean.data_ptr(),
+                log_scale.data_ptr(), None if dx is None else dx.data_ptr(),
+                dmean.data_ptr(), dls.data_ptr(), rows, event,
+                float(bin_size), device=x.device)
+    return dx, dmean, dls
 
 
 # ---------------------------------------------------------------------------

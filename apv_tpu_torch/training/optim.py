@@ -88,3 +88,21 @@ class ClippedAdam:
         torch._foreach_add_(self.params, m_hat, alpha=-self.lr(self.count))
         self.count = t
         return norm
+
+    def state_dict(self) -> dict:
+        """The update count and both moments (tensors on their device)."""
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: dict) -> None:
+        """Copy a ``state_dict`` into this optimizer's moments in place."""
+        for name in ("mu", "nu"):
+            mine, theirs = getattr(self, name), saved[name]
+            if len(mine) != len(theirs) or any(
+                    a.shape != b.shape for a, b in zip(mine, theirs)):
+                raise ValueError(f"ClippedAdam: saved {name} does not match "
+                                 "this optimizer's parameters")
+            for a, b in zip(mine, theirs):
+                a.copy_(b)
+        self.count = int(saved["count"])

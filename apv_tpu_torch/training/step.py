@@ -3,9 +3,11 @@ phase, each with its own clipped Adam (counterpart of
 ``apv_tpu/training/step.py``).
 
 The reference jits both phases into one XLA program; here they run eagerly
-on the card, with the reparameterized sample, the KL and the Bernoulli
-likelihood in hand-written kernels whose backward is a kernel too
-(``ops/dispatch.py``). Gradient discipline as in the reference: the G phase
+on the card, with the reparameterized sample, the KL and the Bernoulli and
+discretized-logistic likelihoods in hand-written kernels whose backward is
+a kernel too (``ops/dispatch.py``). The input stage runs on the batch's
+device: bit unpacking for the binarized MNIST configs, uniform
+dequantization of uint8 levels for CIFAR. Gradient discipline as in the reference: the G phase
 differentiates only the VAE's parameters (D's are constants there, and
 ``torch.autograd.grad`` leaves their ``.grad`` untouched); the D phase
 differentiates only D's, on posterior samples that carry no gradient.
@@ -13,8 +15,11 @@ differentiates only D's, on posterior samples that carry no gradient.
 Noise: step ``t`` of a run with seed ``s`` draws everything from a CPU
 ``torch.Generator`` seeded by (s, t) alone, the counterpart of
 ``fold_in(rng, step)``: never the global generator, so a step can be
-replayed. On CPU tensors ``train_step`` also takes the noise injected
-(``noise=``), which the parity tests use to hand the port JAX's draws.
+replayed. The draws come in a fixed order: the dequantization u, then the
+G phase's ε, then the critic's z_p (u and z_p on the device, from a device
+generator reseeded from the step's generator). On CPU tensors
+``train_step`` also takes the noise injected (``noise=``), which the
+parity tests use to hand the port JAX's draws.
 
 Knobs outside this slice raise ``NotImplementedError`` naming the knob.
 """
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from apv_tpu_torch import ops
-from apv_tpu_torch.data.preprocess import unpack_bits
+from apv_tpu_torch.data.preprocess import (normalize_center,
+                                           uniform_dequantize, unpack_bits)
 from apv_tpu_torch.models import build_model, make_latent_d
 from apv_tpu_torch.training import losses as L
 from apv_tpu_torch.training.optim import (ClippedAdam, constant,
@@ -64,20 +70,26 @@ def _make_d_optimizer(cfg: Config, params) -> ClippedAdam:
                        clip_norm=cfg.train.grad_clip_norm, b1=0.5)
 
 
-def prepare_batch(cfg: Config, batch: dict):
+def prepare_batch(cfg: Config, batch: dict, draw_u: Callable | None = None,
+                  u: torch.Tensor | None = None):
     """The in-step input stage on the batch's device -> (x_in, x_target).
 
     * ``image_packed``: bit-packed binarized rows, unpacked to {0,1};
-    * ``image``: float {0,1} (binarized); input == target.
+    * ``image`` with ``data.dequantize``: uint8 levels; the input is the
+      centred uniform-dequantized (x + u)/256, the target the bin centres
+      x/255. u is ``u`` when given, else ``draw_u(shape)``;
+    * ``image`` otherwise: float {0,1} (binarized); input == target.
     """
     if "image_packed" in batch:
         x = unpack_bits(batch["image_packed"], cfg.model.image_shape)
         return x, x
+    image = batch["image"]
     if cfg.data.dequantize:
-        raise NotImplementedError(
-            "data.dequantize: on-device uniform dequantization is not "
-            "ported yet (it comes with the CIFAR training slice)")
-    x = batch["image"].to(torch.float32)
+        if u is None:
+            u = draw_u(image.shape)
+        x_in = normalize_center(uniform_dequantize(image, u=u))
+        return x_in, image.to(torch.float32) / 255.0
+    x = image.to(torch.float32)
     return x, x
 
 
@@ -179,11 +191,20 @@ def make_train_fns(cfg: Config, *, device=None,
             d=d, d_opt=_make_d_optimizer(cfg, d.parameters()) if adv else None,
             seed=seed)
 
+    def device_gen(gen: torch.Generator) -> torch.Generator:
+        """The device generator, reseeded from the step's generator."""
+        return noise_gen.manual_seed(int(torch.randint(0, 2 ** 63 - 1, (1,),
+                                                       generator=gen)))
+
     def normal(shape, gen: torch.Generator) -> torch.Tensor:
         """N(0, I) on the device, seeded from the step's generator."""
-        noise_gen.manual_seed(int(torch.randint(0, 2 ** 63 - 1, (1,),
-                                                generator=gen)))
-        return torch.randn(shape, generator=noise_gen, device=dev)
+        return torch.randn(shape, generator=device_gen(gen), device=dev)
+
+    def uniform_fn(gen: torch.Generator) -> Callable:
+        """shape -> U[0, 1) on the device, seeded from the step's
+        generator when called."""
+        return lambda shape: torch.rand(shape, generator=device_gen(gen),
+                                        device=dev)
 
     def g_phase(state, x_in, x_target, beta, gen, eps):
         loss, aux, z = g_objective(cfg, state.model, state.d, x_in, x_target,
@@ -212,15 +233,17 @@ def make_train_fns(cfg: Config, *, device=None,
                    noise: dict | None = None):
         """One step on a batch of device tensors, in place.
 
-        ``noise`` (CPU tensors only): ``eps`` [B, Z] for the G phase,
-        ``z_p`` [n_critic, B, Z] for the critic steps and, with
+        ``noise`` (CPU tensors only): ``u`` [B, H, W, C] for the
+        dequantization, ``eps`` [B, Z] for the G phase, ``z_p``
+        [n_critic, B, Z] for the critic steps and, with
         ``d_reuse_posterior=False``, ``d_eps`` [n_critic, B, Z]."""
         if noise is not None and dev.type != "cpu":
             raise ValueError("train_step: noise is accepted only on the CPU; "
                              "on CUDA the kernels draw it")
         noise = noise or {}
         gen = step_generator(state.seed, state.step)
-        x_in, x_target = prepare_batch(cfg, batch)
+        x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen),
+                                       noise.get("u"))
         beta = _beta(cfg, state.step)
         metrics: dict = {}
 
@@ -250,7 +273,7 @@ def make_train_fns(cfg: Config, *, device=None,
     def eval_step(state: TrainState, batch: dict) -> dict:
         """Single-sample ELBO on a batch; deterministic in (seed, batch)."""
         gen = step_generator(state.seed, 0x7FFFFFFF)
-        x_in, x_target = prepare_batch(cfg, batch)
+        x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen))
         with torch.no_grad():
             recon, kl, _ = L.elbo_terms(state.model.encode,
                                         state.model.decode, x_in, x_target,

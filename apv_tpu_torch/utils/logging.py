@@ -1,8 +1,9 @@
 """Metrics logging (counterpart of ``apv_tpu/utils/logging.py``).
 
 Structured stdout and ``metrics.jsonl`` in the results dir, with the step
-time and images/s between logged steps. A metric is read back from the
-device only at a logged step. The reference's profiler window
+time and images/s between logged steps, and unconditional records
+(validation) through ``log_now``. A metric is read back from the device
+only at a logged step. The reference's profiler window
 (``trace_dir``) is not ported.
 """
 
@@ -37,10 +38,18 @@ class MetricLogger:
                 # the single-card path: per chip = per run
                 record["images_per_sec_per_chip"] = self.batch_size / dt
         self._last_time, self._last_step = now, step
+        self._write(record)
+
+    def log_now(self, step: int, metrics: dict) -> None:
+        """One record whatever ``log_every`` says (validation results)."""
+        self._write({"step": step,
+                     **{k: float(v) for k, v in metrics.items()}})
+
+    def _write(self, record: dict) -> None:
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
-        parts = [f"step {step}"] + [f"{k}={v:.4g}" for k, v in record.items()
-                                    if k != "step"]
+        parts = [f"step {record['step']}"] + [
+            f"{k}={v:.4g}" for k, v in record.items() if k != "step"]
         print("  ".join(parts), flush=True)
 
     def write_json(self, name: str, obj) -> None:

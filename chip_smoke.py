@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # needs one CUDA card
     python3 chip_smoke.py --profile DIR        # also writes profiler tables
+    python3 chip_smoke.py --quality-gate       # also the 3k-step CIFAR gate
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -25,8 +26,22 @@ Phases, one JSON line each:
      ops (f32 compute, deterministic cuDNN), and a second, timed run.
   6. mnist_scorer, 7. mnist_iwae: the scorer (batch 64) and IWAE k=1000,
      chunk 50, over one batch of 64 on the trained weights.
+  8. cifar_train: train_loop on cifar_advprior_resnet at full width (batch
+     256, bf16 compute) with no arrays=: the loaders' synthetic CIFAR-10
+     (47,500 resident uint8 train rows, 2,500 valid rows), on-device
+     dequantization, 24 steps in calls of 8 with validation and a
+     checkpoint at step 24, a resume that restores it bit for bit, 24 more
+     steps; exact launch counts, finite metrics, a falling loss; one G
+     step's gradients through the kernels held to the plain ops; a timed
+     run.
+  9. cifar_ckpt: the step-48 checkpoint restored into a fresh state scores
+     the same ELBO as the trained state in memory; then IWAE k=1000, chunk
+     25, over the first 64 test images.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
+With --quality-gate, the reference's short gate follows: 3,000 steps of
+cifar_advprior_resnet on the synthetic set, then IWAE k=100 on 512 test
+images to bits/dim, with the active units and the wall time.
 Then a {"kernels": [...]} line, the nvidia-smi line and, last, the
 {"ok": true, ...} line. Any failed check exits nonzero without that line.
 """
@@ -66,9 +81,11 @@ BF16_TENSOR_OPS = 989e12       # dense bf16 on the tensor cores
 # Box-Muller and the affine; kl 2 + 4; bernoulli exp, log1p, max, abs, a
 # multiply and two adds; bernoulli_bwd exp, add, divide, subtract,
 # multiply; kl_bwd exp, subtract, three multiplies; reparam_bwd per sample
-# two adds, a subtract and two multiplies.
+# two adds, a subtract and two multiplies; disc_logistic_bwd 4 exp (1/s,
+# two sigmoids, expm1), 3 divides and ~23 adds, multiplies and compares.
 OPS_PER_ELEM = {"disc_logistic": 30, "reparam": 33, "kl": 6, "bernoulli": 7,
-                "bernoulli_bwd": 5, "kl_bwd": 5, "reparam_bwd": 5}
+                "bernoulli_bwd": 5, "kl_bwd": 5, "reparam_bwd": 5,
+                "disc_logistic_bwd": 30}
 
 REPLACES = {
     "reparam": "apv_tpu/ops/kernels.py:305",
@@ -78,17 +95,23 @@ REPLACES = {
     "reparam_bwd": "apv_tpu/ops/kernels.py:348",
     "kl_bwd": "apv_tpu/ops/kernels.py:121",
     "bernoulli_bwd": "apv_tpu/ops/kernels.py:159",
+    "disc_logistic_bwd": "apv_tpu/ops/kernels.py:223",
 }
 # each kernel's __global__ function, to find it in a profile
 KERNEL_FNS = {"reparam": "reparam_samples", "kl": "kl_rows",
               "disc_logistic": "disc_logistic_rows",
               "bernoulli": "bernoulli_rows", "reparam_bwd": "reparam_bwd_sum",
-              "kl_bwd": "kl_bwd_rows", "bernoulli_bwd": "bernoulli_bwd_rows"}
+              "kl_bwd": "kl_bwd_rows", "bernoulli_bwd": "bernoulli_bwd_rows",
+              "disc_logistic_bwd": "disc_logistic_bwd_rows"}
 SOURCES = {name: f"apv_tpu_torch/ops/csrc/{name.removesuffix('_bwd')}.cu"
            for name in REPLACES}
 
 TRAIN_STEPS = 48           # six calls of the preset's steps_per_call=8
 N_TRAIN_IMAGES = 60_000    # MNIST's train split
+CIFAR_STEPS = 48           # 24, then 24 more after a resume
+CIFAR_EVAL_EVERY = 24      # validation and checkpoint at steps 24 and 48
+CIFAR_SPLIT = (47_500, 2_500)   # CIFAR-10's 50,000 at valid_fraction 0.05
+GATE_STEPS = 3_000         # the reference's short quality gate
 
 
 class CheckFailed(RuntimeError):
@@ -240,6 +263,7 @@ def kernel_checks(K, card: str, dev) -> dict:
         **bound("reparam", card, 4 * (2 * BATCH * 128 + 25 * BATCH * 128),
                 25 * BATCH * 128)}
     results.update(mnist_kernel_checks(K, card, rng, cuda))
+    results.update(cifar_kernel_checks(K, card, rng, cuda))
     return results
 
 
@@ -345,6 +369,66 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
         "plain_ms": cuda_ms(lambda: K.reparam_bwd_plain(gz, z, mean), 200),
         **bound("reparam_bwd", card, 4 * (2 * n + n + 2 * n), n)}
     return results
+
+
+def disc_logistic_bwd_err(got, want, g, x, mean, ls,
+                          bin_size: float = 1.0 / 255.0) -> float:
+    """max over outputs and elements of |got - want| / bar, where the bar
+    is 1e-6·|g|·(1 + e^-ls + |a| + |b|): about 16 f32 ulps of the
+    largest term that each output is made of (dmean sums inv_s·(1, σ(a),
+    σ(b)); dlog_scale sums a·σ(a), b·(1 − σ(b)) and a t-term ≤ 1 + t, and
+    at the −7 floor |a|, |b| reach ~10³ and cancel)."""
+    xd, md, sd = x.double(), mean.double(), ls.double()
+    inv_s = torch.exp(-sd)
+    half = 0.5 * bin_size
+    a, b = (xd - md + half) * inv_s, (xd - md - half) * inv_s
+    bar = 1e-6 * g.double().abs()[:, None] * (1.0 + inv_s + a.abs()
+                                               + b.abs())
+    return max(float(((p.double() - q.double()).abs() / bar).max())
+               for p, q in zip(got, want) if p is not None)
+
+
+def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
+    """disc_logistic_bwd at the train step's [256, 3072] without dx, as the
+    path calls it, and with dx at an odd row length (the scalar loop), on
+    every level, both edges, the −7 floor and the t <= 1e-4 series."""
+    def inputs(rows, event):
+        x = rng.integers(0, 256, size=(rows, event)) / 255.0
+        x[0, :256] = np.arange(256) / 255.0        # every level, edges too
+        mean = rng.uniform(-0.2, 1.2, size=(rows, event))
+        ls = rng.uniform(-7.0, 0.0, size=(rows, event))
+        ls[1] = -7.0                               # the decoder's floor
+        ls[2] = rng.uniform(5.0, 5.5, size=event)  # t <= 1e-4: the series
+        ls[3] = rng.uniform(3.4, 4.0, size=event)  # t around 1e-4
+        ls[4, :256] = -7.0
+        x[4, :256] = np.arange(256) / 255.0        # every level at the floor
+        g = rng.normal(size=rows)
+        return tuple(cuda(v.astype(np.float32)) for v in (g, x, mean, ls))
+
+    rows, event = 256, 3072
+    g, x, mean, ls = inputs(rows, event)
+    got = K.disc_logistic_bwd_cuda(g, x, mean, ls, want_dx=False)
+    want = K.disc_logistic_bwd_plain(g, x, mean, ls)
+    check(got[0] is None, "disc_logistic_bwd: dx written though not asked")
+    err = disc_logistic_bwd_err(got, want, g, x, mean, ls)
+    go, xo, mo, so = inputs(7, event + 1)
+    got_o = K.disc_logistic_bwd_cuda(go, xo, mo, so)
+    err_odd = disc_logistic_bwd_err(got_o, K.disc_logistic_bwd_plain(
+        go, xo, mo, so), go, xo, mo, so)
+    check(max(err, err_odd) <= 1.0, f"disc_logistic_bwd: max |kernel - "
+          f"plain| / bar {err}, odd length with dx {err_odd} > 1")
+    n = rows * event
+    return {"disc_logistic_bwd": {
+        "shape": [rows, event], "max_abs_err": max(
+            float((p - q).abs().max()) for p, q in zip(got[1:], want[1:])),
+        "max_err_over_bar": err, "max_err_over_bar_odd_length_with_dx":
+            err_odd,
+        "bar": "1e-6*|g|*(1 + exp(-ls) + |a| + |b|) elementwise",
+        "ms": cuda_ms(lambda: K.disc_logistic_bwd_cuda(
+            g, x, mean, ls, want_dx=False), 500),
+        "plain_ms": cuda_ms(lambda: K.disc_logistic_bwd_plain(
+            g, x, mean, ls), 50),
+        **bound("disc_logistic_bwd", card, 4 * (rows + 3 * n + 2 * n), n)}}
 
 
 def bounds_to_port(card: str) -> dict:
@@ -546,7 +630,7 @@ def run_train(cfg, arrays, dev):
     return state
 
 
-def grad_check(cfg, state, x, dev) -> dict:
+def grad_check(cfg, state, x_in, x_target, dev, phase="train") -> dict:
     """One G step's gradients through the kernels against the same step
     through the plain ops, on the same noise: the plain Philox stream
     reproduces the kernel's ε. f32 compute and deterministic cuDNN, so the
@@ -554,30 +638,36 @@ def grad_check(cfg, state, x, dev) -> dict:
     can round to another bf16 value and move every later layer)."""
     from apv_tpu_torch import build_model
     from apv_tpu_torch.ops import kernels as K
-    from apv_tpu_torch.training.step import g_objective
+    from apv_tpu_torch.training.losses import \
+        decoder_output_to_likelihood_params
+    from apv_tpu_torch.training.step import _loss_scale, g_objective
     torch.backends.cudnn.deterministic = True
     try:
         m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
         m32.load_state_dict(state.model.state_dict())
         params = list(m32.parameters())
         beta = 1.0
-        loss_k, _, _ = g_objective(cfg, m32, state.d, x, x, beta,
+        loss_k, _, _ = g_objective(cfg, m32, state.d, x_in, x_target, beta,
                                    generator=gen(SEED + 5))
         grads_k = torch.autograd.grad(loss_k, params)
 
-        mean, logvar = m32.encode(x)
+        mean, logvar = m32.encode(x_in)
         z = K.reparam_plain(mean, logvar, 1, *K.draw_key(gen(SEED + 5)))[0]
-        recon = K.bernoulli_plain(x, m32.decode(z))
+        lik = decoder_output_to_likelihood_params(
+            m32.decode(z), cfg.model.likelihood, x_target.shape[-1])
+        recon = (K.bernoulli_plain(x_target, *lik)
+                 if cfg.model.likelihood == "bernoulli"
+                 else K.disc_logistic_plain(x_target, *lik))
         adv = cfg.adversarial.weight * beta * state.d(z)
-        loss_p = -((recon + adv).mean() - beta * K.kl_plain(mean,
-                                                            logvar).mean())
+        loss_p = -((recon + adv).mean() - beta * K.kl_plain(
+            mean, logvar).mean()) * _loss_scale(cfg)
         grads_p = torch.autograd.grad(loss_p, params)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = False
     rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
               for a, b in zip(grads_k, grads_p))
-    check(rel <= 1e-3, f"train: G gradients kernels vs plain, "
+    check(rel <= 1e-3, f"{phase}: G gradients kernels vs plain, "
           f"scale-relative {rel} > 1e-3")
     return {"grad_max_scale_rel_err": rel,
             "loss_kernels": float(loss_k.detach()),
@@ -619,7 +709,7 @@ def train_phase(dev, tmp: str):
           f"below the first 8 {first}")
 
     x = torch.from_numpy(bits[:256].astype(np.float32)).to(dev)
-    grads = grad_check(cfg, state, x, dev)
+    grads = grad_check(cfg, state, x, x, dev)
 
     # timed run: one read-back per call of 8 steps, as the loop logs
     cfg_t = dataclasses.replace(cfg, name=cfg.name + "_timed",
@@ -645,6 +735,232 @@ def train_phase(dev, tmp: str):
 
 
 # ---------------------------------------------------------------------------
+# phases 8-9: training cifar_advprior_resnet, then its checkpoint
+# ---------------------------------------------------------------------------
+
+def cifar_config(results_dir: str, *extra: str):
+    """The flagship preset with its schedule cut to CIFAR_STEPS (warm-up
+    over the first half, cosine decay over the second)."""
+    from apv_tpu_torch import apply_overrides, get_preset
+    return apply_overrides(get_preset("cifar_advprior_resnet"), [
+        f"results_dir={results_dir}", "train.log_every=1",
+        f"train.steps={CIFAR_STEPS}", f"train.eval_every={CIFAR_EVAL_EVERY}",
+        f"train.checkpoint_every={CIFAR_EVAL_EVERY}", *extra])
+
+
+def states_equal(a, b) -> bool:
+    """Bit equality of two TrainStates: step, seed, parameters, buffers and
+    both optimizers' counts and moments."""
+    def flat(st):
+        sd = st.state_dict()
+        out = [sd["step"], sd["seed"], sd["opt"]["count"],
+               sd["d_opt"]["count"]]
+        tensors = [*sd["model"].values(), *sd["d"].values(),
+                   *sd["opt"]["mu"], *sd["opt"]["nu"], *sd["d_opt"]["mu"],
+                   *sd["d_opt"]["nu"]]
+        return out, tensors
+    (ha, ta), (hb, tb) = flat(a), flat(b)
+    return ha == hb and len(ta) == len(tb) and all(
+        x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        for x, y in zip(ta, tb))
+
+
+def cifar_train_phase(dev, tmp: str):
+    """Returns (launches of the checked runs, trained state, cfg)."""
+    from apv_tpu_torch import latest_step, train_loop
+    from apv_tpu_torch.data.preprocess import (normalize_center,
+                                               uniform_dequantize)
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.training.loop import load_train_arrays
+    cfg = cifar_config(tmp)
+    k, half = cfg.train.steps_per_call, CIFAR_STEPS // 2
+    check(k == 8 and cfg.data.device_resident and cfg.data.dequantize
+          and cfg.adversarial.d_reuse_posterior,
+          "cifar_advprior_resnet preset: expected resident dequantized "
+          "data, k=8, D on the G phase's posterior")
+    t0 = time.perf_counter()
+    train_arrays, valid_arrays = load_train_arrays(cfg)
+    data_s = time.perf_counter() - t0
+    n_train, n_valid = len(train_arrays["image"]), len(valid_arrays["image"])
+    check((n_train, n_valid) == CIFAR_SPLIT
+          and train_arrays["image"].dtype == np.uint8,
+          f"cifar10 train/valid split {n_train}/{n_valid}")
+    valid_batches = n_valid // min(cfg.train.batch_size, n_valid)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state24 = train_loop(cfg, max_steps=half, device=dev)
+        torch.cuda.synchronize()
+        wall_first = time.perf_counter() - t0
+        ckpt_dir = Path(tmp) / cfg.name / "checkpoints"
+        check(latest_step(ckpt_dir) == half, f"cifar_train: checkpoint "
+              f"steps {latest_step(ckpt_dir)} after {half} steps")
+        # the resumed state before its first step: the loop's own resume
+        # with nothing left to run
+        resumed = train_loop(cfg, max_steps=0, resume=True, device=dev)
+        check(resumed.step == half and states_equal(resumed, state24),
+              "cifar_train: the resumed state differs from the step-24 "
+              "checkpoint's")
+        del resumed
+        t0 = time.perf_counter()
+        state = train_loop(cfg, max_steps=half, resume=True, device=dev)
+        torch.cuda.synchronize()
+        wall_second = time.perf_counter() - t0
+    launches = dict(K.launches)
+    per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1, "reparam_bwd": 1,
+                "kl_bwd": 1, "disc_logistic_bwd": 1}
+    per_valid = {"reparam": 1, "kl": 1, "disc_logistic": 1}
+    want = {n: CIFAR_STEPS * per_step.get(n, 0)
+            + 2 * valid_batches * per_valid.get(n, 0) for n in K.launches}
+    check(launches == want, f"cifar_train launches {launches}, want {want}")
+    check(state.step == CIFAR_STEPS and latest_step(ckpt_dir) == CIFAR_STEPS,
+          "cifar_train: final step or checkpoint")
+
+    records = read_metrics(cfg)
+    train_recs = [r for r in records if "loss" in r]
+    valid_recs = [r for r in records if "valid_elbo" in r]
+    check([r["step"] for r in train_recs] == list(range(CIFAR_STEPS)),
+          "cifar_train: one metrics line per step 0..47")
+    check([r["step"] for r in valid_recs] == [half, CIFAR_STEPS],
+          f"cifar_train: validation at {[r['step'] for r in valid_recs]}")
+    check(all(math.isfinite(v) for r in records for v in r.values()),
+          "cifar_train: a metric is not finite")
+    best = json.loads((Path(tmp) / cfg.name / "best.json").read_text())
+    check(best["valid_elbo"] == max(r["valid_elbo"] for r in valid_recs),
+          "cifar_train: best.json is not the best validation")
+    loss = [r["loss"] for r in train_recs]
+    first, last = float(np.mean(loss[:8])), float(np.mean(loss[-8:]))
+    check(last < first, f"cifar_train: mean loss of the last 8 steps {last} "
+          f"not below the first 8 {first}")
+
+    image = torch.from_numpy(
+        valid_arrays["image"][:cfg.train.batch_size]).to(dev)
+    u = torch.rand(image.shape, generator=torch.Generator(dev).manual_seed(
+        SEED + 7), device=dev)
+    x_in = normalize_center(uniform_dequantize(image, u=u))
+    grads = grad_check(cfg, state, x_in, image.to(torch.float32) / 255.0, dev,
+                       phase="cifar_train")
+
+    # timed run on the train set already loaded: one read-back per call
+    # of 8 steps, no validation
+    cfg_t = cifar_config(tmp, f"name={cfg.name}_timed", "train.log_every=8",
+                         "train.eval_every=0")
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_loop(cfg_t, arrays=train_arrays, device=dev)
+    torch.cuda.synchronize()
+    dts = [r["step_time_s"] for r in read_metrics(cfg_t)
+           if "step_time_s" in r]
+    step_s = float(np.mean(dts))
+    last_rec = train_recs[-1]
+    emit("cifar_train", preset=cfg.name, batch=cfg.train.batch_size,
+         steps=CIFAR_STEPS, steps_per_call=k, n_train=n_train,
+         n_valid=n_valid, resident_bytes=int(train_arrays["image"].nbytes),
+         data_load_s=data_s, launches=launches, loss_first8=first,
+         loss_last8=last, valid=valid_recs, last_step={
+             kk: last_rec[kk] for kk in ("loss", "recon", "kl", "elbo",
+                                         "g_adv", "grad_norm", "d_loss",
+                                         "d_acc", "beta")},
+         resume_bit_exact=True, wall_s_first_24=wall_first,
+         wall_s_resumed_24=wall_second, step_time_s=step_s,
+         steps_per_s=1.0 / step_s,
+         images_per_s=cfg.train.batch_size / step_s, **grads)
+    return launches, state, cfg
+
+
+def cifar_ckpt_phase(cfg, state, tmp: str, dev):
+    """The final checkpoint restored into a fresh init_fn state scores the
+    ELBO of the trained state in memory; then IWAE k=1000 on 64 test
+    images. Returns the launches of the restored model's scorer and IWAE."""
+    from apv_tpu_torch import (get_preset, load_dataset, make_scorer,
+                               make_train_fns, restore_checkpoint)
+    from apv_tpu_torch.eval.iwae_eval import estimate_log_partition
+    from apv_tpu_torch.ops import kernels as K
+    fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+    restore_checkpoint(Path(tmp) / cfg.name / "checkpoints", fresh)
+    check(states_equal(fresh, state), "cifar_ckpt: the restored state "
+          "differs from the trained one")
+    images = load_dataset("cifar10", "test")[0][:BATCH]
+    x = torch.from_numpy(images.astype(np.float32) / 255.0).to(dev)
+    with torch.inference_mode():
+        log_z = float(estimate_log_partition(fresh.d, cfg.model.z_dim,
+                                             seed=SEED + 17, device=dev))
+    mem = make_scorer(cfg, state.model, state.d, log_z, device=dev)
+    elbo_mem = mem(x, generator=gen(SEED))
+    scorer = make_scorer(cfg, fresh.model, fresh.d, log_z, device=dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    elbo = scorer(x, generator=gen(SEED))
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    check(launches == expected(K, reparam=1, kl=1, disc_logistic=1),
+          f"cifar_ckpt scorer launches {launches}")
+    check(bool(torch.isfinite(elbo).all()) and torch.equal(elbo, elbo_mem),
+          "cifar_ckpt: the restored model's ELBO differs from the trained "
+          f"one's by {float((elbo - elbo_mem).abs().max())}")
+    elbo_np = elbo.double().cpu().numpy()
+    emit("cifar_ckpt_scorer", preset=cfg.name, batch=BATCH,
+         launches=launches, elbo_mean=float(elbo_np.mean()),
+         elbo_std=float(elbo_np.std()), log_partition=log_z,
+         restored_equals_trained=True)
+    iw = iwae_phase("cifar_ckpt", get_preset("iwae_eval"), fresh.model,
+                    fresh.d, images, elbo_np, 25, dev)
+    return {n: launches[n] + iw[n] for n in K.launches}
+
+
+def quality_gate(dev, tmp: str) -> None:
+    """The reference's short CIFAR gate (scripts/act_gates.sh): 3,000 steps
+    of cifar_advprior_resnet on the synthetic set, validation every 1,000,
+    then IWAE k=100 (chunk 25, batch 64) of the final checkpoint on the
+    first 512 test images; bits/dim, active units and wall time."""
+    from apv_tpu_torch import (apply_overrides, evaluate_nll, get_preset,
+                               load_dataset, make_train_fns,
+                               restore_checkpoint, train_loop)
+    from apv_tpu_torch.core.metrics import active_units
+    from apv_tpu_torch.eval.run import _prep_eval_batch
+    cfg = apply_overrides(get_preset("cifar_advprior_resnet"), [
+        f"results_dir={tmp}", "name=cifar_gate", f"train.steps={GATE_STEPS}",
+        f"train.eval_every={GATE_STEPS // 3}",
+        f"train.checkpoint_every={GATE_STEPS}",
+        "train.log_every=100"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_loop(cfg, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    records = read_metrics(cfg)
+    check(all(math.isfinite(v) for r in records for v in r.values()),
+          "quality_gate: a metric is not finite")
+    cfg4 = apply_overrides(get_preset("iwae_eval"),
+                           ["eval.iwae_k=100", "eval.max_examples=512"])
+    state = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+    restore_checkpoint(Path(tmp) / cfg.name / "checkpoints", state)
+    images = load_dataset("cifar10", "test")[0][:cfg4.eval.max_examples]
+    t0 = time.perf_counter()
+    res = evaluate_nll(cfg4, state.model, state.d, images,
+                       k=cfg4.eval.iwae_k, chunk=cfg4.eval.iwae_chunk,
+                       batch_size=cfg4.eval.batch_size, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        means = [state.model.encode(torch.from_numpy(_prep_eval_batch(
+            cfg4, images[i:i + 64])[0]).to(dev))[0].cpu().numpy()
+            for i in range(0, len(images), 64)]
+    n_active, _ = active_units(means)
+    check(math.isfinite(res["bits_per_dim"]) and math.isfinite(
+        res["nll_nats"]), "quality_gate: bits/dim not finite")
+    emit("quality_gate", preset=cfg.name, steps=cfg.train.steps,
+         iwae_k=cfg4.eval.iwae_k, chunk=cfg4.eval.iwae_chunk,
+         examples=res["num_examples"], bits_per_dim=res["bits_per_dim"],
+         nll_nats=res["nll_nats"], nll_nats_se=res["nll_nats_se"],
+         log_partition=res["log_partition"],
+         active_units=n_active, z_dim=cfg.model.z_dim,
+         valid=[r for r in records if "valid_elbo" in r],
+         last_train=[r for r in records if "loss" in r][-1],
+         train_wall_s=train_s, eval_wall_s=eval_s)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -652,7 +968,10 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one IWAE batch of each family and "
-                         "16 MNIST train steps; write tables here")
+                         "16 train steps of each; write tables here")
+    ap.add_argument("--quality-gate", action="store_true",
+                    help="also run the 3k-step CIFAR gate and IWAE k=100 "
+                         "on 512 test images (a few minutes)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -726,6 +1045,18 @@ def main(argv: list[str]) -> int:
     if args.profile is not None:
         profile_window(args.profile, "mnist_iwae", lambda: evaluate_iwae(
             cfg2, state.model, state.d, bits, dev))
+    del state
+
+    # 8-9. training cifar_advprior_resnet, then its checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        path_launches["cifar_train"], state, cfg3 = cifar_train_phase(dev,
+                                                                      tmp)
+        path_launches["cifar_ckpt"] = cifar_ckpt_phase(cfg3, state, tmp, dev)
+        del state
+        if args.profile is not None:
+            profile_train(args.profile, cfg3, dev, tag="cifar_train")
+        if args.quality_gate:
+            quality_gate(dev, tmp)
 
     total = {n: sum(pl[n] for pl in path_launches.values())
              for n in K.launches}
@@ -757,27 +1088,32 @@ def evaluate_iwae(cfg, model, d, images, dev):
                  seed=SEED + 2, device=dev)
 
 
-def profile_train(out_dir: Path, cfg, dev, steps: int = 16) -> None:
-    """16 steady train steps of ``cfg`` on resident packed data, as the
-    loop runs them (without its logger), after 8 warm-up steps."""
+def profile_train(out_dir: Path, cfg, dev, steps: int = 16,
+                  tag: str = "train") -> None:
+    """16 steady train steps of ``cfg`` on resident data (packed digits, or
+    uint8 CIFAR-shaped levels for the dequantized configs), as the loop
+    runs them (without its logger), after 8 warm-up steps."""
     from apv_tpu_torch.data.preprocess import pack_bits, static_binarize
     from apv_tpu_torch.training.step import make_train_fns
     fns = make_train_fns(cfg, device=dev)
     state = fns.init_fn(cfg.train.seed)
-    packed = pack_bits(static_binarize(synthetic_digits(4096, SEED + 6)))
-    data = torch.from_numpy(packed).to(dev)
-    idx = torch.randint(0, len(packed), (steps + 8, cfg.train.batch_size),
+    if cfg.data.dequantize:
+        key, rows = "image", np.random.default_rng(SEED + 6).integers(
+            0, 256, size=(4096, *cfg.model.image_shape), dtype=np.uint8)
+    else:
+        key, rows = "image_packed", pack_bits(static_binarize(
+            synthetic_digits(4096, SEED + 6)))
+    data = torch.from_numpy(rows).to(dev)
+    idx = torch.randint(0, len(rows), (steps + 8, cfg.train.batch_size),
                         generator=gen(SEED)).to(dev)
 
     def run(lo, hi):
         for i in range(lo, hi):
-            fns.train_step(state, {"image_packed": data.index_select(
-                0, idx[i])})
+            fns.train_step(state, {key: data.index_select(0, idx[i])})
         torch.cuda.synchronize()
 
     run(0, 8)
-    profile_window(out_dir, "train", lambda: run(8, 8 + steps),
-                   steps=steps)
+    profile_window(out_dir, tag, lambda: run(8, 8 + steps), steps=steps)
 
 
 def profile_window(out_dir: Path, tag: str, fn, **extra) -> None:

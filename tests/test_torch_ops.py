@@ -231,6 +231,77 @@ def test_disc_logistic_elementwise_edges_and_scales(rng):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
 
 
+def _disc_logistic_bwd_inputs(rng, rows=6, event=512):
+    """Every level (both edge bins among them), the decoder's −7 floor,
+    log-scales where t = bin/s ≤ 1e-4 (the rule's series) and around it."""
+    x = rng.integers(0, 256, size=(rows, event)) / 255.0
+    x[0, :256] = np.arange(256) / 255.0
+    x[1, :256] = np.arange(256) / 255.0
+    mean = rng.uniform(-0.2, 1.2, size=(rows, event))
+    ls = rng.uniform(-7.0, 0.0, size=(rows, event))
+    ls[1] = -7.0                                   # every level at the floor
+    ls[2] = rng.uniform(5.0, 5.5, size=event)      # t ~ 2e-5: the series
+    ls[3] = rng.uniform(3.4, 4.0, size=event)      # t around 1e-4
+    ls[4] = rng.uniform(-2.0, 3.0, size=event)
+    g = rng.normal(size=rows)
+    return tuple(v.astype(np.float32) for v in (g, x, mean, ls))
+
+
+def _disc_logistic_bwd_bar(g, x, mean, ls, rel, autograd=False):
+    """rel·|g|·(1 + e^-ls + |a| + |b|): ``rel`` of the largest f32 term each
+    gradient is made of (dmean sums inv_s·(1, σ(a), σ(b)); dlog_scale sums
+    a·σ(a), b·(1 − σ(b)) and a t-term ≤ 1 + t, and at the −7 floor |a|, |b|
+    reach ~10³ and cancel).
+
+    ``autograd``: torch's autograd of the plain forward, against the rule,
+    also carries the forward's own rounding. For t > 1e-3 the forward takes
+    log(expm1(t)) as t + log1p(−e^{−t}), whose 1 − e^{−t} loses log10(1/t)
+    digits; its derivative, and so the t-term, is off by up to ~ε/t (6e-5
+    just above the branch point). The bar adds 1e-7·|g|/t there."""
+    xd, md, sd = (v.astype(np.float64) for v in (x, mean, ls))
+    inv_s = np.exp(-sd)
+    half = 0.5 / 255.0
+    a, b = (xd - md + half) * inv_s, (xd - md - half) * inv_s
+    gd = np.abs(g.astype(np.float64))[:, None]
+    bar = rel * gd * (1.0 + inv_s + np.abs(a) + np.abs(b))
+    if autograd:
+        t = inv_s / 255.0
+        bar = bar + np.where(t > 1e-3, 1e-7 * gd / t, 0.0)
+    return bar
+
+
+@pytest.mark.parametrize("reference", ["rule", "vjp", "autograd"])
+def test_disc_logistic_bwd_matches_jax(rng, reference):
+    """``disc_logistic_bwd_plain`` against ``_disc_logistic_bwd`` called
+    directly, against ``jax.vjp`` of the custom_vjp op (its Pallas forward
+    in interpret mode), and torch's autograd of the plain forward (the CPU
+    path's gradient) against the rule."""
+    g, x, mean, ls = _disc_logistic_bwd_inputs(rng)
+    got = K.disc_logistic_bwd_plain(_t(g), _t(x), _t(mean), _t(ls))
+    rule = JK._disc_logistic_bwd(1 / 255.0, (x, mean, ls), g)
+    if reference == "rule":
+        want = rule
+    elif reference == "vjp":
+        _, vjp = jax.vjp(lambda a, m, s: JK.disc_logistic(a, m, s,
+                                                          1 / 255.0),
+                         x, mean, ls)
+        want = vjp(g)
+    else:
+        xt, mt, st = (_t(v).requires_grad_() for v in (x, mean, ls))
+        (ops.disc_logistic_recon_ll(xt, mt, st) * _t(g)).sum().backward()
+        got, want = (xt.grad, mt.grad, st.grad), rule
+    # the same f32 formulas through two libms: within 1e-6 (~16 ulps) of
+    # the largest term; autograd's series for 1e-4 < t <= 1e-3 differs from
+    # the rule's by t²/3 <= 3.4e-7, inside that bar too, and its big-t
+    # branch carries the forward's cancellation (see the bar)
+    bar = _disc_logistic_bwd_bar(g, x, mean, ls, 1e-6,
+                                 autograd=reference == "autograd")
+    for name, a, b in zip(("dx", "dmean", "dlog_scale"), got, want):
+        err = np.abs(a.numpy().astype(np.float64) - np.asarray(b, np.float64))
+        assert (err <= bar).all(), (name, float((err / bar).max()))
+    assert np.isfinite(np.asarray(want[2])).all()
+
+
 def test_disc_logistic_pmf_sums_to_one():
     """Closed form: the 256 bins' probabilities sum to 1."""
     levels = torch.arange(256, dtype=torch.float32) / 255.0
@@ -321,6 +392,8 @@ WRAPPER_CALLS = {
     "kl_bwd": lambda m, lv, g: K.kl_bwd_cuda(g, m, lv),
     "reparam_bwd": lambda m, lv, g: K.reparam_bwd_cuda(m[None], lv[None],
                                                        lv),
+    "disc_logistic_bwd": lambda m, lv, g: K.disc_logistic_bwd_cuda(g, lv, m,
+                                                                   lv),
 }
 
 
@@ -339,12 +412,49 @@ def test_cuda_wrappers_refuse_grad_and_cpu_tensors(name):
 
 
 def test_disc_logistic_grad_on_cuda_is_not_ported_yet(monkeypatch):
-    """Its backward kernel comes with the CIFAR training slice: a CUDA input
-    that requires grad raises before any launch (the device test is stood
-    in, as there is no card here)."""
+    """The CUDA path of ``disc_logistic_recon_ll`` is an autograd.Function
+    of the forward and backward kernels (``_DiscLogisticFn``; ported with
+    the CIFAR training slice), rehearsed with the kernels stood in by their
+    plain versions: both get detached tensors, dx is asked for only when x
+    requires grad, and the gradients equal torch's autograd of the plain
+    forward."""
     from apv_tpu_torch.ops import dispatch as Dp
-    monkeypatch.setattr(Dp, "_on_cpu", lambda name, *t: False)
-    x = torch.zeros(2, 4)
-    m = torch.zeros(2, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="_disc_logistic_bwd"):
-        ops.disc_logistic_recon_ll(x, m, x)
+    calls = []
+
+    def fwd(x, m, s, bin_size):
+        assert not any(t.requires_grad for t in (x, m, s))
+        calls.append("disc_logistic_cuda")
+        return K.disc_logistic_plain(x, m, s, bin_size)
+
+    def bwd(g, x, m, s, bin_size, *, want_dx=True):
+        assert not any(t.requires_grad for t in (g, x, m, s))
+        calls.append(("disc_logistic_bwd_cuda", want_dx))
+        dx, dm, ds = K.disc_logistic_bwd_plain(g, x, m, s, bin_size)
+        return (dx if want_dx else None), dm, ds
+
+    monkeypatch.setattr(K, "disc_logistic_cuda", fwd)
+    monkeypatch.setattr(K, "disc_logistic_bwd_cuda", bwd)
+    rng = np.random.default_rng(8)
+    g, x, mean, ls = _disc_logistic_bwd_inputs(rng, rows=5, event=256)
+    shape = (5, 8, 8, 4)                    # NHWC rows flattened by the op
+
+    def grads(on_cuda, x_grad):
+        monkeypatch.setattr(Dp, "_on_cpu", lambda name, *t: not on_cuda)
+        xt = _t(x.reshape(shape)).requires_grad_(x_grad)
+        mt, st = (_t(v.reshape(shape)).requires_grad_() for v in (mean, ls))
+        (ops.disc_logistic_recon_ll(xt, mt, st) * _t(g)).sum().backward()
+        return xt.grad, mt.grad, st.grad
+
+    for x_grad in (False, True):
+        calls.clear()
+        got = grads(True, x_grad)
+        assert calls == ["disc_logistic_cuda",
+                         ("disc_logistic_bwd_cuda", x_grad)]
+        want = grads(False, x_grad)
+        assert (got[0] is None) == (not x_grad)
+        bar = _disc_logistic_bwd_bar(g, x, mean, ls, 1e-6,
+                                     autograd=True).reshape(shape)
+        for a, b in zip(got, want):
+            if b is not None:
+                err = (a - b).abs().numpy()
+                assert (err <= bar).all(), float((err / bar).max())

@@ -276,7 +276,7 @@ def test_train_loop_writes_metrics(tmp_path, resident, packed):
     """Two steps of the loop in calls of 2, with the preset's resident
     bit-packed data and with streamed float rows: config.json and one
     metrics.jsonl line per step, finite; a second run into the same
-    results dir is refused unless overwrite."""
+    results dir is refused unless overwrite or resume."""
     cfg = _port_cfg(tiny_config(
         "mnist_advprior", tmp_dir=str(tmp_path),
         **{"train.log_every": 1, "train.steps_per_call": 2,
@@ -301,7 +301,13 @@ def test_train_loop_writes_metrics(tmp_path, resident, packed):
     assert "images_per_sec_per_chip" in lines[1]
     with pytest.raises(FileExistsError):
         train_loop(cfg, arrays=arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="resume"):
-        train_loop(cfg, arrays=arrays, device="cpu", resume=True)
+    # resume restores the step-2 checkpoint; with no step left it returns
+    # the restored state, equal to the run's
+    resumed = train_loop(cfg, arrays=arrays, device="cpu", resume=True)
+    assert resumed.step == 2
+    for a, b in zip(resumed.model.state_dict().values(),
+                    state.model.state_dict().values()):
+        assert torch.equal(a, b)
+    assert len((out / "metrics.jsonl").read_text().splitlines()) == 2
     train_loop(cfg, arrays=arrays, device="cpu", overwrite=True)
     assert len((out / "metrics.jsonl").read_text().splitlines()) == 2
