@@ -96,3 +96,37 @@ def discretized_logistic_logpmf(x: torch.Tensor, mean: torch.Tensor,
     is_high = x >= high - half
     return torch.where(is_low, log_cdf_low,
                        torch.where(is_high, log_sf_high, log_interior))
+
+
+def discretized_logistic_sample(mean: torch.Tensor, log_scale: torch.Tensor,
+                                *, generator: torch.Generator | None = None,
+                                u: torch.Tensor | None = None,
+                                bin_size: float = 1.0 / 255.0,
+                                low: float = 0.0,
+                                high: float = 1.0) -> torch.Tensor:
+    """Sample a pixel: logistic noise + mean, quantized to the bin grid.
+
+    u ~ U[1e-5, 1 − 1e-5) of the broadcast shape comes from ``generator``
+    (on mean's device), or is injected as ``u``."""
+    mean, log_scale = _f32(mean), _f32(log_scale)
+    shape = torch.broadcast_shapes(mean.shape, log_scale.shape)
+    if u is None:
+        u = torch.rand(shape, generator=generator, device=mean.device) \
+            * (1.0 - 2e-5) + 1e-5
+    elif tuple(u.shape) != tuple(shape):
+        raise ValueError(f"discretized_logistic_sample: u has shape "
+                         f"{tuple(u.shape)}, expected {tuple(shape)}")
+    y = mean + torch.exp(log_scale) * (torch.log(u) - torch.log1p(-u))
+    y = torch.round(y / bin_size) * bin_size
+    return torch.clamp(y, low, high)
+
+
+def diag_gmm_logpdf(z: torch.Tensor, log_w: torch.Tensor, means: torch.Tensor,
+                    variances: torch.Tensor) -> torch.Tensor:
+    """log density of a diagonal-covariance Gaussian mixture over the last
+    axis: ``z [..., Z]``, ``log_w [K]``, ``means/variances [K, Z]`` ->
+    ``[...]``, an exact logsumexp over the K component log-densities."""
+    z = _f32(z)[..., None, :]                                 # [..., 1, Z]
+    comp = -0.5 * torch.sum((z - means) ** 2 / variances + _LOG_2PI
+                            + torch.log(variances), dim=-1)
+    return torch.logsumexp(log_w + comp, dim=-1)

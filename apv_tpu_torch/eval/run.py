@@ -1,5 +1,6 @@
-"""``evaluate_nll``: test-set NLL via IWAE-k and bits/dim on one device
-(counterpart of ``apv_tpu/eval/run.py:42-53,218-399``).
+"""``evaluate_nll``: test-set NLL via IWAE-k and bits/dim on one device,
+and ``eval_arrays``, the test split as eval sees it (counterpart of
+``apv_tpu/eval/run.py:26-53,218-399``).
 
 Deterministic input convention at eval: no dequantization noise — the
 encoder sees centered bin centers, the likelihood scores the discrete
@@ -14,10 +15,28 @@ import numpy as np
 import torch
 
 from apv_tpu_torch.core.metrics import nats_to_bits_per_dim
-from apv_tpu_torch.data.preprocess import normalize_center, to_unit_interval
+from apv_tpu_torch.data.datasets import load_dataset
+from apv_tpu_torch.data.preprocess import (normalize_center, static_binarize,
+                                           to_unit_interval)
 from apv_tpu_torch.eval.iwae_eval import estimate_log_partition, make_iwae_fn
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
+
+
+def eval_arrays(cfg: Config, dataset: str | None = None,
+                max_examples: int | None = None) -> dict[str, np.ndarray]:
+    """The test split of ``dataset`` (default ``cfg.data.dataset``) with
+    train-matched preprocessing: the binarized configs binarize it once
+    with the seed ``cfg.train.seed + 1``; uint8 levels otherwise. Cut to
+    the first ``max_examples``."""
+    images, _ = load_dataset(dataset or cfg.data.dataset, "test",
+                             data_dir=cfg.data.data_dir,
+                             synthetic_size=cfg.data.synthetic_size)
+    if cfg.data.binarize:
+        images = static_binarize(images, seed=cfg.train.seed + 1)
+    if max_examples is not None:
+        images = images[:max_examples]
+    return {"image": images}
 
 
 def _prep_eval_batch(cfg: Config, image: np.ndarray):

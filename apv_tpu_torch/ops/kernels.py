@@ -28,6 +28,16 @@ blocks); each backward kernel replaces the jnp rule of that op's
   mean and logvar are read as [B, Z] for all S samples. ``reparam_bwd``
   (same file) replaces ``_reparam_bwd`` + ``_unbroadcast``: one thread per
   element sums over the sample axis, deterministic, no atomics.
+* ``groupnorm_gelu`` (``csrc/groupnorm_gelu.cu``) replaces
+  ``apv_tpu/ops/groupnorm.py::_fwd`` / ``_gn_gelu_kernel``. Bound: memory,
+  x in and y out (67.1 MB in bf16 at [256, 32, 32, 64]). Design: one block
+  per (row, group), a plain block reduction for the statistics.
+  ``groupnorm_gelu_bwd`` (same file) replaces the rule ``_bwd``, with
+  dgamma and dbeta as per-row partials summed in a fixed order.
+* ``conv3x3`` (``csrc/conv3x3.cu``) replaces
+  ``scripts/conv_microbench.py::pallas_conv``. Bound: operations (19.3
+  GFLOP at each probe shape). Design: an implicit GEMM over shared-memory
+  tiles with f32 FMAs.
 
 The wrappers (``*_cuda``) take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate the outputs with ``torch.empty``, launch on
@@ -46,6 +56,8 @@ plain version on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from apv_tpu_torch.core import distributions as D
@@ -54,7 +66,8 @@ from apv_tpu_torch.core import distributions as D
 launches: dict[str, int] = {
     "reparam": 0, "kl": 0, "disc_logistic": 0, "bernoulli": 0,
     "reparam_bwd": 0, "kl_bwd": 0, "bernoulli_bwd": 0,
-    "disc_logistic_bwd": 0}
+    "disc_logistic_bwd": 0, "groupnorm_gelu": 0, "groupnorm_gelu_bwd": 0,
+    "conv3x3": 0}
 
 
 def reset_launches() -> None:
@@ -361,10 +374,12 @@ def philox_normals(total: int, seed: int, offset: int,
 
 
 def draw_key(generator: torch.Generator | None) -> tuple[int, int]:
-    """(seed, offset) for one reparam call, from one CPU ``torch.randint``
-    on the caller's generator (``None``: torch's default CPU generator)."""
+    """(seed, offset) for one reparam call, from one ``torch.randint`` on
+    the caller's generator, on the generator's device (``None``: torch's
+    default CPU generator)."""
+    dev = generator.device if generator is not None else "cpu"
     seed, offset = torch.randint(0, 2 ** 63 - 1, (2,), generator=generator,
-                                 dtype=torch.int64).tolist()
+                                 dtype=torch.int64, device=dev).tolist()
     return seed, offset
 
 
@@ -428,3 +443,203 @@ def reparam_bwd_cuda(g: torch.Tensor, z: torch.Tensor, mean: torch.Tensor
                 dlogvar.data_ptr(), g.shape[0], mean.numel(),
                 device=mean.device)
     return dmean, dlogvar
+
+
+# ---------------------------------------------------------------------------
+# groupnorm_gelu: fused GroupNorm + tanh-GELU over NHWC, and its rule
+# ---------------------------------------------------------------------------
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+_GN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gelu_tanh(v: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (``jax.nn.gelu(approximate=True)``,
+    flax's default)."""
+    return 0.5 * v * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (v + 0.044715 * v ** 3)))
+
+
+def _group_shape(x: torch.Tensor, groups: int) -> tuple[int, int, int]:
+    """(B, HW, C) of NHWC x; raise unless C % groups == 0."""
+    if x.dim() != 4:
+        raise ValueError(f"groupnorm_gelu: expects NHWC x, got "
+                         f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if groups < 1 or c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    return b, h * w, c
+
+
+def groupnorm_gelu_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, groups: int = 8,
+                         eps: float = 1e-6
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_reference`` with the residuals of ``_fwd``: (y in x's dtype, mean
+    [B, G], rstd [B, G]); float32 statistics, two-pass variance."""
+    b, hw, c = _group_shape(x, groups)
+    xf = x.to(torch.float32).reshape(b, hw, groups, c // groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xf - mean) * rstd).reshape(b, hw, c)
+    y = gelu_tanh(xhat * gamma.to(torch.float32) + beta.to(torch.float32))
+    return (y.reshape(x.shape).to(x.dtype), mean.reshape(b, groups),
+            rstd.reshape(b, groups))
+
+
+def groupnorm_gelu_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
+                             gamma: torch.Tensor, beta: torch.Tensor,
+                             mean: torch.Tensor, rstd: torch.Tensor,
+                             groups: int = 8
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The rule ``_bwd`` written out: (dx in x's dtype, dgamma, dbeta in
+    float32). With y_pre = xhat·γ + β: dy_pre = dy·gelu'(y_pre), dgamma =
+    Σ dy_pre·xhat, dbeta = Σ dy_pre, dxhat = dy_pre·γ and dx = rstd·(dxhat
+    − mean_g(dxhat) − xhat·mean_g(dxhat·xhat))."""
+    b, hw, c = _group_shape(x, groups)
+    cg = c // groups
+    xf = x.to(torch.float32).reshape(b, hw, groups, cg)
+    xhat = (xf - mean[:, None, :, None]) * rstd[:, None, :, None]
+    xhat2 = xhat.reshape(b, hw, c)
+    g32, b32 = gamma.to(torch.float32), beta.to(torch.float32)
+    y_pre = xhat2 * g32 + b32
+    th = torch.tanh(_SQRT_2_OVER_PI * (y_pre + 0.044715 * y_pre ** 3))
+    dgelu = 0.5 * (1.0 + th) + 0.5 * y_pre * (1.0 - th ** 2) \
+        * _SQRT_2_OVER_PI * (1.0 + 3 * 0.044715 * y_pre ** 2)
+    dy_pre = dy.to(torch.float32).reshape(b, hw, c) * dgelu
+    dgamma = (dy_pre * xhat2).sum(dim=(0, 1))
+    dbeta = dy_pre.sum(dim=(0, 1))
+    dxhat = (dy_pre * g32).reshape(b, hw, groups, cg)
+    m1 = dxhat.mean(dim=(1, 3), keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=(1, 3), keepdim=True)
+    dx = rstd[:, None, :, None] * (dxhat - m1 - xhat * m2)
+    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
+
+
+def _check_gn(name: str, x: torch.Tensor, *f32: torch.Tensor) -> None:
+    """x bf16 or f32 NHWC, the rest f32 (gamma, beta or statistics); all
+    CUDA, contiguous and without grad."""
+    if x.dtype not in _GN_DTYPES:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.requires_grad:
+        _check_each(name, x)              # raises the no-grad message
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA kernel got a tensor on {x.device}; "
+                         "the plain version takes CPU ones")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expects contiguous NHWC x (a "
+                         "channels_last NCHW tensor's permute(0, 2, 3, 1))")
+    _check_each(name, *f32)
+    if any(t.device != x.device for t in f32):
+        raise ValueError(f"{name}: inputs on different devices")
+
+
+def groupnorm_gelu_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, groups: int = 8,
+                        eps: float = 1e-6
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel version of ``groupnorm_gelu_plain``: NHWC x (bf16 or f32),
+    f32 gamma and beta [C] -> (y, mean [B, G], rstd [B, G])."""
+    b, hw, c = _group_shape(x, groups)
+    _check_gn("groupnorm_gelu", x, gamma, beta)
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"groupnorm_gelu: gamma, beta must be [{c}], got "
+                         f"{tuple(gamma.shape)}, {tuple(beta.shape)}")
+    y = torch.empty_like(x)
+    mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    if x.numel():
+        _launch("groupnorm_gelu", _lib().apv_groupnorm_gelu, x.data_ptr(),
+                gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), b, hw, c, groups,
+                float(eps), int(x.dtype == torch.bfloat16), device=x.device)
+    return y, mean, rstd
+
+
+def groupnorm_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
+                            gamma: torch.Tensor, beta: torch.Tensor,
+                            mean: torch.Tensor, rstd: torch.Tensor,
+                            groups: int = 8
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Kernel version of ``groupnorm_gelu_bwd_plain``: dy and x of one
+    dtype and shape, the forward's f32 residuals -> (dx, dgamma, dbeta)."""
+    b, hw, c = _group_shape(x, groups)
+    _check_gn("groupnorm_gelu_bwd", x, gamma, beta, mean, rstd)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous() or dy.requires_grad:
+        raise ValueError("groupnorm_gelu_bwd: dy must match x in shape, "
+                         "dtype and device, contiguous and without grad")
+    if gamma.shape != (c,) or beta.shape != (c,) \
+            or mean.shape != (b, groups) or rstd.shape != (b, groups):
+        raise ValueError("groupnorm_gelu_bwd: gamma, beta [C] and mean, "
+                         "rstd [B, G] expected")
+    dx = torch.empty_like(x)
+    partials = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    if c:
+        _launch("groupnorm_gelu_bwd", _lib().apv_groupnorm_gelu_bwd,
+                dy.data_ptr(), x.data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                dx.data_ptr(), partials[0].data_ptr(),
+                partials[1].data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+                b, hw, c, groups, int(x.dtype == torch.bfloat16),
+                device=x.device)
+    return dx, dgamma, dbeta
+
+
+# ---------------------------------------------------------------------------
+# conv3x3: 3x3 SAME stride-1 conv, NHWC x, HWIO w, f32 out
+# ---------------------------------------------------------------------------
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in torch ops: x and w widened to f32, then
+    nine shifted [B·H·W, Cin] × [Cin, Cout] products summed in f32 ->
+    [B, H, W, Cout] f32."""
+    b, h, wd, c = x.shape
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    wf = w.to(torch.float32)
+    out = torch.zeros((b * h * wd, w.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            patch = xf[:, ky:ky + h, kx:kx + wd, :].reshape(-1, c)
+            out = out + patch @ wf[ky, kx]
+    return out.reshape(b, h, wd, w.shape[-1])
+
+
+_GRID_Y_MAX = 65535      # blocks of 128 output pixels: gridDim.y
+
+
+def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel version of ``conv3x3_plain``: x [B, H, W, Cin] and w [3, 3,
+    Cin, Cout], both bf16 or both f32, CUDA and contiguous -> f32 out."""
+    if x.dtype not in _GN_DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"conv3x3: x and w must both be float32 or both "
+                        f"bfloat16, got {x.dtype}, {w.dtype}")
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) \
+            or w.shape[2] != x.shape[3]:
+        raise ValueError(f"conv3x3: x [B,H,W,Cin] and w [3,3,Cin,Cout] "
+                         f"expected, got {tuple(x.shape)}, {tuple(w.shape)}")
+    for t in (x, w):
+        if t.requires_grad:
+            _check_each("conv3x3", t)     # raises the no-grad message
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"conv3x3: CUDA kernel got a tensor on "
+                             f"{t.device}; the plain version takes CPU ones")
+        if not t.is_contiguous():
+            raise ValueError("conv3x3: expects contiguous NHWC x and HWIO w")
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    if -(-b * h * wd // 128) > _GRID_Y_MAX:
+        raise ValueError(f"conv3x3: {b * h * wd} output pixels exceed the "
+                         f"kernel's grid ({_GRID_Y_MAX} tiles of 128)")
+    out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=x.device)
+    if out.numel():
+        _launch("conv3x3", _lib().apv_conv3x3, x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), b, h, wd, cin, cout,
+                int(x.dtype == torch.bfloat16), device=x.device)
+    return out

@@ -1,7 +1,9 @@
-"""In-process per-sample ELBO scorer (counterpart of
-``apv_tpu/serving.py:116-159``, ``_scorer_fn``).
+"""In-process serving functions: the prior sampler and the per-sample ELBO
+scorer (counterparts of ``apv_tpu/serving.py:30-113``, ``_sampler_fn``,
+and ``:116-159``, ``_scorer_fn``).
 
-Exporting the scorer (``torch.export``) and int8 weights come later.
+Exporting them (``torch.export``) and int8 weights come later (ROADMAP
+queue A item 14).
 """
 
 from __future__ import annotations
@@ -14,6 +16,48 @@ from apv_tpu_torch.data.preprocess import normalize_center
 from apv_tpu_torch.training.losses import elbo_terms
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
+
+
+def make_sampler(cfg: Config, model, d=None, refine_steps: int = 0,
+                 prior_moments=None, *, device=None) -> Callable:
+    """Build ``fn(seed: int) -> images [cfg.eval.batch_size, H, W, C]`` in
+    [0, 1] (the likelihood's mean).
+
+    The latent draw is the ex-post prior ``prior_moments`` when given,
+    else SIR (+ ``refine_steps`` of MALA) from the shaped prior when the
+    model is adversarial and ``d`` is given, else N(0, I). The latent draw
+    and the pixel noise take distinct generators derived from the seed
+    (``sampling/run.generate_samples``). Refused as the reference refuses:
+    ``refine_steps`` without a latent D or with an ex-post prior.
+    """
+    from apv_tpu_torch.sampling.run import generate_samples
+    dev = resolve_device(device)
+    model = model.to(dev)
+    use_adv = cfg.adversarial.enabled and d is not None
+    if refine_steps > 0 and (not use_adv or prior_moments is not None):
+        raise ValueError("refine_steps applies to the adversarially-shaped "
+                         "prior; this artifact would sample "
+                         + ("the ex-post prior (drawn exactly)"
+                            if prior_moments is not None
+                            else "a checkpoint with no latent "
+                                 "discriminator")
+                         + " — a silently-dropped refinement would "
+                         "misreport its sampling protocol")
+    if cfg.model.prior != "standard" and prior_moments is None:
+        raise NotImplementedError("sampling the trained flow or gaussian "
+                                  "prior is not ported yet (ROADMAP queue "
+                                  "A item 12)")
+    d_use = d.to(dev) if use_adv else None
+
+    def fn(seed: int) -> torch.Tensor:
+        return generate_samples(model, cfg.eval.batch_size, cfg.model.z_dim,
+                                cfg.model.likelihood,
+                                cfg.model.image_shape[2], d=d_use,
+                                seed=int(seed), mode="mean",
+                                refine_steps=refine_steps,
+                                prior_moments=prior_moments)
+
+    return fn
 
 
 def make_scorer(cfg: Config, model, d=None, log_z: float = 0.0, *,

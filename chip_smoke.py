@@ -37,6 +37,20 @@ Phases, one JSON line each:
   9. cifar_ckpt: the step-48 checkpoint restored into a fresh state scores
      the same ELBO as the trained state in memory; then IWAE k=1000, chunk
      25, over the first 64 test images.
+ 10. groupnorm_gelu: the fused GroupNorm + GELU op, forward and backward
+     through its autograd.Function, at the flagship's stage-1 shape
+     [256, 32, 32, 64] in bf16 and f32 and at an odd shape, held to
+     autograd of the plain version.
+ 11. conv3x3: the conv probe (python -m apv_tpu_torch.ops.conv_probe) at its
+     three shapes, bf16 and f32: the kernel's error against f32 F.conv2d,
+     its chained time and cuDNN's.
+ 12. sample: the step-48 checkpoint through api.sample: 256 draws by SIR
+     from the shaped prior (pool 4,096) and 20 MALA steps, the PNG grid
+     read back, sample quality over 512 samples (mode "sample"); then the
+     ex-post GMM prior (k=10).
+ 13. ood: api.ood_score on the ood_suite preset as it stands (cifar10 vs
+     svhn, prior_ratio, k=100, chunk 50, 2,000 examples, batch 64), both
+     directions, then score=complexity; exact launch counts.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
 With --quality-gate, the reference's short gate follows: 3,000 steps of
@@ -62,6 +76,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -83,9 +98,13 @@ BF16_TENSOR_OPS = 989e12       # dense bf16 on the tensor cores
 # multiply; kl_bwd exp, subtract, three multiplies; reparam_bwd per sample
 # two adds, a subtract and two multiplies; disc_logistic_bwd 4 exp (1/s,
 # two sigmoids, expm1), 3 divides and ~23 adds, multiplies and compares.
+# groupnorm_gelu two for the statistics, three to normalize and scale and
+# ~8 for tanh-GELU; groupnorm_gelu_bwd ~25 (the GELU derivative, the four
+# products and sums of the rule, the dx affine).
 OPS_PER_ELEM = {"disc_logistic": 30, "reparam": 33, "kl": 6, "bernoulli": 7,
                 "bernoulli_bwd": 5, "kl_bwd": 5, "reparam_bwd": 5,
-                "disc_logistic_bwd": 30}
+                "disc_logistic_bwd": 30, "groupnorm_gelu": 13,
+                "groupnorm_gelu_bwd": 25}
 
 REPLACES = {
     "reparam": "apv_tpu/ops/kernels.py:305",
@@ -96,13 +115,19 @@ REPLACES = {
     "kl_bwd": "apv_tpu/ops/kernels.py:121",
     "bernoulli_bwd": "apv_tpu/ops/kernels.py:159",
     "disc_logistic_bwd": "apv_tpu/ops/kernels.py:223",
+    "groupnorm_gelu": "apv_tpu/ops/groupnorm.py:116",
+    "groupnorm_gelu_bwd": "apv_tpu/ops/groupnorm.py:166",
+    "conv3x3": "scripts/conv_microbench.py:67",
 }
 # each kernel's __global__ function, to find it in a profile
 KERNEL_FNS = {"reparam": "reparam_samples", "kl": "kl_rows",
               "disc_logistic": "disc_logistic_rows",
               "bernoulli": "bernoulli_rows", "reparam_bwd": "reparam_bwd_sum",
               "kl_bwd": "kl_bwd_rows", "bernoulli_bwd": "bernoulli_bwd_rows",
-              "disc_logistic_bwd": "disc_logistic_bwd_rows"}
+              "disc_logistic_bwd": "disc_logistic_bwd_rows",
+              "groupnorm_gelu": "groupnorm_gelu_rows",
+              "groupnorm_gelu_bwd": "groupnorm_gelu_bwd_rows",
+              "conv3x3": "conv3x3_igemm"}
 SOURCES = {name: f"apv_tpu_torch/ops/csrc/{name.removesuffix('_bwd')}.cu"
            for name in REPLACES}
 
@@ -431,36 +456,170 @@ def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
         **bound("disc_logistic_bwd", card, 4 * (rows + 3 * n + 2 * n), n)}}
 
 
-def bounds_to_port(card: str) -> dict:
-    """The least time of the TPU kernels still to port, at the shapes
-    below, by the same rule as ``bound``: bytes (each input read
-    once, each output written once) over the memory rate, or operations
-    over the peak for their type, whichever is larger. No kernel runs.
+GN_SHAPE = (256, 32, 32, 64)   # the flagship's stage 1 at batch 256
+GN_ODD = (3, 7, 5, 24)         # 3 channels a group, 35 pixels
 
-    * groupnorm_gelu (apv_tpu/ops/groupnorm.py:116) on the first stage of a
-      norm=group flagship: bf16 x [256, 32, 32, 64] in and out; ~13
-      operations per element (two for the statistics, three to normalize
-      and scale, ~8 for tanh-GELU) on the f32 units.
-    * pallas_conv (scripts/conv_microbench.py:67) at the probe's three
-      shapes (B, H, W, Cin, Cout): bf16 x and w in, f32 out, 2·9·Cin
-      operations per output element on the bf16 tensor cores.
-    """
-    bw = mem_bw(card)
-    out = {}
-    n = 256 * 32 * 32 * 64
-    t_b, t_o = 2 * 2 * n / bw, 13 * n / F32_OPS
-    out["groupnorm_gelu [256,32,32,64] bf16"] = {
-        "bound_ms": max(t_b, t_o) * 1e3,
-        "bound_by": "bytes" if t_b >= t_o else "operations"}
-    for b, h, w, cin, cout in ((256, 32, 32, 64, 64), (256, 16, 16, 128, 128),
-                               (256, 8, 8, 256, 256)):
-        outs = b * h * w * cout
-        nbytes = 2 * b * h * w * cin + 2 * 9 * cin * cout + 4 * outs
-        t_b, t_o = nbytes / bw, 2 * 9 * cin * outs / BF16_TENSOR_OPS
-        out[f"pallas_conv {[b, h, w, cin, cout]}"] = {
-            "bound_ms": max(t_b, t_o) * 1e3,
+
+def gn_inputs(rng, shape, dtype, dev):
+    c = shape[-1]
+    x = torch.from_numpy((rng.normal(size=shape) * 2.0 + 0.3).astype(
+        np.float32)).to(dev, dtype)
+    g = torch.from_numpy((rng.normal(size=c) * 0.5 + 1.0).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy((rng.normal(size=c) * 0.1).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        dev, dtype)
+    return x, g, b, dy
+
+
+def scale_rel(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+# forward: max |kernel - plain| / max(max |y|, 1); gradients scale-relative
+GN_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+GN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def library_gn_gelu(x, g, b):
+    """F.group_norm + tanh F.gelu on the NCHW channels_last view of NHWC
+    x, gamma and beta in x's dtype: the library's version of the op."""
+    y = F.gelu(F.group_norm(x.permute(0, 3, 1, 2), 8, g.to(x.dtype),
+                            b.to(x.dtype), 1e-6), approximate="tanh")
+    return y.permute(0, 2, 3, 1)
+
+
+def gn_kernel_checks(K, card: str, rng, dev) -> dict:
+    """groupnorm_gelu and groupnorm_gelu_bwd against their plain versions
+    at the flagship's stage-1 shape and an odd one, bf16 and f32; times
+    at the flagship shape in bf16 beside the library's F.group_norm +
+    F.gelu (forward; backward alone on a retained graph; both)."""
+    errs = {}
+    for shape in (GN_SHAPE, GN_ODD):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, b, dy = gn_inputs(rng, shape, dtype, dev)
+            with torch.inference_mode():
+                yk, mk, rk = K.groupnorm_gelu_cuda(x, g, b, 8)
+                yp, mp, rp = K.groupnorm_gelu_plain(x, g, b, 8)
+                ek = K.groupnorm_gelu_bwd_cuda(dy, x, g, b, mk, rk, 8)
+                ep = K.groupnorm_gelu_bwd_plain(dy, x, g, b, mk, rk, 8)
+            fwd = float((yk.float() - yp.float()).abs().max()) / max(
+                float(yp.float().abs().max()), 1.0)
+            stats = max(scale_rel(mk, mp), scale_rel(rk, rp))
+            bwd = max(scale_rel(a, c) for a, c in zip(ek, ep))
+            tag = f"{list(shape)} {str(dtype).removeprefix('torch.')}"
+            errs[tag] = {"fwd": fwd, "stats": stats, "bwd": bwd,
+                         "fwd_max_abs": float((yk.float() - yp.float())
+                                              .abs().max()),
+                         "bwd_max_abs": max(float((a.float() - c.float())
+                                                  .abs().max())
+                                            for a, c in zip(ek, ep))}
+            check(fwd <= GN_FWD_TOL[dtype] and stats <= 1e-5,
+                  f"groupnorm_gelu {tag}: forward {fwd}, stats {stats}")
+            check(bwd <= GN_GRAD_TOL[dtype],
+                  f"groupnorm_gelu_bwd {tag}: scale-relative {bwd}")
+
+    x, g, b, dy = gn_inputs(rng, GN_SHAPE, torch.bfloat16, dev)
+    with torch.inference_mode():
+        _, mk, rk = K.groupnorm_gelu_cuda(x, g, b, 8)
+        fwd_ms = cuda_ms(lambda: K.groupnorm_gelu_cuda(x, g, b, 8), 200)
+        fwd_plain = cuda_ms(lambda: K.groupnorm_gelu_plain(x, g, b, 8), 20)
+        bwd_ms = cuda_ms(lambda: K.groupnorm_gelu_bwd_cuda(
+            dy, x, g, b, mk, rk, 8), 200)
+        bwd_plain = cuda_ms(lambda: K.groupnorm_gelu_bwd_plain(
+            dy, x, g, b, mk, rk, 8), 20)
+        lib_fwd = cuda_ms(lambda: library_gn_gelu(x, g, b), 200)
+    xr, gr, br = (t.detach().requires_grad_(True) for t in (x, g, b))
+    y_lib = library_gn_gelu(xr, gr, br)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        y_lib, (xr, gr, br), dy, retain_graph=True), 100)
+    lib_both = cuda_ms(lambda: torch.autograd.grad(
+        library_gn_gelu(xr, gr, br), (xr, gr, br), dy), 100)
+    del y_lib
+    n = math.prod(GN_SHAPE)
+    c = GN_SHAPE[-1]
+    mb = 4 * (2 * c + 2 * GN_SHAPE[0] * 8)          # gamma, beta, mean, rstd
+    first = errs[f"{list(GN_SHAPE)} bfloat16"]
+    return {
+        "groupnorm_gelu": {
+            "shape": list(GN_SHAPE), "dtype": "bfloat16",
+            "max_abs_err": first["fwd_max_abs"], "errs": errs,
+            "tol_fwd": "1e-5 (f32), 2^-7 (bf16) x max(max|y|, 1)",
+            "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": lib_fwd,
+            "library": "F.group_norm + F.gelu(approximate='tanh'), forward",
+            **bound("groupnorm_gelu", card, 2 * 2 * n + mb, n)},
+        "groupnorm_gelu_bwd": {
+            "shape": list(GN_SHAPE), "dtype": "bfloat16",
+            "max_abs_err": first["bwd_max_abs"],
+            "tol": "scale-relative 1e-4 (f32), 1e-2 (bf16)",
+            "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": lib_bwd,
+            "library": "backward of F.group_norm + F.gelu on a retained "
+                       "graph",
+            "library_fwd_bwd_ms": lib_both,
+            **bound("groupnorm_gelu_bwd", card, 3 * 2 * n + mb + 8 * c, n)},
+    }
+
+
+def conv_bound(card: str, shape, dtype) -> dict:
+    """Bytes (x and w in, f32 out) over the memory rate, or 2·9·Cin
+    operations per output over the peak for the input type (bf16 tensor
+    cores; f32 units without TF32), whichever is larger."""
+    b, h, w, cin, cout = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    outs = b * h * w * cout
+    nbytes = size * (b * h * w * cin + 9 * cin * cout) + 4 * outs
+    peak = BF16_TENSOR_OPS if dtype == torch.bfloat16 else F32_OPS
+    t_b, t_o = nbytes / mem_bw(card), 2 * 9 * cin * outs / peak
+    return {"bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations"}
-    return out
+
+
+def conv_kernel_checks(K, card: str, rng, dev) -> dict:
+    """conv3x3 against its plain version and against f32 F.conv2d (TF32
+    off) at the probe's three shapes, bf16 and f32; times of the kernel,
+    the plain version and cuDNN (F.conv2d in the input's dtype) per shape.
+    The kernels line takes the first shape in bf16."""
+    from apv_tpu_torch.ops.conv_probe import SHAPES, torch_conv
+    per_shape = []
+    for shape in SHAPES:
+        b, h, w, cin, cout = shape
+        xf = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(
+            np.float32)).to(dev)
+        wf = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.05)
+                              .astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            ref = torch_conv(xf, wf)
+            for dtype in (torch.bfloat16, torch.float32):
+                x, wt = xf.to(dtype), wf.to(dtype)
+                got = K.conv3x3_cuda(x, wt)
+                plain = K.conv3x3_plain(x, wt)
+                rel = scale_rel(got, ref)
+                tol = 1e-5 if dtype == torch.float32 else 1e-2
+                check(rel <= tol, f"conv3x3 {shape} {dtype}: error against "
+                      f"f32 F.conv2d {rel} > {tol}")
+                vs_plain = scale_rel(got, plain)
+                check(vs_plain <= 1e-5, f"conv3x3 {shape} {dtype}: against "
+                      f"its plain version {vs_plain} > 1e-5")
+                per_shape.append({
+                    "shape": list(shape),
+                    "dtype": str(dtype).removeprefix("torch."),
+                    "rel_err_vs_f32": rel, "rel_err_vs_plain": vs_plain,
+                    "max_abs_err": float((got - plain).abs().max()),
+                    "ms": cuda_ms(lambda: K.conv3x3_cuda(x, wt), 20),
+                    "plain_ms": cuda_ms(lambda: K.conv3x3_plain(x, wt), 5),
+                    "library_ms": cuda_ms(lambda: torch_conv(x, wt), 50),
+                    **conv_bound(card, shape, dtype)})
+            del ref, got, plain
+    head = per_shape[0]
+    return {"conv3x3": {
+        **{k: head[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        "library": "F.conv2d (cuDNN) on the channels_last view, input dtype",
+        "tol": "relative to max|F.conv2d f32|: 1e-5 (f32), 1e-2 (bf16)",
+        "per_shape": per_shape}}
 
 
 # ---------------------------------------------------------------------------
@@ -908,6 +1067,244 @@ def cifar_ckpt_phase(cfg, state, tmp: str, dev):
     return {n: launches[n] + iw[n] for n in K.launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 10-13: groupnorm_gelu, the conv probe, sample, ood
+# ---------------------------------------------------------------------------
+
+def groupnorm_phase(dev) -> dict:
+    """The op's path: forward and backward through groupnorm_gelu's
+    autograd.Function at the flagship shape (bf16, f32) and the odd shape
+    (bf16, f32) with the counters zeroed around it; values and gradients
+    held to autograd of the plain version."""
+    from apv_tpu_torch import groupnorm_gelu
+    from apv_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(SEED + 31)
+    cases = [(shape, dtype) for shape in (GN_SHAPE, GN_ODD)
+             for dtype in (torch.bfloat16, torch.float32)]
+    inputs = [gn_inputs(rng, shape, dtype, dev) for shape, dtype in cases]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    outs = []
+    for x, g, b, dy in inputs:
+        xr, gr, br = (t.requires_grad_(True) for t in (x, g, b))
+        y = groupnorm_gelu(xr, gr, br, 8)
+        outs.append((y.detach(), torch.autograd.grad(y, (xr, gr, br), dy)))
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    check(launches == expected(K, groupnorm_gelu=len(cases),
+                               groupnorm_gelu_bwd=len(cases)),
+          f"groupnorm_gelu launches {launches}")
+    errs = {}
+    for (shape, dtype), (x, g, b, dy), (y, grads) in zip(cases, inputs,
+                                                          outs):
+        y_p = K.groupnorm_gelu_plain(x, g, b, 8)[0]
+        ref = torch.autograd.grad(y_p, (x, g, b), dy)
+        fwd = float((y.float() - y_p.detach().float()).abs().max()) / max(
+            float(y_p.detach().float().abs().max()), 1.0)
+        grad = max(scale_rel(a, c) for a, c in zip(grads, ref))
+        tag = f"{list(shape)} {str(dtype).removeprefix('torch.')}"
+        errs[tag] = {"fwd": fwd, "grad_scale_rel": grad}
+        check(fwd <= GN_FWD_TOL[dtype], f"groupnorm_gelu {tag}: forward "
+              f"{fwd} > {GN_FWD_TOL[dtype]}")
+        check(grad <= GN_GRAD_TOL[dtype], f"groupnorm_gelu {tag}: gradients "
+              f"{grad} > {GN_GRAD_TOL[dtype]}")
+        check(all(bool(torch.isfinite(t).all()) for t in (y, *grads)),
+              f"groupnorm_gelu {tag}: not finite")
+    x, g, b, dy = (t.detach() for t in inputs[0])
+    xr, gr, br = (t.requires_grad_(True) for t in (x, g, b))
+    fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        groupnorm_gelu(xr, gr, br, 8), (xr, gr, br), dy), 100)
+    emit("groupnorm_gelu", launches=launches, errs=errs,
+         tol_fwd="1e-5 (f32), 2^-7 (bf16) x max(max|y|, 1)",
+         tol_grad="scale-relative 1e-4 (f32), 1e-2 (bf16)",
+         fwd_bwd_ms_bf16=fwd_bwd)
+    return launches
+
+
+PROBE_BENCH = {"n_iter": 10, "windows": 2, "reps": 2}
+
+
+def conv_phase(dev) -> dict:
+    """The probe's path: ``conv_probe.run`` at its three shapes, bf16 and
+    f32, with the counters zeroed around it; the kernel's error against
+    f32 F.conv2d per record."""
+    from apv_tpu_torch.ops import conv_probe
+    from apv_tpu_torch.ops import kernels as K
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    records = conv_probe.run(device=dev, seed=SEED, **PROBE_BENCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    per_run = 1 + PROBE_BENCH["n_iter"] * (
+        1 + PROBE_BENCH["windows"] * PROBE_BENCH["reps"])
+    check(launches == expected(K, conv3x3=per_run * 2 * len(
+        conv_probe.SHAPES)), f"conv3x3 launches {launches}")
+    for r in records:
+        if r["impl"] == "conv3x3":
+            tol = 1e-5 if r["dtype"] == "float32" else 1e-2
+            check(r["rel_err_vs_f32"] <= tol, f"conv probe {r}: error > "
+                  f"{tol}")
+    emit("conv3x3", launches=launches, records=records, wall_s=wall,
+         bench=PROBE_BENCH)
+    return launches
+
+
+SAMPLE_N, SAMPLE_REFINE, QUALITY_N, GMM_K = 256, 20, 512, 10
+
+
+def sample_phase(tmp: str, dev) -> dict:
+    """api.sample on the step-48 checkpoint: SIR + MALA draws, the PNG
+    grid read back, sample quality; then the ex-post GMM prior."""
+    from apv_tpu_torch import sample
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.sampling.run import image_grid
+    from apv_tpu_torch.utils.png import decode_png
+    over = [f"results_dir={tmp}"]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        images = sample("cifar_advprior_resnet", overrides=over, n=SAMPLE_N,
+                        refine=SAMPLE_REFINE, quality_n=QUALITY_N, seed=SEED,
+                        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    check(launches == expected(K), f"sample launches {launches} (SIR, MALA, "
+          "decoding and the feature net launch no port kernel)")
+    diag = next(json.loads(line)["sampler_diagnostics"]
+                for line in out.getvalue().splitlines()
+                if line.startswith('{"sampler_diagnostics"'))
+    check(tuple(images.shape) == (SAMPLE_N, 32, 32, 3)
+          and bool(torch.isfinite(images).all())
+          and float(images.min()) >= 0.0 and float(images.max()) <= 1.0,
+          f"sample: images {tuple(images.shape)} not finite in [0, 1]")
+    pool = SAMPLE_N * 16
+    check(diag["sir_pool"] == pool and 1.0 <= diag["sir_ess"] <= pool,
+          f"sample: SIR pool {diag['sir_pool']}, ESS {diag['sir_ess']}")
+    check(0.0 < diag["mala_accept_rate"] <= 1.0
+          and diag["mala_steps"] == SAMPLE_REFINE,
+          f"sample: MALA acceptance {diag['mala_accept_rate']}")
+    run_dir = Path(tmp) / "cifar_advprior_resnet"
+    t1 = time.perf_counter()
+    pixels = decode_png((run_dir / "samples.png").read_bytes())
+    decode_s = time.perf_counter() - t1
+    check(np.array_equal(pixels, image_grid(images)),
+          "sample: the PNG grid does not decode to the pixels written")
+    quality = json.loads((run_dir / "sample_quality.json").read_text())
+    check(quality["n"] == QUALITY_N and quality["pixel_mode"] == "sample"
+          and all(math.isfinite(quality[k]) for k in (
+              "frechet_rfd", "mmd2_rbf", "density", "coverage")),
+          f"sample_quality: {quality}")
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gmm_images = sample("cifar_advprior_resnet", overrides=over,
+                            n=SAMPLE_N, prior="expost_gmm", gmm_k=GMM_K,
+                            seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall_gmm = time.perf_counter() - t0
+    gmm_launches = dict(K.launches)
+    check(gmm_launches == expected(K, reparam=1),
+          f"sample expost_gmm launches {gmm_launches} (one reparam: the "
+          "posterior draws of the fit)")
+    check(bool(torch.isfinite(gmm_images).all())
+          and float(gmm_images.min()) >= 0.0
+          and float(gmm_images.max()) <= 1.0
+          and (run_dir / "samples_expost_gmm.png").exists(),
+          "sample expost_gmm: images not finite in [0, 1] or no grid")
+    emit("sample", preset="cifar_advprior_resnet", n=SAMPLE_N,
+         refine_steps=SAMPLE_REFINE, diagnostics=diag, quality=quality,
+         launches=launches, wall_s=wall, png_bytes=(
+             run_dir / "samples.png").stat().st_size, png_decode_s=decode_s,
+         images_mean=float(images.mean()), expost_gmm_k=GMM_K,
+         expost_gmm_launches=gmm_launches, expost_gmm_wall_s=wall_gmm,
+         expost_gmm_images_mean=float(gmm_images.mean()))
+    return {n: launches[n] + gmm_launches[n] for n in K.launches}
+
+
+# (in, ood, score, k, chunk, max_examples, batch) as the preset sets them
+OOD_PRESET = ("cifar10", "svhn", "prior_ratio", 100, 50, 2000, 64)
+
+
+def ood_phase(tmp: str, dev) -> dict:
+    """api.ood_score on ood_suite as the preset sets it, both directions
+    (each direction timed), then score=complexity; exact launches: each
+    scored dataset is 31 batches of 64 at k=100 in chunks of 50, once
+    under the shaped prior and once under N(0, I) for prior_ratio."""
+    import apv_tpu_torch.eval.ood as ood_mod
+    from apv_tpu_torch import get_preset, ood_score
+    from apv_tpu_torch.ops import kernels as K
+    cfg = get_preset("ood_suite")
+    o = cfg.ood
+    check((o.in_dataset, o.ood_dataset, o.score, o.iwae_k, o.iwae_chunk,
+           o.max_examples, o.batch_size) == OOD_PRESET,
+          f"ood_suite preset: {o}")
+    over = [f"results_dir={tmp}"]
+    n_rows = (o.max_examples // o.batch_size) * o.batch_size
+    per_call = (o.max_examples // o.batch_size) * (o.iwae_k // o.iwae_chunk)
+    direction_s = []
+    scores_fn = ood_mod.ood_scores
+
+    def timed_scores(*a, **k):
+        t = time.perf_counter()
+        r = scores_fn(*a, **k)
+        torch.cuda.synchronize()
+        direction_s.append(time.perf_counter() - t)
+        return r
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    ood_mod.ood_scores = timed_scores
+    try:
+        t0 = time.perf_counter()
+        res = ood_score("ood_suite", overrides=over, both=True, seed=SEED,
+                        device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        ood_mod.ood_scores = scores_fn
+    launches = dict(K.launches)
+    n_calls = 2 * 2 * 2             # directions x datasets x (p*, N(0, I))
+    check(launches == expected(K, reparam=n_calls * per_call,
+                               disc_logistic=n_calls * per_call),
+          f"ood launches {launches}")
+    check(json.loads((Path(tmp) / "ood_suite" / "ood.json").read_text())
+          == json.loads(json.dumps(res)), "ood: ood.json differs")
+
+    def sane(r):
+        return (all(0.0 <= r[k] <= 1.0 for k in (
+            "auroc_in_vs_ood", "auroc_ood_vs_in", "fpr_at_95_tpr"))
+            and math.isfinite(r["in_mean"]) and math.isfinite(r["ood_mean"])
+            and r["n_in"] == r["n_ood"] == n_rows)
+
+    check(sane(res["forward"]) and sane(res["reverse"])
+          and res["reverse_model"] == "shared", f"ood: {res}")
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    cres = ood_score("ood_suite", overrides=over + ["ood.score=complexity"],
+                     seed=SEED, device=dev)
+    wall_c = time.perf_counter() - t0
+    c_launches = dict(K.launches)
+    check(c_launches == expected(K, reparam=2 * per_call,
+                                 disc_logistic=2 * per_call),
+          f"ood complexity launches {c_launches}")
+    check(sane(cres), f"ood complexity: {cres}")
+    scored = [2 * (r["n_in"] + r["n_ood"])
+              for r in (res["forward"], res["reverse"])]
+    emit("ood", preset="ood_suite", k=o.iwae_k, chunk=o.iwae_chunk,
+         batch=o.batch_size, max_examples=o.max_examples, result=res,
+         launches=launches, wall_s=wall, direction_wall_s=direction_s,
+         images_per_s=[n / s for n, s in zip(scored, direction_s)],
+         complexity=cres, complexity_launches=c_launches,
+         complexity_wall_s=wall_c)
+    return {n: launches[n] + c_launches[n] for n in K.launches}
+
+
 def quality_gate(dev, tmp: str) -> None:
     """The reference's short CIFAR gate (scripts/act_gates.sh): 3,000 steps
     of cifar_advprior_resnet on the synthetic set, validation every 1,000,
@@ -1005,9 +1402,11 @@ def main(argv: list[str]) -> int:
     # 2. kernels
     with torch.inference_mode():
         kres = kernel_checks(K, card, dev)
+    krng = np.random.default_rng(SEED + 30)
+    kres.update(gn_kernel_checks(K, card, krng, dev))
+    kres.update(conv_kernel_checks(K, card, krng, dev))
     for name, r in kres.items():
-        emit("kernel", name=name, library_ms=None, **r)
-    emit("to_port", bounds=bounds_to_port(card))
+        emit("kernel", name=name, **{"library_ms": None, **r})
 
     # 3-4. scorer and IWAE of the CIFAR flagship at full width
     cfg = get_preset("cifar_advprior_resnet")
@@ -1053,6 +1452,14 @@ def main(argv: list[str]) -> int:
                                                                       tmp)
         path_launches["cifar_ckpt"] = cifar_ckpt_phase(cfg3, state, tmp, dev)
         del state
+        # 10-13. the fused op, the conv probe, then config 5 on the
+        # step-48 checkpoint
+        path_launches["groupnorm_gelu"] = groupnorm_phase(dev)
+        path_launches["conv3x3"] = conv_phase(dev)
+        path_launches["sample"] = sample_phase(tmp, dev)
+        path_launches["ood"] = ood_phase(tmp, dev)
+        if args.profile is not None:
+            profile_new_paths(args.profile, tmp, dev)
         if args.profile is not None:
             profile_train(args.profile, cfg3, dev, tag="cifar_train")
         if args.quality_gate:
@@ -1068,7 +1475,8 @@ def main(argv: list[str]) -> int:
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound_ms"],
-         "bound_by": kres[name]["bound_by"], "library_ms": None}
+         "bound_by": kres[name]["bound_by"],
+         "library_ms": kres[name].get("library_ms")}
         for name in REPLACES]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1116,6 +1524,54 @@ def profile_train(out_dir: Path, cfg, dev, steps: int = 16,
     profile_window(out_dir, tag, lambda: run(8, 8 + steps), steps=steps)
 
 
+def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
+    """Device time of the fused op (10 forward+backward passes, bf16
+    [256, 32, 32, 64]), of the conv kernel (5 calls at each probe shape
+    and dtype) and of one OOD IWAE pass (4 batches of 64 at k=100, chunk
+    50, the shaped prior) on the step-48 checkpoint."""
+    from apv_tpu_torch import evaluate_nll, groupnorm_gelu
+    from apv_tpu_torch.api import (_adopt_checkpoint_arch, _resolve,
+                                   _restore_state)
+    from apv_tpu_torch.eval.run import eval_arrays
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.ops.conv_probe import SHAPES
+    rng = np.random.default_rng(SEED + 40)
+    x, g, b, dy = gn_inputs(rng, GN_SHAPE, torch.bfloat16, dev)
+    xr, gr, br = (t.requires_grad_(True) for t in (x, g, b))
+
+    def gn_passes():
+        for _ in range(10):
+            torch.autograd.grad(groupnorm_gelu(xr, gr, br, 8), (xr, gr, br),
+                                dy)
+
+    gn_passes()
+    profile_window(out_dir, "groupnorm_gelu", gn_passes)
+    convs = []
+    for bb, h, w, cin, cout in SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            convs.append((torch.randn((bb, h, w, cin), device=dev).to(dtype),
+                          (0.05 * torch.randn((3, 3, cin, cout), device=dev)
+                           ).to(dtype)))
+
+    def conv_calls():
+        with torch.inference_mode():
+            for xc, wc in convs:
+                for _ in range(5):
+                    K.conv3x3_cuda(xc, wc)
+
+    conv_calls()
+    profile_window(out_dir, "conv3x3", conv_calls)
+    del convs
+    over = [f"results_dir={tmp}"]
+    cfg = _adopt_checkpoint_arch(_resolve("ood_suite", over), over)
+    state = _restore_state(cfg, device=dev)
+    images = eval_arrays(cfg, "cifar10", max_examples=256)["image"]
+    profile_window(out_dir, "ood_pass", lambda: evaluate_nll(
+        cfg, state.model, state.d, images, k=cfg.ood.iwae_k,
+        chunk=cfg.ood.iwae_chunk, batch_size=cfg.ood.batch_size, seed=SEED,
+        use_adversarial_prior=True, device=dev))
+
+
 def profile_window(out_dir: Path, tag: str, fn, **extra) -> None:
     """Device time by kernel over ``fn()`` (torch.profiler), its wall time
     and the device's idle share."""
@@ -1146,7 +1602,7 @@ def profile_window(out_dir: Path, tag: str, fn, **extra) -> None:
     ours = {name: {"device_us_per_call": dev_us(e) / e.count,
                    "calls": e.count}
             for e in events for name, fn in KERNEL_FNS.items()
-            if f"::{fn}(" in e.key}
+            if f"::{fn}(" in e.key or f"::{fn}<" in e.key}
     emit("profile", window=tag, wall_s=wall, device_busy_s=total_us / 1e6,
          device_idle_share=max(0.0, 1.0 - total_us / 1e6 / wall),
          top=[{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,

@@ -90,4 +90,6 @@ def test_ops_module_imports_without_cuda_or_nvcc():
     assert _build.build_seconds is None
     assert set(kernels.launches) == {"reparam", "kl", "disc_logistic",
                                      "bernoulli", "reparam_bwd", "kl_bwd",
-                                     "bernoulli_bwd", "disc_logistic_bwd"}
+                                     "bernoulli_bwd", "disc_logistic_bwd",
+                                     "groupnorm_gelu", "groupnorm_gelu_bwd",
+                                     "conv3x3"}
