@@ -37,8 +37,10 @@ SIGNATURES = {
     "apv_bernoulli": (_P, _P, _P, _I64, _I64, _P),
     "apv_bernoulli_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "apv_disc_logistic": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P),
-    "apv_conv3x3": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, ctypes.c_int,
-                    _P),
+    "apv_conv3x3_simt": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                         ctypes.c_int, _P),
+    "apv_conv3x3_wgmma": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                          ctypes.c_int, _P),
     "apv_disc_logistic_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                               ctypes.c_float, _P),
     "apv_groupnorm_gelu": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,

@@ -10,8 +10,10 @@ Three contenders per shape, forward pass, float32 and bfloat16:
 * ``nine_dot``: the same conv as nine shifted matmuls accumulated in the
   input's dtype (the reference's XLA-dots reformulation);
 * ``conv3x3``: the hand-written implicit-GEMM kernel
-  (``ops/csrc/conv3x3.cu``), f32 accumulation and f32 out; on CPU tensors
-  its plain version ``conv3x3_plain``.
+  (``ops/csrc/conv3x3.cu``), f32 accumulation and f32 out: ``wgmma`` on
+  the tensor cores at the probe's widths (bf16, or 3xTF32 for f32), f32
+  FMAs for widths that are not multiples of 8 (``K.conv3x3_route``); on
+  CPU tensors its plain version ``conv3x3_plain``.
 
 Shapes are the flagship ResNet VAE's three stages at batch 256. Prints
 one JSON line per (shape, impl, dtype) with the chained time per conv, the

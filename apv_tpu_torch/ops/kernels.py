@@ -35,9 +35,14 @@ blocks); each backward kernel replaces the jnp rule of that op's
   ``groupnorm_gelu_bwd`` (same file) replaces the rule ``_bwd``, with
   dgamma and dbeta as per-row partials summed in a fixed order.
 * ``conv3x3`` (``csrc/conv3x3.cu``) replaces
-  ``scripts/conv_microbench.py::pallas_conv``. Bound: operations (19.3
-  GFLOP at each probe shape). Design: an implicit GEMM over shared-memory
-  tiles with f32 FMAs.
+  ``scripts/conv_microbench.py::pallas_conv``. Bound: bytes at the probe's
+  stage 1 (100.7 MB in bf16 with the f32 out), bf16 tensor-core operations
+  at stages 2-3 (19.3 GFLOP at each shape). Design: an implicit GEMM on
+  the tensor cores (``conv3x3_wgmma``: wgmma fed by TMA boxes of x and w
+  through an mbarrier ring of 128-byte-swizzled stages, a producer thread
+  and two consumer warpgroups, persistent; bf16, or 3xTF32 for f32) where
+  Cin and Cout are multiples of 8, else f32 FMAs over shared-memory tiles
+  (``conv3x3_simt``); ``conv3x3_route`` states the rule.
 
 The wrappers (``*_cuda``) take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate the outputs with ``torch.empty``, launch on
@@ -68,11 +73,14 @@ launches: dict[str, int] = {
     "reparam_bwd": 0, "kl_bwd": 0, "bernoulli_bwd": 0,
     "disc_logistic_bwd": 0, "groupnorm_gelu": 0, "groupnorm_gelu_bwd": 0,
     "conv3x3": 0}
+# conv3x3's launches by the kernel that ran (``conv3x3_route``'s names)
+conv3x3_routes: dict[str, int] = {"wgmma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, conv3x3_routes):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -611,12 +619,28 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, h, wd, w.shape[-1])
 
 
-_GRID_Y_MAX = 65535      # blocks of 128 output pixels: gridDim.y
+def conv3x3_route(cin: int, cout: int) -> str:
+    """The kernel ``conv3x3_cuda`` launches for these widths: ``"wgmma"``
+    (tensor cores) when Cin and Cout are multiples of 8, else ``"simt"``
+    (f32 FMAs). Both dtypes follow the same rule."""
+    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "simt"
+
+
+def conv3x3_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """HWIO w as the tensor-core kernel reads it: [Cout, 9·Cin], row n
+    holding Wf[:, n] with k = (ky·3 + kx)·Cin + ci (a contiguous copy)."""
+    return w.reshape(-1, w.shape[-1]).t().contiguous()
 
 
 def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel version of ``conv3x3_plain``: x [B, H, W, Cin] and w [3, 3,
-    Cin, Cout], both bf16 or both f32, CUDA and contiguous -> f32 out."""
+    Cin, Cout], both bf16 or both f32, CUDA and contiguous -> f32 out.
+    ``conv3x3_route`` picks the kernel by the widths alone; on f32 the
+    tensor-core one reads ``conv3x3_kmajor(w)``, a copy made here (TF32
+    wgmma takes K-major B only), on bf16 w itself. It reads x and w
+    through TMA, whose base addresses must be 16-byte aligned: a view off
+    that alignment is copied first. Each launch also adds one to
+    ``conv3x3_routes`` under the kernel that ran."""
     if x.dtype not in _GN_DTYPES or w.dtype != x.dtype:
         raise TypeError(f"conv3x3: x and w must both be float32 or both "
                         f"bfloat16, got {x.dtype}, {w.dtype}")
@@ -634,12 +658,21 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             raise ValueError("conv3x3: expects contiguous NHWC x and HWIO w")
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
-    if -(-b * h * wd // 128) > _GRID_Y_MAX:
-        raise ValueError(f"conv3x3: {b * h * wd} output pixels exceed the "
-                         f"kernel's grid ({_GRID_Y_MAX} tiles of 128)")
     out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=x.device)
-    if out.numel():
-        _launch("conv3x3", _lib().apv_conv3x3, x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), b, h, wd, cin, cout,
-                int(x.dtype == torch.bfloat16), device=x.device)
+    if not out.numel():
+        return out
+    sizes = (b, h, wd, cin, cout, int(x.dtype == torch.bfloat16))
+    route = conv3x3_route(cin, cout)
+    if route == "wgmma":
+        if x.data_ptr() % 16:             # TMA's base address: a fresh
+            x = x.clone()                 # allocation is aligned
+        wb = w if x.dtype == torch.bfloat16 else conv3x3_kmajor(w)
+        if wb.data_ptr() % 16:
+            wb = wb.clone()
+        _launch("conv3x3", _lib().apv_conv3x3_wgmma, x.data_ptr(),
+                wb.data_ptr(), out.data_ptr(), *sizes, device=x.device)
+    else:
+        _launch("conv3x3", _lib().apv_conv3x3_simt, x.data_ptr(),
+                w.data_ptr(), out.data_ptr(), *sizes, device=x.device)
+    conv3x3_routes[route] += 1
     return out

@@ -11,7 +11,9 @@ Phases, one JSON line each:
   2. kernel: each hand-written kernel (forward and backward) against its
      plain PyTorch version on the card, at the shapes the paths give it,
      with its time, the plain version's time and the least time the card
-     could take.
+     could take; conv3x3 also at two odd shapes, one for each of its
+     routes (tensor cores, SIMT), each held to the kernel that ran, and
+     on views off TMA's alignment.
   3. scorer: the per-sample ELBO scorer of cifar_advprior_resnet at full
      width (batch 64, bf16 compute, random seeded weights) through the
      kernels, held to the same ELBO recomputed with the plain ops on the
@@ -89,6 +91,7 @@ MEM_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
           "H200": 4.8e12}
 F32_OPS = 67e12
 BF16_TENSOR_OPS = 989e12       # dense bf16 on the tensor cores
+TF32_TENSOR_OPS = 495e12       # dense TF32 on the tensor cores
 
 # Per-element operation counts for the bounds, each transcendental counted
 # as one operation: disc_logistic ~8 transcendentals + ~22 adds, multiplies
@@ -119,15 +122,17 @@ REPLACES = {
     "groupnorm_gelu_bwd": "apv_tpu/ops/groupnorm.py:166",
     "conv3x3": "scripts/conv_microbench.py:67",
 }
-# each kernel's __global__ function, to find it in a profile
-KERNEL_FNS = {"reparam": "reparam_samples", "kl": "kl_rows",
-              "disc_logistic": "disc_logistic_rows",
-              "bernoulli": "bernoulli_rows", "reparam_bwd": "reparam_bwd_sum",
-              "kl_bwd": "kl_bwd_rows", "bernoulli_bwd": "bernoulli_bwd_rows",
-              "disc_logistic_bwd": "disc_logistic_bwd_rows",
-              "groupnorm_gelu": "groupnorm_gelu_rows",
-              "groupnorm_gelu_bwd": "groupnorm_gelu_bwd_rows",
-              "conv3x3": "conv3x3_igemm"}
+# each kernel's __global__ functions, to find them in a profile
+KERNEL_FNS = {"reparam": ("reparam_samples",), "kl": ("kl_rows",),
+              "disc_logistic": ("disc_logistic_rows",),
+              "bernoulli": ("bernoulli_rows",),
+              "reparam_bwd": ("reparam_bwd_sum",),
+              "kl_bwd": ("kl_bwd_rows",),
+              "bernoulli_bwd": ("bernoulli_bwd_rows",),
+              "disc_logistic_bwd": ("disc_logistic_bwd_rows",),
+              "groupnorm_gelu": ("groupnorm_gelu_rows",),
+              "groupnorm_gelu_bwd": ("groupnorm_gelu_bwd_rows",),
+              "conv3x3": ("conv3x3_wgmma", "conv3x3_simt")}
 SOURCES = {name: f"apv_tpu_torch/ops/csrc/{name.removesuffix('_bwd')}.cu"
            for name in REPLACES}
 
@@ -563,27 +568,60 @@ def gn_kernel_checks(K, card: str, rng, dev) -> dict:
 
 
 def conv_bound(card: str, shape, dtype) -> dict:
-    """Bytes (x and w in, f32 out) over the memory rate, or 2·9·Cin
-    operations per output over the peak for the input type (bf16 tensor
-    cores; f32 units without TF32), whichever is larger."""
+    """Bytes (x and w in, f32 out) over the memory rate, or the least time
+    of the operations, whichever is larger: 2·9·Cin per output on the bf16
+    tensor cores for bf16, as three TF32 products a MAC on the tensor
+    cores for f32 (3xTF32, the least time of f32-exact work there). The
+    same for either kernel: a bound of the function on the card."""
     b, h, w, cin, cout = shape
     size = 2 if dtype == torch.bfloat16 else 4
     outs = b * h * w * cout
     nbytes = size * (b * h * w * cin + 9 * cin * cout) + 4 * outs
-    peak = BF16_TENSOR_OPS if dtype == torch.bfloat16 else F32_OPS
-    t_b, t_o = nbytes / mem_bw(card), 2 * 9 * cin * outs / peak
+    flops = 2 * 9 * cin * outs
+    if dtype == torch.bfloat16:
+        t_o = flops / BF16_TENSOR_OPS
+    else:
+        t_o = 3 * flops / TF32_TENSOR_OPS
+    t_b = nbytes / mem_bw(card)
     return {"bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+# odd widths, one for each route: Cin 24 (a zero-filled K block) and Cout
+# 40 (a partial N tile) on the tensor cores; Cin 13, Cout 20 on SIMT
+CONV_ODD = [((2, 9, 11, 24, 40), "wgmma"), ((3, 7, 5, 13, 20), "simt")]
+
+
+def check_misaligned(K, x, w, want) -> None:
+    """x and w as views one element off TMA's 16-byte alignment: the
+    wrapper copies them and runs the tensor-core kernel, with the same
+    result."""
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    xs, ws = shifted(x), shifted(w)
+    check(xs.data_ptr() % 16 != 0 and ws.data_ptr() % 16 != 0,
+          "conv3x3: the shifted views are aligned")
+    K.reset_launches()
+    got = K.conv3x3_cuda(xs, ws)
+    check(K.conv3x3_routes == {"wgmma": 1, "simt": 0} and bool(
+        torch.equal(got, want)), f"conv3x3 misaligned {tuple(x.shape)} "
+          f"{x.dtype}: launched {K.conv3x3_routes}, equal "
+          f"{bool(torch.equal(got, want))}")
+
+
 def conv_kernel_checks(K, card: str, rng, dev) -> dict:
     """conv3x3 against its plain version and against f32 F.conv2d (TF32
-    off) at the probe's three shapes, bf16 and f32; times of the kernel,
-    the plain version and cuDNN (F.conv2d in the input's dtype) per shape.
-    The kernels line takes the first shape in bf16."""
+    off) at the probe's three shapes and the two odd ones, bf16 and f32;
+    times of the kernel, the plain version and cuDNN (F.conv2d in the
+    input's dtype) per shape. The kernels line takes the first shape in
+    bf16."""
     from apv_tpu_torch.ops.conv_probe import SHAPES, torch_conv
     per_shape = []
-    for shape in SHAPES:
+    cases = [(tuple(s), "wgmma") for s in SHAPES] + CONV_ODD
+    for shape, route in cases:
         b, h, w, cin, cout = shape
         xf = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(
             np.float32)).to(dev)
@@ -593,8 +631,17 @@ def conv_kernel_checks(K, card: str, rng, dev) -> dict:
             ref = torch_conv(xf, wf)
             for dtype in (torch.bfloat16, torch.float32):
                 x, wt = xf.to(dtype), wf.to(dtype)
+                K.reset_launches()
                 got = K.conv3x3_cuda(x, wt)
+                check(K.conv3x3_routes == {"wgmma": 0, "simt": 0, route: 1},
+                      f"conv3x3 {shape} {dtype}: launched "
+                      f"{K.conv3x3_routes}, expected {route}")
+                if route == "wgmma" and shape == CONV_ODD[0][0]:
+                    check_misaligned(K, x, wt, got)
                 plain = K.conv3x3_plain(x, wt)
+                check(got.shape == plain.shape and bool(
+                    torch.isfinite(got).all()), f"conv3x3 {shape} {dtype}: "
+                      "shape or non-finite values")
                 rel = scale_rel(got, ref)
                 tol = 1e-5 if dtype == torch.float32 else 1e-2
                 check(rel <= tol, f"conv3x3 {shape} {dtype}: error against "
@@ -603,7 +650,7 @@ def conv_kernel_checks(K, card: str, rng, dev) -> dict:
                 check(vs_plain <= 1e-5, f"conv3x3 {shape} {dtype}: against "
                       f"its plain version {vs_plain} > 1e-5")
                 per_shape.append({
-                    "shape": list(shape),
+                    "shape": list(shape), "route": route,
                     "dtype": str(dtype).removeprefix("torch."),
                     "rel_err_vs_f32": rel, "rel_err_vs_plain": vs_plain,
                     "max_abs_err": float((got - plain).abs().max()),
@@ -618,7 +665,8 @@ def conv_kernel_checks(K, card: str, rng, dev) -> dict:
                                 "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
         "library": "F.conv2d (cuDNN) on the channels_last view, input dtype",
-        "tol": "relative to max|F.conv2d f32|: 1e-5 (f32), 1e-2 (bf16)",
+        "tol": "relative to max|F.conv2d f32|: 1e-5 (f32), 1e-2 (bf16); "
+               "relative to max|plain|: 1e-5",
         "per_shape": per_shape}}
 
 
@@ -1141,6 +1189,9 @@ def conv_phase(dev) -> dict:
         1 + PROBE_BENCH["windows"] * PROBE_BENCH["reps"])
     check(launches == expected(K, conv3x3=per_run * 2 * len(
         conv_probe.SHAPES)), f"conv3x3 launches {launches}")
+    check(K.conv3x3_routes == {"wgmma": launches["conv3x3"], "simt": 0},
+          f"conv3x3 probe launches by kernel {K.conv3x3_routes}: all on "
+          "the tensor cores expected")
     for r in records:
         if r["impl"] == "conv3x3":
             tol = 1e-5 if r["dtype"] == "float32" else 1e-2
@@ -1526,8 +1577,9 @@ def profile_train(out_dir: Path, cfg, dev, steps: int = 16,
 
 def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
     """Device time of the fused op (10 forward+backward passes, bf16
-    [256, 32, 32, 64]), of the conv kernel (5 calls at each probe shape
-    and dtype) and of one OOD IWAE pass (4 batches of 64 at k=100, chunk
+    [256, 32, 32, 64]), of the conv kernel (40 calls at each probe shape
+    and dtype, a window each: the profiler drops the kernels of a
+    window's first ~0.5 ms) and of one OOD IWAE pass (4 batches of 64 at k=100, chunk
     50, the shaped prior) on the step-48 checkpoint."""
     from apv_tpu_torch import evaluate_nll, groupnorm_gelu
     from apv_tpu_torch.api import (_adopt_checkpoint_arch, _resolve,
@@ -1546,22 +1598,20 @@ def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
 
     gn_passes()
     profile_window(out_dir, "groupnorm_gelu", gn_passes)
-    convs = []
     for bb, h, w, cin, cout in SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            convs.append((torch.randn((bb, h, w, cin), device=dev).to(dtype),
-                          (0.05 * torch.randn((3, 3, cin, cout), device=dev)
-                           ).to(dtype)))
+            xc = torch.randn((bb, h, w, cin), device=dev).to(dtype)
+            wc = (0.05 * torch.randn((3, 3, cin, cout), device=dev)).to(dtype)
 
-    def conv_calls():
-        with torch.inference_mode():
-            for xc, wc in convs:
-                for _ in range(5):
-                    K.conv3x3_cuda(xc, wc)
+            def conv_calls():
+                with torch.inference_mode():
+                    for _ in range(40):
+                        K.conv3x3_cuda(xc, wc)
 
-    conv_calls()
-    profile_window(out_dir, "conv3x3", conv_calls)
-    del convs
+            conv_calls()
+            profile_window(out_dir, f"conv3x3_{str(dtype)[6:]}_"
+                           f"{bb}x{h}x{w}x{cin}x{cout}", conv_calls)
+            del xc, wc
     over = [f"results_dir={tmp}"]
     cfg = _adopt_checkpoint_arch(_resolve("ood_suite", over), over)
     state = _restore_state(cfg, device=dev)
@@ -1599,10 +1649,15 @@ def profile_window(out_dir: Path, tag: str, fn, **extra) -> None:
               and e.key != "Command Buffer Full"]
     total_us = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:16]
-    ours = {name: {"device_us_per_call": dev_us(e) / e.count,
-                   "calls": e.count}
-            for e in events for name, fn in KERNEL_FNS.items()
-            if f"::{fn}(" in e.key or f"::{fn}<" in e.key}
+    ours = {}
+    for name, fns in KERNEL_FNS.items():
+        mine = [e for e in events for fn in fns
+                if f"::{fn}(" in e.key or f"::{fn}<" in e.key]
+        if mine:
+            calls = sum(e.count for e in mine)
+            ours[name] = {"device_us_per_call": sum(map(dev_us, mine))
+                          / calls, "calls": calls,
+                          "functions": [e.key[:120] for e in mine]}
     emit("profile", window=tag, wall_s=wall, device_busy_s=total_us / 1e6,
          device_idle_share=max(0.0, 1.0 - total_us / 1e6 / wall),
          top=[{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
