@@ -8,7 +8,9 @@ loaded with ``ctypes``. The file name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused.
 
 Nothing here runs at import: the build happens the first time a CUDA tensor
-reaches a kernel, or when ``library()`` is called.
+reaches a kernel, or when ``library()`` is called. ``build(csrc, out_dir)``
+and ``load`` also serve another checkout's sources (``kernel_ab.py`` at the
+repo's root times two versions of a kernel side by side).
 """
 
 from __future__ import annotations
@@ -45,8 +47,10 @@ SIGNATURES = {
                               ctypes.c_float, _P),
     "apv_groupnorm_gelu": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            ctypes.c_float, ctypes.c_int, _P),
+    # the int* out: the backward kernel that ran (0 image, 1 rows)
     "apv_groupnorm_gelu_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I64, _I64, _I64, _I64, ctypes.c_int, _P),
+                               _I64, _I64, _I64, _I64, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int), _P),
     "apv_kl": (_P, _P, _P, _I64, _I64, _P),
     "apv_kl_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "apv_reparam": (_P, _P, _P, _I64, _I64, _U64, _U64, _P),
@@ -67,13 +71,13 @@ def _nvcc() -> str:
                        "from ops/csrc/ with the CUDA toolkit's nvcc")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
@@ -94,20 +98,22 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 
 
-def build() -> Path:
-    """Compile the kernels if this source hash has no library yet."""
+def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels of ``csrc`` into ``out_dir`` if this source hash
+    has no library there yet."""
     global build_seconds
-    lib = BUILD_DIR / f"libapv_kernels-{_digest()}.so"
+    lib = out_dir / f"libapv_kernels-{_digest(csrc)}.so"
     if lib.exists():
         return lib
     t0 = time.perf_counter()
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / (src.stem + ".o") for src in _sources()]
-        _run_all([[nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC),
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = _sources(csrc)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
+        _run_all([[nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(csrc),
                    "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(_sources(), objs)])
+                  for src, obj in zip(sources, objs)])
         staged = Path(tmp) / lib.name
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged),
                    *map(str, objs)]])
@@ -116,12 +122,18 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+def load(path: Path, signatures: dict = SIGNATURES) -> ctypes.CDLL:
+    """A built kernel library with every entry point's signature set (from
+    ``signatures``: another checkout's library takes that checkout's)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    return load(build())

@@ -96,8 +96,6 @@ bernoulli_bwd_rows(const float* __restrict__ g, const float* __restrict__ x,
     }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 unsigned blocks_for(int64_t rows) {
     return static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
 }
@@ -107,7 +105,7 @@ unsigned blocks_for(int64_t rows) {
 extern "C" int apv_bernoulli(const float* x, const float* logits, float* out,
                              int64_t rows, int64_t event, void* stream) {
     if (rows <= 0) return 0;
-    const bool vec = event % 4 == 0 && aligned16(x) && aligned16(logits);
+    const bool vec = event % 4 == 0 && apv::aligned16(x) && apv::aligned16(logits);
     bernoulli_rows<<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         x, logits, out, rows, event, vec);
     return apv::launch_status();
@@ -118,8 +116,8 @@ extern "C" int apv_bernoulli_bwd(const float* g, const float* x,
                                  const float* logits, float* dx, float* dl,
                                  int64_t rows, int64_t event, void* stream) {
     if (rows <= 0) return 0;
-    const bool vec = event % 4 == 0 && aligned16(x) && aligned16(logits)
-                     && aligned16(dl) && (dx == nullptr || aligned16(dx));
+    const bool vec = event % 4 == 0 && apv::aligned16(x) && apv::aligned16(logits)
+                     && apv::aligned16(dl) && (dx == nullptr || apv::aligned16(dx));
     bernoulli_bwd_rows<<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         g, x, logits, dx, dl, rows, event, vec);
     return apv::launch_status();

@@ -38,6 +38,10 @@ __device__ __forceinline__ float block_sum(float v) {
     return v;
 }
 
+inline bool aligned16(const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace apv

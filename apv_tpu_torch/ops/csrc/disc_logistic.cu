@@ -168,8 +168,6 @@ disc_logistic_bwd_rows(const float* __restrict__ g, const float* __restrict__ x,
     }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 }  // namespace
 
 extern "C" int apv_disc_logistic(const float* x, const float* mean,
@@ -190,9 +188,9 @@ extern "C" int apv_disc_logistic_bwd(const float* g, const float* x,
                                      int64_t rows, int64_t event, float bin_size,
                                      void* stream) {
     if (rows <= 0) return 0;
-    const bool vec = event % 4 == 0 && aligned16(x) && aligned16(mean)
-                     && aligned16(log_scale) && aligned16(dmean) && aligned16(dls)
-                     && (dx == nullptr || aligned16(dx));
+    const bool vec = event % 4 == 0 && apv::aligned16(x) && apv::aligned16(mean)
+                     && apv::aligned16(log_scale) && apv::aligned16(dmean) && apv::aligned16(dls)
+                     && (dx == nullptr || apv::aligned16(dx));
     disc_logistic_bwd_rows<<<static_cast<unsigned>(rows), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         g, x, mean, log_scale, dx, dmean, dls, event, bin_size, vec);

@@ -13,10 +13,29 @@
 // fixed generator seed gives a fixed z and successive calls differ. The
 // plain PyTorch version in ops/kernels.py computes the same stream.
 //
-// Bound on an H100: launch latency. The IWAE chunk [25, 64, 128] writes
-// 0.82 MB, ~0.25 us at 3.35 TB/s, well under one launch; mean and logvar
-// ([B, Z], 65.5 KB) are read once from memory and then from cache for each
-// sample, instead of being broadcast to [S, B, Z] in memory first.
+// Bound on an H100: the launch. The OOD chunk [50, 64, 128] writes 1.64 MB
+// (0.49 us at 3.35 TB/s) and the train step's [256, 128] 0.13 MB, while a
+// launch of any kernel costs the card ~1.1-1.3 us of device time (the
+// launch floor in PERF.md). Above the floor it lost instructions: the
+// first design spent more on a 64-bit remainder per output than on the
+// Philox rounds, and wrote each quad as four scalar stores 16 B apart.
+// This one gives each thread one counter (one quad of outputs), as the
+// stream requires, and spends as little as it can around it:
+// - one remainder a thread, in 32 bits when the output has fewer than
+//   2^31 elements; the quad's other columns follow by increment and wrap;
+// - mean and logvar as one float4 each when n % 4 == 0 (a quad then sits
+//   in one row), the quad's z as one 16-byte store (the tail of a total
+//   that is not a multiple of 4, and unaligned pointers, store scalars);
+// - one sincosf per Box-Muller pair (one range reduction for both);
+// - 64-thread blocks, so that the train step's S = 1 (8,192 quads) is
+//   spread over 128 SMs and the OOD chunk's 102,400 quads over 1,600
+//   blocks, all resident at once.
+// The arithmetic is the first design's, operation for operation (the same
+// libm calls, the same fma contraction), so the stream and its bits are
+// unchanged. mean and logvar ([B, Z], 65.5 KB) are read from memory once
+// and then from cache for each sample. It runs in 2.8 us at the OOD chunk
+// and 1.7 us at the train step's S = 1, against 4.6 and 2.3 before
+// (PERF.md).
 //
 // Backward: replaces apv_tpu/ops/kernels.py::_reparam_bwd with
 // _unbroadcast, the custom_vjp rule written in jnp. With g the incoming
@@ -35,7 +54,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // reparam_bwd_sum
+constexpr int kSampleThreads = 64;  // reparam_samples
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
@@ -57,37 +77,61 @@ __device__ __forceinline__ float uniform_open(uint32_t bits) {
     return (static_cast<float>(bits >> 9) + 0.5f) * 1.1920928955078125e-07f;
 }
 
-// Box-Muller: (u1, u2) -> two independent normals. u1 is clamped away from
-// 0 as in the Pallas kernel (uniform_open already keeps it >= 2^-24).
-__device__ __forceinline__ float2 box_muller(uint32_t b1, uint32_t b2) {
+// Box-Muller: (u1, u2) -> two independent normals (r cos, r sin). u1 is
+// clamped away from 0 as in the Pallas kernel (uniform_open already keeps
+// it >= 2^-24).
+__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
+                                           float& n0, float& n1) {
     const float u1 = fmaxf(uniform_open(b1), 1e-12f);
     const float u2 = uniform_open(b2);
     const float r = sqrtf(-2.0f * logf(u1));
-    const float theta = 6.2831855f * u2;
-    return make_float2(r * cosf(theta), r * sinf(theta));
+    float s, c;
+    sincosf(6.2831855f * u2, &s, &c);
+    n0 = r * c;
+    n1 = r * s;
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kVecLoad = 1;   // n % 4 == 0, mean and logvar 16-byte aligned
+constexpr int kVecStore = 2;  // z 16-byte aligned
+
+// Thread q: counter q, outputs 4q .. 4q+3 of the flat [S, n] z. Index is
+// uint32_t when S * n < 2^31, else uint64_t.
+template <typename Index>
+__global__ void __launch_bounds__(kSampleThreads)
 reparam_samples(const float* __restrict__ mean, const float* __restrict__ logvar,
-                float* __restrict__ z, int64_t n, int64_t total,
-                uint64_t seed, uint64_t offset) {
-    const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-    const int64_t base = 4 * q;
-    if (base >= total) return;
+                float* __restrict__ z, Index n, Index total, uint2 key,
+                uint2 offset, int flags) {
+    const Index q = static_cast<Index>(blockIdx.x) * kSampleThreads + threadIdx.x;
+    const Index e0 = 4 * q;
+    if (e0 >= total) return;
+    const uint64_t q64 = q;
     const uint4 bits = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32),
-                   static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32)),
-        make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32)));
-    const float2 n01 = box_muller(bits.x, bits.y);
-    const float2 n23 = box_muller(bits.z, bits.w);
-    const float eps[4] = {n01.x, n01.y, n23.x, n23.y};
+        make_uint4(static_cast<uint32_t>(q64), static_cast<uint32_t>(q64 >> 32),
+                   offset.x, offset.y), key);
+    float eps[4], out[4];
+    box_muller(bits.x, bits.y, eps[0], eps[1]);
+    box_muller(bits.z, bits.w, eps[2], eps[3]);
+    Index i = e0 % n;
+    if (flags & kVecLoad) {
+        const float4 m = *reinterpret_cast<const float4*>(mean + i);
+        const float4 lv = *reinterpret_cast<const float4*>(logvar + i);
+        out[0] = m.x + expf(0.5f * lv.x) * eps[0];
+        out[1] = m.y + expf(0.5f * lv.y) * eps[1];
+        out[2] = m.z + expf(0.5f * lv.z) * eps[2];
+        out[3] = m.w + expf(0.5f * lv.w) * eps[3];
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int64_t e = base + j;
-        if (e < total) {
-            const int64_t i = e % n;
-            z[e] = mean[i] + expf(0.5f * logvar[i]) * eps[j];
+        for (int j = 0; j < 4; ++j) {
+            out[j] = mean[i] + expf(0.5f * logvar[i]) * eps[j];
+            i = (i + 1 == n) ? 0 : i + 1;   // the quad may wrap into the next row
         }
+    }
+    if ((flags & kVecStore) && e0 + 4 <= total) {
+        *reinterpret_cast<float4*>(z + e0) = make_float4(out[0], out[1], out[2], out[3]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if (e0 + j < total) z[e0 + j] = out[j];
     }
 }
 
@@ -116,10 +160,21 @@ extern "C" int apv_reparam(const float* mean, const float* logvar, float* z,
     const int64_t total = samples * n;
     if (total <= 0) return 0;
     const int64_t quads = (total + 3) / 4;
-    const int64_t blocks = (quads + kThreads - 1) / kThreads;
-    reparam_samples<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        mean, logvar, z, n, total, seed, offset);
+    const unsigned blocks = static_cast<unsigned>((quads + kSampleThreads - 1) / kSampleThreads);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+    const uint2 ctr = make_uint2(static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+    const int flags = (n % 4 == 0 && apv::aligned16(mean) && apv::aligned16(logvar) ? kVecLoad : 0)
+                    | (apv::aligned16(z) ? kVecStore : 0);
+    if (total < (int64_t{1} << 31)) {
+        reparam_samples<uint32_t><<<blocks, kSampleThreads, 0, s>>>(
+            mean, logvar, z, static_cast<uint32_t>(n), static_cast<uint32_t>(total),
+            key, ctr, flags);
+    } else {
+        reparam_samples<uint64_t><<<blocks, kSampleThreads, 0, s>>>(
+            mean, logvar, z, static_cast<uint64_t>(n), static_cast<uint64_t>(total),
+            key, ctr, flags);
+    }
     return apv::launch_status();
 }
 

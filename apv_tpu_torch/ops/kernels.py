@@ -24,16 +24,22 @@ blocks); each backward kernel replaces the jnp rule of that op's
   ``kl_bwd`` (same file) replaces ``_kl_bwd``.
 * ``reparam`` (``csrc/reparam.cu``) replaces ``_reparam_fwd`` /
   ``_reparam_kernel``. Bound: launch latency (0.82 MB written at
-  [25, 64, 128]). Design: Philox4x32-10 + Box-Muller inside the kernel;
-  mean and logvar are read as [B, Z] for all S samples. ``reparam_bwd``
+  [25, 64, 128]). Design: Philox4x32-10 + Box-Muller inside the kernel,
+  one counter (four outputs) a thread with one 32-bit remainder and one
+  16-byte store; mean and logvar are read as [B, Z] for all S samples.
+  ``reparam_bwd``
   (same file) replaces ``_reparam_bwd`` + ``_unbroadcast``: one thread per
   element sums over the sample axis, deterministic, no atomics.
 * ``groupnorm_gelu`` (``csrc/groupnorm_gelu.cu``) replaces
   ``apv_tpu/ops/groupnorm.py::_fwd`` / ``_gn_gelu_kernel``. Bound: memory,
   x in and y out (67.1 MB in bf16 at [256, 32, 32, 64]). Design: one block
   per (row, group), a plain block reduction for the statistics.
-  ``groupnorm_gelu_bwd`` (same file) replaces the rule ``_bwd``, with
-  dgamma and dbeta as per-row partials summed in a fixed order.
+  ``groupnorm_gelu_bwd`` (same file) replaces the rule ``_bwd``: a
+  cluster of blocks per image reading whole pixel rows in 16-byte runs,
+  the blocks' sums meeting in distributed shared memory (other shapes: a
+  block per (row, group), one channel a thread); dgamma and dbeta as
+  per-row partials summed in a fixed order. ``groupnorm_gelu_bwd_routes``
+  counts the launches by the kernel that ran.
 * ``conv3x3`` (``csrc/conv3x3.cu``) replaces
   ``scripts/conv_microbench.py::pallas_conv``. Bound: bytes at the probe's
   stage 1 (100.7 MB in bf16 with the f32 out), bf16 tensor-core operations
@@ -61,6 +67,7 @@ plain version on the card.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -75,10 +82,14 @@ launches: dict[str, int] = {
     "conv3x3": 0}
 # conv3x3's launches by the kernel that ran (``conv3x3_route``'s names)
 conv3x3_routes: dict[str, int] = {"wgmma": 0, "simt": 0}
+# groupnorm_gelu_bwd's launches by the kernel that ran, as the C entry
+# point reports it (``groupnorm_gelu_bwd_image`` or ``_rows``)
+GN_BWD_KERNELS = ("image", "rows")
+groupnorm_gelu_bwd_routes: dict[str, int] = dict.fromkeys(GN_BWD_KERNELS, 0)
 
 
 def reset_launches() -> None:
-    for counts in (launches, conv3x3_routes):
+    for counts in (launches, conv3x3_routes, groupnorm_gelu_bwd_routes):
         for name in counts:
             counts[name] = 0
 
@@ -573,7 +584,10 @@ def groupnorm_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Kernel version of ``groupnorm_gelu_bwd_plain``: dy and x of one
-    dtype and shape, the forward's f32 residuals -> (dx, dgamma, dbeta)."""
+    dtype and shape, the forward's f32 residuals -> (dx, dgamma, dbeta).
+    The C entry point picks the kernel (by widths, alignment and the
+    image's size) and reports it; each launch adds one to
+    ``groupnorm_gelu_bwd_routes`` under the kernel that ran."""
     b, hw, c = _group_shape(x, groups)
     _check_gn("groupnorm_gelu_bwd", x, gamma, beta, mean, rstd)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
@@ -589,13 +603,16 @@ def groupnorm_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
     if c:
+        ran = ctypes.c_int(-1)            # stays -1 when B = 0
         _launch("groupnorm_gelu_bwd", _lib().apv_groupnorm_gelu_bwd,
                 dy.data_ptr(), x.data_ptr(), gamma.data_ptr(),
                 beta.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                 dx.data_ptr(), partials[0].data_ptr(),
                 partials[1].data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
                 b, hw, c, groups, int(x.dtype == torch.bfloat16),
-                device=x.device)
+                ctypes.byref(ran), device=x.device)
+        if ran.value >= 0:
+            groupnorm_gelu_bwd_routes[GN_BWD_KERNELS[ran.value]] += 1
     return dx, dgamma, dbeta
 
 

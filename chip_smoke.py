@@ -11,9 +11,12 @@ Phases, one JSON line each:
   2. kernel: each hand-written kernel (forward and backward) against its
      plain PyTorch version on the card, at the shapes the paths give it,
      with its time, the plain version's time and the least time the card
-     could take; conv3x3 also at two odd shapes, one for each of its
-     routes (tensor cores, SIMT), each held to the kernel that ran, and
-     on views off TMA's alignment.
+     could take; reparam also at the OOD chunk and an odd shape, with its
+     times at the OOD chunk and the train step; groupnorm_gelu_bwd also
+     at shapes that take its other paths, twice for the same bits;
+     conv3x3 also at two odd shapes, one for each of its routes (tensor
+     cores, SIMT), each held to the kernel that ran, and on views off
+     TMA's alignment.
   3. scorer: the per-sample ELBO scorer of cifar_advprior_resnet at full
      width (batch 64, bf16 compute, random seeded weights) through the
      kernels, held to the same ELBO recomputed with the plain ops on the
@@ -131,7 +134,8 @@ KERNEL_FNS = {"reparam": ("reparam_samples",), "kl": ("kl_rows",),
               "bernoulli_bwd": ("bernoulli_bwd_rows",),
               "disc_logistic_bwd": ("disc_logistic_bwd_rows",),
               "groupnorm_gelu": ("groupnorm_gelu_rows",),
-              "groupnorm_gelu_bwd": ("groupnorm_gelu_bwd_rows",),
+              "groupnorm_gelu_bwd": ("groupnorm_gelu_bwd_image",
+                                     "groupnorm_gelu_bwd_rows"),
               "conv3x3": ("conv3x3_wgmma", "conv3x3_simt")}
 SOURCES = {name: f"apv_tpu_torch/ops/csrc/{name.removesuffix('_bwd')}.cu"
            for name in REPLACES}
@@ -246,15 +250,28 @@ def kernel_checks(K, card: str, dev) -> dict:
         "plain_ms": cuda_ms(lambda: K.kl_plain(m, lv), 200),
         **bound("kl", card, 4 * (2 * BATCH * 128 + BATCH), BATCH * 128)}
 
-    # reparam from [64, 128] to the IWAE chunk's [25, 64, 128]
+    # reparam from [64, 128] to the IWAE chunk's [25, 64, 128], the OOD
+    # chunk's [50, 64, 128], and an odd shape whose total and row length
+    # are not multiples of 4 (the scalar tail and the row wrap)
     seed, offset = 0x0123456789ABCDEF, 42
+    rng_r = np.random.default_rng(SEED + 32)   # leaves rng's later draws
+    odd = [cuda(rng_r.normal(size=(7, 5)).astype(np.float32)),
+           cuda(rng_r.uniform(-4.0, 1.0, size=(7, 5)).astype(np.float32))]
+    rels = {}
+    for tag, (mi, li, s_) in {"25x64x128": (m, lv, 25),
+                              "50x64x128": (m, lv, 50),
+                              "3x7x5": (*odd, 3)}.items():
+        got = K.reparam_cuda(mi, li, s_, seed, offset)
+        want = K.reparam_plain(mi, li, s_, seed, offset)
+        rels[tag] = float(((got - want).abs() / (1.0 + want.abs())).max())
+        # the same Philox words and f32 Box-Muller; libm ulps only
+        check(rels[tag] <= 1e-5, f"reparam {tag}: max |kernel - plain|/"
+              f"(1+|z|) {rels[tag]} > 1e-5")
+        check(torch.equal(got, K.reparam_cuda(mi, li, s_, seed, offset)),
+              f"reparam {tag}: the same (seed, offset) gave a different z")
+    rel = rels["25x64x128"]
     got = K.reparam_cuda(m, lv, 25, seed, offset)
     want = K.reparam_plain(m, lv, 25, seed, offset)
-    rel = float(((got - want).abs() / (1.0 + want.abs())).max())
-    # the same Philox words and f32 Box-Muller; libm ulps only
-    check(rel <= 1e-5, f"reparam: max |kernel - plain|/(1+|z|) {rel} > 1e-5")
-    check(torch.equal(got, K.reparam_cuda(m, lv, 25, seed, offset)),
-          "reparam: the same (seed, offset) gave a different z")
 
     def eps_of(z):
         return ((z - m) / torch.exp(0.5 * lv)).reshape(-1).double()
@@ -283,15 +300,30 @@ def kernel_checks(K, card: str, dev) -> dict:
     }
     for what, c in corrs.items():
         check(abs(c) <= 0.01, f"reparam: eps correlation {what} = {c}")
+    # the OOD chunk [50, 64, 128] (most of the paths' launches) and the
+    # CIFAR train step's S = 1 at [256, 128]
+    m_t = cuda(rng_r.normal(size=(256, 128)).astype(np.float32))
+    lv_t = cuda(rng_r.uniform(-4.0, 1.0, size=(256, 128)).astype(np.float32))
+    more = {}
+    for tag, (mi, li, s_) in {"ood_chunk": (m, lv, 50),
+                              "train": (m_t, lv_t, 1)}.items():
+        more[tag] = {
+            "shape": [s_, *mi.shape],
+            "ms": cuda_ms(lambda: K.reparam_cuda(mi, li, s_, seed, offset),
+                          500),
+            **bound("reparam", card, 4 * (2 * mi.numel() + s_ * mi.numel()),
+                    s_ * mi.numel())}
     results["reparam"] = {
         "shape": [25, BATCH, 128], "max_abs_err":
             float((got - want).abs().max()), "max_rel_err": rel,
+        "max_rel_err_by_shape": rels,
         "moments_8.2M": mom, "correlations": corrs,
         "ms": cuda_ms(lambda: K.reparam_cuda(m, lv, 25, seed, offset), 500),
         "plain_ms": cuda_ms(lambda: K.reparam_plain(m, lv, 25, seed, offset),
                             50),
         **bound("reparam", card, 4 * (2 * BATCH * 128 + 25 * BATCH * 128),
-                25 * BATCH * 128)}
+                25 * BATCH * 128),
+        "at": more}
     results.update(mnist_kernel_checks(K, card, rng, cuda))
     results.update(cifar_kernel_checks(K, card, rng, cuda))
     return results
@@ -463,6 +495,11 @@ def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
 
 GN_SHAPE = (256, 32, 32, 64)   # the flagship's stage 1 at batch 256
 GN_ODD = (3, 7, 5, 24)         # 3 channels a group, 35 pixels
+# (shape, groups, the backward kernel that must run) beyond GN_SHAPE
+# (image) and GN_ODD (rows)
+GN_PATHS = (((2, 64, 64, 64), 8, "rows"),    # an image past eight blocks
+            ((2, 12, 12, 192), 8, "image"),  # 24 or 48 runs a row, four blocks
+            ((2, 3, 3, 257), 1, "rows"))     # 257 channels a group, two chunks
 
 
 def gn_inputs(rng, shape, dtype, dev):
@@ -498,33 +535,63 @@ def library_gn_gelu(x, g, b):
 
 def gn_kernel_checks(K, card: str, rng, dev) -> dict:
     """groupnorm_gelu and groupnorm_gelu_bwd against their plain versions
-    at the flagship's stage-1 shape and an odd one, bf16 and f32; times
-    at the flagship shape in bf16 beside the library's F.group_norm +
-    F.gelu (forward; backward alone on a retained graph; both)."""
+    at the flagship's stage-1 shape, an odd one and GN_PATHS, bf16 and
+    f32, and on views off 16-byte alignment; each backward twice, for the
+    same bits, each held to the kernel that must run there (image or rows,
+    as the C entry point reports it). Times at the flagship shape in bf16
+    beside the library's
+    F.group_norm + F.gelu (forward; backward alone on a retained graph;
+    both)."""
     errs = {}
-    for shape in (GN_SHAPE, GN_ODD):
+
+    def check_case(tag, x, g, b, dy, groups, kernel):
+        K.reset_launches()
+        with torch.inference_mode():
+            yk, mk, rk = K.groupnorm_gelu_cuda(x, g, b, groups)
+            yp, mp, rp = K.groupnorm_gelu_plain(x, g, b, groups)
+            ek = K.groupnorm_gelu_bwd_cuda(dy, x, g, b, mk, rk, groups)
+            ep = K.groupnorm_gelu_bwd_plain(dy, x, g, b, mk, rk, groups)
+            again = K.groupnorm_gelu_bwd_cuda(dy, x, g, b, mk, rk, groups)
+        fwd = float((yk.float() - yp.float()).abs().max()) / max(
+            float(yp.float().abs().max()), 1.0)
+        stats = max(scale_rel(mk, mp), scale_rel(rk, rp))
+        bwd = max(scale_rel(a, c) for a, c in zip(ek, ep))
+        errs[tag] = {"fwd": fwd, "stats": stats, "bwd": bwd,
+                     "fwd_max_abs": float((yk.float() - yp.float())
+                                          .abs().max()),
+                     "bwd_max_abs": max(float((a.float() - c.float())
+                                              .abs().max())
+                                        for a, c in zip(ek, ep))}
+        check(fwd <= GN_FWD_TOL[x.dtype] and stats <= 1e-5,
+              f"groupnorm_gelu {tag}: forward {fwd}, stats {stats}")
+        check(bwd <= GN_GRAD_TOL[x.dtype],
+              f"groupnorm_gelu_bwd {tag}: scale-relative {bwd}")
+        check(all(torch.equal(a, c) for a, c in zip(ek, again)),
+              f"groupnorm_gelu_bwd {tag}: a second call gave other bits")
+        ran = dict(K.groupnorm_gelu_bwd_routes)
+        errs[tag]["bwd_kernel"] = ran
+        check(ran == {**dict.fromkeys(K.GN_BWD_KERNELS, 0), kernel: 2},
+              f"groupnorm_gelu_bwd {tag}: launched {ran}, expected "
+              f"groupnorm_gelu_bwd_{kernel} twice")
+
+    for shape, kernel in ((GN_SHAPE, "image"), (GN_ODD, "rows")):
         for dtype in (torch.bfloat16, torch.float32):
             x, g, b, dy = gn_inputs(rng, shape, dtype, dev)
-            with torch.inference_mode():
-                yk, mk, rk = K.groupnorm_gelu_cuda(x, g, b, 8)
-                yp, mp, rp = K.groupnorm_gelu_plain(x, g, b, 8)
-                ek = K.groupnorm_gelu_bwd_cuda(dy, x, g, b, mk, rk, 8)
-                ep = K.groupnorm_gelu_bwd_plain(dy, x, g, b, mk, rk, 8)
-            fwd = float((yk.float() - yp.float()).abs().max()) / max(
-                float(yp.float().abs().max()), 1.0)
-            stats = max(scale_rel(mk, mp), scale_rel(rk, rp))
-            bwd = max(scale_rel(a, c) for a, c in zip(ek, ep))
-            tag = f"{list(shape)} {str(dtype).removeprefix('torch.')}"
-            errs[tag] = {"fwd": fwd, "stats": stats, "bwd": bwd,
-                         "fwd_max_abs": float((yk.float() - yp.float())
-                                              .abs().max()),
-                         "bwd_max_abs": max(float((a.float() - c.float())
-                                                  .abs().max())
-                                            for a, c in zip(ek, ep))}
-            check(fwd <= GN_FWD_TOL[dtype] and stats <= 1e-5,
-                  f"groupnorm_gelu {tag}: forward {fwd}, stats {stats}")
-            check(bwd <= GN_GRAD_TOL[dtype],
-                  f"groupnorm_gelu_bwd {tag}: scale-relative {bwd}")
+            check_case(f"{list(shape)} {str(dtype).removeprefix('torch.')}",
+                       x, g, b, dy, 8, kernel)
+    rng_p = np.random.default_rng(SEED + 33)   # leaves rng's later draws
+    for shape, groups, kernel in GN_PATHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, b, dy = gn_inputs(rng_p, shape, dtype, dev)
+            check_case(f"{list(shape)} G={groups} "
+                       f"{str(dtype).removeprefix('torch.')}",
+                       x, g, b, dy, groups, kernel)
+    # views one element off 16-byte alignment take the rows kernel
+    x, g, b, dy = gn_inputs(rng_p, GN_PATHS[1][0], torch.bfloat16, dev)
+    xs, dys = (torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+               .view(t.shape).copy_(t) for t in (x, dy))
+    check_case(f"{list(x.shape)} G=8 bfloat16 off 16-byte alignment",
+               xs, g, b, dys, 8, "rows")
 
     x, g, b, dy = gn_inputs(rng, GN_SHAPE, torch.bfloat16, dev)
     with torch.inference_mode():
@@ -1122,8 +1189,9 @@ def cifar_ckpt_phase(cfg, state, tmp: str, dev):
 def groupnorm_phase(dev) -> dict:
     """The op's path: forward and backward through groupnorm_gelu's
     autograd.Function at the flagship shape (bf16, f32) and the odd shape
-    (bf16, f32) with the counters zeroed around it; values and gradients
-    held to autograd of the plain version."""
+    (bf16, f32) with the counters zeroed around it, the backward on the
+    image kernel at the first and the rows kernel at the second; values
+    and gradients held to autograd of the plain version."""
     from apv_tpu_torch import groupnorm_gelu
     from apv_tpu_torch.ops import kernels as K
     rng = np.random.default_rng(SEED + 31)
@@ -1139,9 +1207,13 @@ def groupnorm_phase(dev) -> dict:
         outs.append((y.detach(), torch.autograd.grad(y, (xr, gr, br), dy)))
     torch.cuda.synchronize()
     launches = dict(K.launches)
+    bwd_kernels = dict(K.groupnorm_gelu_bwd_routes)
     check(launches == expected(K, groupnorm_gelu=len(cases),
                                groupnorm_gelu_bwd=len(cases)),
           f"groupnorm_gelu launches {launches}")
+    check(bwd_kernels == {"image": 2, "rows": 2},
+          f"groupnorm_gelu_bwd kernels {bwd_kernels}: expected the image "
+          f"kernel at {list(GN_SHAPE)} and the rows kernel at {list(GN_ODD)}")
     errs = {}
     for (shape, dtype), (x, g, b, dy), (y, grads) in zip(cases, inputs,
                                                           outs):
@@ -1162,7 +1234,8 @@ def groupnorm_phase(dev) -> dict:
     xr, gr, br = (t.requires_grad_(True) for t in (x, g, b))
     fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
         groupnorm_gelu(xr, gr, br, 8), (xr, gr, br), dy), 100)
-    emit("groupnorm_gelu", launches=launches, errs=errs,
+    emit("groupnorm_gelu", launches=launches, bwd_kernels=bwd_kernels,
+         errs=errs,
          tol_fwd="1e-5 (f32), 2^-7 (bf16) x max(max|y|, 1)",
          tol_grad="scale-relative 1e-4 (f32), 1e-2 (bf16)",
          fwd_bwd_ms_bf16=fwd_bwd)
@@ -1577,7 +1650,9 @@ def profile_train(out_dir: Path, cfg, dev, steps: int = 16,
 
 def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
     """Device time of the fused op (10 forward+backward passes, bf16
-    [256, 32, 32, 64]), of the conv kernel (40 calls at each probe shape
+    [256, 32, 32, 64]), of reparam (100 calls at each of its three path
+    shapes, each beside a one-element kernel, the launch floor), of the
+    conv kernel (40 calls at each probe shape
     and dtype, a window each: the profiler drops the kernels of a
     window's first ~0.5 ms) and of one OOD IWAE pass (4 batches of 64 at k=100, chunk
     50, the shaped prior) on the step-48 checkpoint."""
@@ -1598,6 +1673,21 @@ def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
 
     gn_passes()
     profile_window(out_dir, "groupnorm_gelu", gn_passes)
+    # reparam at the IWAE and OOD chunks and the CIFAR train step, each
+    # launch beside a one-element neg_: the launch floor (floor_us)
+    one = torch.zeros(1, device=dev)
+    for s_, shape in ((25, (64, 128)), (50, (64, 128)), (1, (256, 128))):
+        m = torch.randn(shape, device=dev)
+        lv = torch.rand(shape, device=dev) - 2.0
+
+        def reparam_calls():
+            for i in range(100):
+                K.reparam_cuda(m, lv, s_, SEED, i)
+                one.neg_()
+
+        reparam_calls()
+        profile_window(out_dir, f"reparam_{s_}x{shape[0]}x{shape[1]}",
+                       reparam_calls, with_floor=True)
     for bb, h, w, cin, cout in SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             xc = torch.randn((bb, h, w, cin), device=dev).to(dtype)
@@ -1622,9 +1712,12 @@ def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
         use_adversarial_prior=True, device=dev))
 
 
-def profile_window(out_dir: Path, tag: str, fn, **extra) -> None:
+def profile_window(out_dir: Path, tag: str, fn, with_floor: bool = False,
+                   **extra) -> None:
     """Device time by kernel over ``fn()`` (torch.profiler), its wall time
-    and the device's idle share."""
+    and the device's idle share; with ``with_floor``, also the device time
+    a launch of the one-element ``neg_`` that ``fn`` interleaves with its
+    kernels (``floor_us``)."""
     from torch.profiler import ProfilerActivity, profile
     out_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1658,10 +1751,15 @@ def profile_window(out_dir: Path, tag: str, fn, **extra) -> None:
             ours[name] = {"device_us_per_call": sum(map(dev_us, mine))
                           / calls, "calls": calls,
                           "functions": [e.key[:120] for e in mine]}
+    # with with_floor: fn also launches a one-element neg_ (and no other neg)
+    floor = [e for e in events if with_floor and "neg" in e.key]
+    floor_us = (sum(map(dev_us, floor)) / sum(e.count for e in floor)
+                if floor else None)
     emit("profile", window=tag, wall_s=wall, device_busy_s=total_us / 1e6,
          device_idle_share=max(0.0, 1.0 - total_us / 1e6 / wall),
          top=[{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
-               "calls": e.count} for e in top], kernels=ours, **extra)
+               "calls": e.count} for e in top], kernels=ours,
+         floor_us=floor_us, **extra)
 
 
 if __name__ == "__main__":

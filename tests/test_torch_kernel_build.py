@@ -1,0 +1,123 @@
+"""The kernel build and the side-by-side timing tool, on the CPU.
+
+``ops/_build.py`` compiles any checkout's ``ops/csrc`` (``build(csrc,
+out_dir)``) into a library named by a hash of its sources, and
+``kernel_ab.py`` (at the repo's root) builds two checkouts' kernels and
+times them on the card. Neither can compile or run here (no nvcc, no
+card); these tests hold what they do before that: the source hash, the
+refusal without nvcc or a card, the parent's own signatures, and the
+parsing of ptxas and SASS listings.
+"""
+
+import ctypes
+import importlib.util
+import shutil
+from pathlib import Path
+
+import pytest
+import torch
+
+from apv_tpu_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("kernel_ab",
+                                               ROOT / "kernel_ab.py")
+kernel_ab = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(kernel_ab)
+
+PTXAS = """\
+ptxas info    : 24 bytes gmem
+ptxas info    : Compiling entry function '_Z6fast_kPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6fast_kPKfPf
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z6slow_kPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6slow_kPKfPf
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+SASS = """\
+\t\tFunction : _Z6slow_kPKfPf
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+                                                                     /* 0x000e220000000800 */
+        /*0010*/                   LDG.E R2, desc[UR4][R2.64] ;      /* 0x0000000402027981 */
+        /*0020*/              @!P0 STG.E desc[UR4][R4.64], R2 ;      /* 0x0000000204007986 */
+        /*0030*/                   EXIT ;                            /* 0x000000000000794d */
+\t\tFunction : _Z6fast_kPKfPf
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;  /* 0x0 */
+        /*0010*/                   MUFU.EX2 R6, R6 ;                 /* 0x0 */
+        /*0020*/                   CALL.REL.NOINC 0x2110 ;           /* 0x0 */
+        /*0030*/               @P1 STG.E.128 desc[UR4][R8.64], R4 ;  /* 0x0 */
+        /*0040*/                   STG.E desc[UR4][R8.64], R4 ;      /* 0x0 */
+        /*0050*/                   EXIT ;                            /* 0x0 */
+"""
+
+
+def test_summarize_listing_reads_registers_and_opcodes():
+    rows = {r["function"]: r for r in
+            kernel_ab.summarize_listing(PTXAS, SASS)}
+    assert set(rows) == {"_Z6fast_kPKfPf", "_Z6slow_kPKfPf"}
+    fast, slow = rows["_Z6fast_kPKfPf"], rows["_Z6slow_kPKfPf"]
+    assert (fast["registers"], fast["spill_stores"], fast["spill_loads"]) \
+        == (30, 0, 0)
+    assert (slow["registers"], slow["spill_stores"], slow["spill_loads"]) \
+        == (128, 8, 12)
+    assert fast["instructions"] == 6 and slow["instructions"] == 4
+    assert fast["stores"] == {"STG.E.128": 1, "STG.E": 1}
+    assert fast["loads"] == {"LDG.E.128.CONSTANT": 1}
+    assert (fast["calls"], fast["mufu"]) == (1, 1)
+    assert slow["stores"] == {"STG.E": 1} and slow["loads"] == {"LDG.E": 1}
+    assert (slow["calls"], slow["mufu"]) == (0, 0)
+
+
+def test_digest_follows_the_sources(tmp_path):
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    assert _build._digest(copy) == _build._digest()
+    (copy / "reparam.cu").write_text((copy / "reparam.cu").read_text()
+                                     + "\n// edited\n")
+    assert _build._digest(copy) != _build._digest()
+    (copy / "reparam.cu").write_text(
+        (_build.CSRC / "reparam.cu").read_text())
+    (copy / "common.cuh").write_text((copy / "common.cuh").read_text()
+                                     + "\n")
+    assert _build._digest(copy) != _build._digest()   # headers count too
+
+
+def test_build_of_another_checkout_needs_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("the CUDA toolkit is installed: nvcc would be found")
+    out = tmp_path / "build"
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(_build.CSRC, out)
+    assert not out.exists()
+    assert _build.build_seconds is None
+
+
+def test_kernel_ab_needs_the_card(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the comparison runs")
+    assert kernel_ab.main(["--parent", str(tmp_path)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_kernel_ab_takes_the_parents_own_signatures(tmp_path):
+    """A parent checkout's library is loaded with the signatures of that
+    checkout's ``_build.py``, which may differ from this one's (an entry
+    point that gained an argument)."""
+    assert kernel_ab.parent_signatures(ROOT) == _build.SIGNATURES
+    ops = tmp_path / "apv_tpu_torch" / "ops"
+    ops.mkdir(parents=True)
+    (ops / "_build.py").write_text(
+        "import ctypes\n"
+        "SIGNATURES = {'apv_groupnorm_gelu_bwd': (ctypes.c_void_p,) * 11\n"
+        "              + (ctypes.c_int64,) * 4 + (ctypes.c_int,\n"
+        "                                         ctypes.c_void_p)}\n")
+    older = kernel_ab.parent_signatures(tmp_path)
+    assert list(older) == ["apv_groupnorm_gelu_bwd"]
+    new = _build.SIGNATURES["apv_groupnorm_gelu_bwd"]
+    assert len(new) == len(older["apv_groupnorm_gelu_bwd"]) + 1
+    assert new[-2] is ctypes.POINTER(ctypes.c_int)
