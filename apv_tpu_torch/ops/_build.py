@@ -45,9 +45,10 @@ SIGNATURES = {
                           ctypes.c_int, _P),
     "apv_disc_logistic_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                               ctypes.c_float, _P),
+    # each groupnorm int* out: the kernel that ran (0 image, 1 rows)
     "apv_groupnorm_gelu": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                           ctypes.c_float, ctypes.c_int, _P),
-    # the int* out: the backward kernel that ran (0 image, 1 rows)
+                           ctypes.c_float, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int), _P),
     "apv_groupnorm_gelu_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I64, _I64, _I64, _I64, ctypes.c_int,
                                ctypes.POINTER(ctypes.c_int), _P),

@@ -21,14 +21,24 @@
 //     dl[r,e] = g[r] * (x[r,e] - sigmoid(l[r,e])),  dx[r,e] = g[r] * l[r,e]
 // dx is written only when the caller asks for it (the training path's x is
 // data and needs none). Bound: memory, 12 bytes per element without dx
-// (read x and l, write dl): 2.4 MB at [256, 784], launch-bound. Same warp-
-// per-row layout, so g[r] is read once per warp and no index is divided.
+// (read x and l, write dl): 2.4 MB at [256, 784], 0.72 us at 3.35 TB/s,
+// below the 1.13 us a one-element launch costs an H100 80GB HBM3 at 700 W
+// (PERF.md). So the grid has to fill the card at once: one thread per
+// float4 of the row (per element on the scalar route), blockIdx.y the row,
+// so that g[r] needs no division; each thread loads g, x and l first, then
+// computes and stores. At [256, 784] that is 256 blocks of 224 threads,
+// one wave over 132 SMs. (The first design, a warp per row, gave 64
+// blocks of 128 threads, each lane walking ~six float4s with a store
+// between loads: 4.41 us on that card.)
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kBwdThreads = 256;         // the backward's largest block
 
 __device__ __forceinline__ float softplus(float v) {
     return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
@@ -67,31 +77,32 @@ bernoulli_rows(const float* __restrict__ x, const float* __restrict__ logits,
     if (lane == 0) out[row] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-bernoulli_bwd_rows(const float* __restrict__ g, const float* __restrict__ x,
-                   const float* __restrict__ logits, float* __restrict__ dx,
-                   float* __restrict__ dl, int64_t rows, int64_t event, bool vec) {
-    const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= rows) return;
-    const float gr = g[row];
-    const int64_t base = row * event;
-    if (vec) {
-        const float4* x4 = reinterpret_cast<const float4*>(x + base);
-        const float4* l4 = reinterpret_cast<const float4*>(logits + base);
-        float4* dl4 = reinterpret_cast<float4*>(dl + base);
-        float4* dx4 = dx ? reinterpret_cast<float4*>(dx + base) : nullptr;
-        for (int64_t i = lane; i < event / 4; i += 32) {
-            const float4 xv = x4[i], lv = l4[i];
-            dl4[i] = make_float4(gr * (xv.x - sigmoid(lv.x)), gr * (xv.y - sigmoid(lv.y)),
-                                 gr * (xv.z - sigmoid(lv.z)), gr * (xv.w - sigmoid(lv.w)));
-            if (dx4) dx4[i] = make_float4(gr * lv.x, gr * lv.y, gr * lv.z, gr * lv.w);
-        }
-    } else {
-        for (int64_t i = lane; i < event; i += 32) {
-            const float lv = logits[base + i];
-            dl[base + i] = gr * (x[base + i] - sigmoid(lv));
-            if (dx) dx[base + i] = gr * lv;
+// One unit of the row a thread: a float4 where kVec (event % 4 == 0, the
+// tensors 16-byte aligned), else one element. blockIdx.y is the row; rows
+// past gridDim.y (65,535) loop.
+template <bool kVec>
+__global__ void __launch_bounds__(kBwdThreads)
+bernoulli_bwd_elems(const float* __restrict__ g, const float* __restrict__ x,
+                    const float* __restrict__ logits, float* __restrict__ dx,
+                    float* __restrict__ dl, int64_t rows, int64_t event) {
+    constexpr int kUnit = kVec ? 4 : 1;
+    const int64_t e = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * kUnit;
+    if (e >= event) return;
+    for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+        const int64_t i = row * event + e;
+        const float gr = g[row];
+        if constexpr (kVec) {
+            const float4 xv = *reinterpret_cast<const float4*>(x + i);
+            const float4 lv = *reinterpret_cast<const float4*>(logits + i);
+            *reinterpret_cast<float4*>(dl + i) = make_float4(
+                gr * (xv.x - sigmoid(lv.x)), gr * (xv.y - sigmoid(lv.y)),
+                gr * (xv.z - sigmoid(lv.z)), gr * (xv.w - sigmoid(lv.w)));
+            if (dx) *reinterpret_cast<float4*>(dx + i) = make_float4(gr * lv.x, gr * lv.y,
+                                                                     gr * lv.z, gr * lv.w);
+        } else {
+            const float xv = x[i], lv = logits[i];
+            dl[i] = gr * (xv - sigmoid(lv));
+            if (dx) dx[i] = gr * lv;
         }
     }
 }
@@ -115,10 +126,20 @@ extern "C" int apv_bernoulli(const float* x, const float* logits, float* out,
 extern "C" int apv_bernoulli_bwd(const float* g, const float* x,
                                  const float* logits, float* dx, float* dl,
                                  int64_t rows, int64_t event, void* stream) {
-    if (rows <= 0) return 0;
+    if (rows <= 0 || event <= 0) return 0;
     const bool vec = event % 4 == 0 && apv::aligned16(x) && apv::aligned16(logits)
                      && apv::aligned16(dl) && (dx == nullptr || apv::aligned16(dx));
-    bernoulli_bwd_rows<<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        g, x, logits, dx, dl, rows, event, vec);
+    const int64_t units = vec ? event / 4 : event;          // threads a row
+    const int64_t threads = std::min<int64_t>(kBwdThreads, (units + 31) / 32 * 32);
+    const dim3 grid(static_cast<unsigned>((units + threads - 1) / threads),
+                    static_cast<unsigned>(std::min<int64_t>(rows, 65535)));
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (vec) {
+        bernoulli_bwd_elems<true><<<grid, static_cast<unsigned>(threads), 0, s>>>(
+            g, x, logits, dx, dl, rows, event);
+    } else {
+        bernoulli_bwd_elems<false><<<grid, static_cast<unsigned>(threads), 0, s>>>(
+            g, x, logits, dx, dl, rows, event);
+    }
     return apv::launch_status();
 }

@@ -9,19 +9,37 @@
 //
 // The TPU kernel's one-hot membership matmuls and HW-chunked two passes
 // exist because Mosaic cannot reshape the lane dim and VMEM is scoped; here
-// a group's statistics are a plain block reduction. Layout: one 256-thread
-// block per (b, g). Threads walk the group as (pixel, channel) with the
-// channel fastest, so neighbouring threads read neighbouring addresses of a
-// pixel's cg-channel run; each thread keeps one channel for the whole walk
-// (threads per channel = 256 / cg), which makes the per-channel sums of the
-// backward a fixed-order pass over shared memory. Three passes over the
-// group (sum; sum of squared deviations; normalize and write): the group is
-// read from device memory once and from L2 after that (a bf16 group at the
-// flagship stage-1 shape [256, 32x32, 64] is 16 KB).
+// a group's statistics are block reductions.
 //
 // Bound on an H100: memory. bf16 x in and y out at [256, 32, 32, 64] is
-// 67.1 MB, 20.0 us at 3.35 TB/s; ~13 f32 operations per element take
-// 3.3 us at 67 TFLOP/s.
+// 67.1 MB, 20.0 us at 3.35 TB/s (40.1 us in f32); ~13 f32 operations per
+// element take 3.3 us at 67 TFLOP/s. The first design (a block per (b, g),
+// one channel a thread, 2-byte loads, three passes over the group) took
+// 97.2 us in bf16 on an H100 80GB HBM3 at 700 W (PERF.md), reading each
+// group's slice of every 128-byte row, the layout that also bounded the
+// first backward (below). So the forward now has the backward's two paths:
+// - groupnorm_gelu_image, the fast path: the cluster-per-image layout of
+//   groupnorm_gelu_bwd_image (below), staging x alone, two stages in both
+//   dtypes; in bf16 a block takes twice the backward's pixels (K <= 4), in
+//   f32 the same (K <= 8, three blocks an SM). Each block computes every
+//   group's (count, mean, M2) over its slab in two passes on chip (the
+//   sum, then the squared deviations from the slab's mean), posts (mean,
+//   M2) into every block of the cluster, and after one cluster barrier an
+//   image each block combines the slabs in rank order with Chan's pairwise
+//   formula: two-pass accuracy, the same bits in every block and on every
+//   call. x is read from device memory once, and from the stage in each
+//   pass (holding it in registers would cost the blocks an SM); the third
+//   pass is one fma an element (x * rstd*gamma + beta - mean*rstd*gamma),
+//   tanh-GELU and 16-byte stores. On an H100 80GB HBM3 at 700 W it takes
+//   ~44 us in bf16 and ~61 us in f32 at [256, 32, 32, 64] (PERF.md), where
+//   tanh-GELU's arithmetic is a large share of the bf16 time.
+// - groupnorm_gelu_rows, the general path (the shapes image_ranks refuses):
+//   one 256-thread block per (b, g), each thread one channel, three passes
+//   over the group (sum; squared deviations; normalize and write), the
+//   second and third from L2.
+// apv_groupnorm_gelu reports which of the two it launched; image_ranks is
+// the rule for both directions, so the forward and the backward take the
+// image kernels on exactly the same shapes.
 //
 // Backward: groupnorm_gelu_bwd_image and _rows replace the hand-derived
 // custom_vjp rule apv_tpu/ops/groupnorm.py::_bwd, term for term:
@@ -64,6 +82,7 @@
 #include <cuda_bf16.h>
 
 #include <algorithm>
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -610,6 +629,176 @@ groupnorm_gelu_bwd_image(const T* __restrict__ dy, const T* __restrict__ x,
     }
 }
 
+// The forward's runs a thread an image: in bf16 twice the backward's
+// (an image takes half the blocks; a block stages 32 KB of x), in f32 the
+// same (a 64 KB stage of twice the runs would leave one block an SM).
+template <int V>
+__host__ __device__ constexpr int fwd_items() { return (V == 8 ? 2 : 1) * kKeepElems / V; }
+
+// Blocks an SM the forward is compiled for: x is read back from shared
+// memory in every pass, so f32 fits three in registers and shared memory.
+template <int V>
+__host__ __device__ constexpr int fwd_blocks_per_sm() { return V == 8 ? 2 : 3; }
+
+// Dynamic shared memory of groupnorm_gelu_image: two stages of x.
+template <int V>
+__host__ __device__ constexpr int fwd_image_smem() {
+    return 2 * fwd_items<V>() * kThreads * 16;
+}
+
+// Each group's sum over the block of v (the thread's share of its group,
+// 0 where it holds none) into out[group], in a fixed order; red holds
+// kThreads floats, run_sum kMaxRuns. Every thread calls it; out is
+// visible to all on return.
+__device__ void group_sums(float v, const Walk& wk, int runs_per_group, int groups,
+                           float* red, float* run_sum, float* out) {
+    float a[1] = {v};
+    reduce_by_run(a, wk, red, [&](int run, int, float sum) { run_sum[run] = sum; });
+    __syncthreads();
+    if (threadIdx.x < groups) {
+        float t = 0.0f;
+        const int r0 = threadIdx.x * runs_per_group;
+        for (int r = r0; r < r0 + runs_per_group; ++r) t += run_sum[r];
+        out[threadIdx.x] = t;
+    }
+    __syncthreads();
+}
+
+// The forward's fast path (see the top of the file): persistent clusters
+// of K = gridDim / clusters blocks, one image at a time, block `rank` the
+// pixels [rank * rows, (rank + 1) * rows) with rows = tpc * kItems. x is
+// read from the stage in each of the three passes.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, fwd_blocks_per_sm<V>())
+groupnorm_gelu_image(const T* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, T* __restrict__ y,
+                     float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                     int64_t batch, int64_t hw, int c, int groups, float eps) {
+    static_assert(V * sizeof(T) == 16, "runs of 16 bytes");
+    using R = Run<T, V>;
+    using Raw = typename R::Raw;
+    constexpr int kItems = fwd_items<V>();
+    extern __shared__ uint4 stage[];       // [2][kItems][kThreads]
+    __shared__ float red[kThreads];
+    __shared__ float run_sum[kMaxRuns];
+    __shared__ float blk_sum[kMaxRuns], blk_m2[kMaxRuns];   // groups <= runs
+    // (mean, M2) of each block's slab by parity of the image, rank, group
+    __shared__ float inbox[2][kMaxRanks][kMaxRuns][2];
+    __shared__ float2 stats[kMaxRuns];     // the image's (mean, rstd) by group
+    const int rank = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+    const int ranks = static_cast<int>(cooperative_groups::this_cluster().num_blocks());
+    const int64_t clusters = gridDim.x / ranks;
+    const int cg = c / groups, runs = c / V;
+    const Walk wk(0, runs);                // the thread's run of every row
+    const bool act = wk.active();
+    const int ch = wk.ch * V, grp = ch / cg;
+    const int64_t rows = static_cast<int64_t>(wk.tpc) * kItems;   // pixels a block
+    const int64_t p_lo = rank * rows;
+    // each group's elements in block r's slab
+    const auto count = [&](int r) {
+        return static_cast<float>(hw - r * rows < rows ? hw - r * rows : rows) * cg;
+    };
+    const float n_blk = count(rank);
+
+    float ga[V], be[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+        ga[j] = act ? gamma[ch + j] : 0.0f;
+        be[j] = act ? beta[ch + j] : 0.0f;
+    }
+    const auto slot = [&](int sg, int k) {
+        return stage + (sg * kItems + k) * kThreads + threadIdx.x;
+    };
+    const auto pixel = [&](int k) {
+        return p_lo + wk.p0 + static_cast<int64_t>(k) * wk.tpc;
+    };
+    const auto fetch = [&](int64_t b, int sg) {
+        if (b < batch) {
+#pragma unroll
+            for (int k = 0; k < kItems; ++k) {
+                if (act && pixel(k) < hw) cp_async16(slot(sg, k), x + (b * hw + pixel(k)) * c + ch);
+            }
+        }
+        cp_async_commit();                 // an empty group past the last image
+    };
+
+    fetch(blockIdx.x / ranks, 0);
+    int st = 0;                            // the stage and the inboxes' parity
+    for (int64_t b = blockIdx.x / ranks; b < batch; b += clusters, st ^= 1) {
+        fetch(b + clusters, st ^ 1);
+        cp_async_wait_one();               // this image's runs have landed
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+            if (act && pixel(k) < hw) {
+                float xv[V];
+                R::unpack(*reinterpret_cast<const Raw*>(slot(st, k)), xv);
+#pragma unroll
+                for (int j = 0; j < V; ++j) s += xv[j];
+            }
+        }
+        group_sums(s, wk, cg / V, groups, red, run_sum, blk_sum);
+        const float m_blk = blk_sum[grp] / n_blk;
+        float sq = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+            if (act && pixel(k) < hw) {
+                float xv[V];
+                R::unpack(*reinterpret_cast<const Raw*>(slot(st, k)), xv);
+#pragma unroll
+                for (int j = 0; j < V; ++j) {
+                    const float d = xv[j] - m_blk;
+                    sq = fmaf(d, d, sq);
+                }
+            }
+        }
+        group_sums(sq, wk, cg / V, groups, red, run_sum, blk_m2);
+        // post this slab's (mean, M2) of every group to every block
+        for (int t = threadIdx.x; t < 2 * groups * ranks; t += kThreads) {
+            const int r = t / (2 * groups), gi = (t / 2) % groups, which = t % 2;
+            st_dsmem(&inbox[st][rank][gi][which], r,
+                     which == 0 ? blk_sum[gi] / n_blk : blk_m2[gi]);
+        }
+        cluster_sync();                    // every block's slab has arrived
+        if (threadIdx.x < groups) {
+            const int gi = threadIdx.x;
+            float n = 0.0f, mean = 0.0f, m2 = 0.0f;
+            for (int r = 0; r < ranks; ++r) {   // Chan et al., rank by rank
+                const float nb = count(r);
+                const float mb = inbox[st][r][gi][0], m2b = inbox[st][r][gi][1];
+                const float nt = n + nb, delta = mb - mean;
+                mean = fmaf(delta, nb / nt, mean);
+                m2 += m2b + delta * delta * (n * nb / nt);
+                n = nt;
+            }
+            const float rstd = 1.0f / sqrtf(m2 / n + eps);
+            stats[gi] = make_float2(mean, rstd);
+            if (rank == 0) {
+                mean_out[b * groups + gi] = mean;
+                rstd_out[b * groups + gi] = rstd;
+            }
+        }
+        __syncthreads();
+        const float mean = stats[grp].x, rstd = stats[grp].y;
+        float sc[V], sh[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+            sc[j] = rstd * ga[j];
+            sh[j] = fmaf(-mean, sc[j], be[j]);
+        }
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+            if (act && pixel(k) < hw) {
+                float xv[V], out[V];
+                R::unpack(*reinterpret_cast<const Raw*>(slot(st, k)), xv);
+#pragma unroll
+                for (int j = 0; j < V; ++j) out[j] = gelu(fmaf(xv[j], sc[j], sh[j]));
+                R::store(y + (b * hw + pixel(k)) * c + ch, out);
+            }
+        }
+    }
+}
+
 // dgamma[c] = sum_b part_dgamma[b, c], dbeta too: one warp per column,
 // lane l adds rows l, l + 32, ... in order, then a shuffle tree of fixed
 // shape, so the same partials always give the same bits.
@@ -647,42 +836,41 @@ int launch_rows(const void* dy, const void* x, const float* gamma,
     return apv::launch_status();
 }
 
-// The kernel launch_bwd launched, as apv_groupnorm_gelu_bwd reports it.
-enum BwdKernel : int { kBwdImage = 0, kBwdRows = 1 };
+// The kernel an entry point launched, as it reports it.
+enum Route : int { kImage = 0, kRows = 1 };
 
-// The kernel for these sizes: with 16-byte runs (cg a multiple of them,
-// the tensors aligned), a row's runs and the groups fitting a block and an
-// image fitting eight blocks, the persistent clusters of
-// groupnorm_gelu_bwd_image, as many as are resident at once; else a block
-// per (b, g). *kernel says which.
+// The fast path's rule, one for both directions: the blocks of a cluster
+// for one image, or 0 where the image kernels cannot take the shape (cg not
+// a multiple of 16-byte runs, a tensor off 16-byte alignment, C > kThreads
+// or more than kMaxRuns runs a row, an image past kMaxRanks blocks of
+// (kThreads / runs) * (kKeepElems / V) pixels).
 template <typename T>
-int launch_bwd(const void* dy, const void* x, const float* gamma,
-               const float* beta, const float* mean, const float* rstd,
-               void* dx, float* part_dgamma, float* part_dbeta, int64_t batch,
-               int64_t hw, int64_t c, int64_t groups, int* kernel,
-               cudaStream_t s) {
+int64_t image_ranks(int64_t hw, int64_t c, int64_t groups,
+                    std::initializer_list<const void*> tensors) {
     constexpr int kV = 16 / sizeof(T);
-    const bool vec = (c / groups) % kV == 0 && apv::aligned16(dy)
-                     && apv::aligned16(x) && apv::aligned16(dx);
     const int64_t runs = c / kV;
-    const int64_t rows_per_block = vec && runs <= kThreads
-        ? (kThreads / runs) * (kKeepElems / kV) : 0;
-    const int64_t ranks = rows_per_block > 0
-        ? std::max<int64_t>(1, (hw + rows_per_block - 1) / rows_per_block) : 0;
-    if (ranks == 0 || ranks > kMaxRanks || c > kThreads || runs > kMaxRuns) {
-        *kernel = kBwdRows;
-        return launch_rows<T>(dy, x, gamma, beta, mean, rstd, dx, part_dgamma,
-                              part_dbeta, batch, hw, c, groups, s);
+    if ((c / groups) % kV != 0 || runs < 1 || c > kThreads || runs > kMaxRuns) return 0;
+    for (const void* t : tensors) {
+        if (!apv::aligned16(t)) return 0;
     }
-    const auto kernel_fn = groupnorm_gelu_bwd_image<T, kV>;
-    constexpr int kSmem = image_smem<kV>();
+    const int64_t rows_per_block = (kThreads / runs) * (kKeepElems / kV);
+    const int64_t ranks = std::max<int64_t>(1, (hw + rows_per_block - 1) / rows_per_block);
+    return ranks <= kMaxRanks ? ranks : 0;
+}
+
+// Launches kernel_fn as persistent clusters of `ranks` blocks, as many as
+// are resident at once and at most one an image, with `smem` bytes of
+// dynamic shared memory a block. Returns the first failing cudaError_t.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel_fn)(Params...), int smem, int64_t batch, int64_t ranks,
+                    cudaStream_t s, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        kernel_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(batch * ranks));
     cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = kSmem;
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
     cudaLaunchAttribute cluster;
     cluster.id = cudaLaunchAttributeClusterDimension;
@@ -696,34 +884,65 @@ int launch_bwd(const void* dy, const void* x, const float* gamma,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     cfg.gridDim = dim3(static_cast<unsigned>(std::min<int64_t>(batch, resident) * ranks));
-    *kernel = kBwdImage;
-    return static_cast<int>(cudaLaunchKernelEx(
-        &cfg, kernel_fn, static_cast<const T*>(dy), static_cast<const T*>(x), gamma,
-        beta, mean, rstd, static_cast<T*>(dx), part_dgamma, part_dbeta, batch, hw,
-        static_cast<int>(c), static_cast<int>(groups)));
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel_fn, args...));
+}
+
+template <typename T>
+int launch_fwd(const void* x, const float* gamma, const float* beta, void* y,
+               float* mean, float* rstd, int64_t batch, int64_t hw, int64_t c,
+               int64_t groups, float eps, int* kernel, cudaStream_t s) {
+    constexpr int kV = 16 / sizeof(T);
+    const int64_t ranks = image_ranks<T>(hw, c, groups, {x, y});
+    const auto xt = static_cast<const T*>(x);
+    const auto yt = static_cast<T*>(y);
+    if (ranks == 0) {
+        *kernel = kRows;
+        groupnorm_gelu_rows<T><<<static_cast<unsigned>(batch * groups), kThreads, 0, s>>>(
+            xt, gamma, beta, yt, mean, rstd, hw, static_cast<int>(c),
+            static_cast<int>(groups), eps);
+        return apv::launch_status();
+    }
+    *kernel = kImage;
+    constexpr int kPer = fwd_items<kV>() * kV / kKeepElems;   // backward blocks a block
+    return launch_clusters(groupnorm_gelu_image<T, kV>, fwd_image_smem<kV>(), batch,
+                           (ranks + kPer - 1) / kPer, s, xt, gamma, beta, yt, mean, rstd, batch, hw,
+                           static_cast<int>(c), static_cast<int>(groups), eps);
+}
+
+template <typename T>
+int launch_bwd(const void* dy, const void* x, const float* gamma,
+               const float* beta, const float* mean, const float* rstd,
+               void* dx, float* part_dgamma, float* part_dbeta, int64_t batch,
+               int64_t hw, int64_t c, int64_t groups, int* kernel,
+               cudaStream_t s) {
+    constexpr int kV = 16 / sizeof(T);
+    const int64_t ranks = image_ranks<T>(hw, c, groups, {dy, x, dx});
+    if (ranks == 0) {
+        *kernel = kRows;
+        return launch_rows<T>(dy, x, gamma, beta, mean, rstd, dx, part_dgamma,
+                              part_dbeta, batch, hw, c, groups, s);
+    }
+    *kernel = kImage;
+    return launch_clusters(groupnorm_gelu_bwd_image<T, kV>, image_smem<kV>(), batch, ranks,
+                           s, static_cast<const T*>(dy), static_cast<const T*>(x), gamma,
+                           beta, mean, rstd, static_cast<T*>(dx), part_dgamma, part_dbeta,
+                           batch, hw, static_cast<int>(c), static_cast<int>(groups));
 }
 
 }  // namespace
 
+// *kernel: the kernel that ran (Route).
 extern "C" int apv_groupnorm_gelu(const void* x, const float* gamma,
                                   const float* beta, void* y, float* mean,
                                   float* rstd, int64_t batch, int64_t hw,
                                   int64_t c, int64_t groups, float eps,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int* kernel, void* stream) {
     if (batch <= 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
-    const unsigned blocks = static_cast<unsigned>(batch * groups);
-    if (is_bf16) {
-        groupnorm_gelu_rows<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(x), gamma, beta,
-            static_cast<__nv_bfloat16*>(y), mean, rstd, hw,
-            static_cast<int>(c), static_cast<int>(groups), eps);
-    } else {
-        groupnorm_gelu_rows<float><<<blocks, kThreads, 0, s>>>(
-            static_cast<const float*>(x), gamma, beta, static_cast<float*>(y),
-            mean, rstd, hw, static_cast<int>(c), static_cast<int>(groups), eps);
-    }
-    return apv::launch_status();
+    return is_bf16 ? launch_fwd<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, batch, hw, c,
+                                               groups, eps, kernel, s)
+                   : launch_fwd<float>(x, gamma, beta, y, mean, rstd, batch, hw, c, groups,
+                                       eps, kernel, s);
 }
 
 extern "C" int apv_groupnorm_gelu_bwd(const void* dy, const void* x,

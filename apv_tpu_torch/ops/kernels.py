@@ -10,7 +10,9 @@ blocks); each backward kernel replaces the jnp rule of that op's
   ``_bernoulli_kernel``. Bound: memory, 2 f32 reads per element (20.1 MB at
   the MNIST IWAE chunk [3200, 784]). Design: one warp per row, float4
   loads, warp-shuffle sum. ``bernoulli_bwd`` (same file) replaces
-  ``_bernoulli_bwd``: elementwise, dx written only when asked for.
+  ``_bernoulli_bwd``: elementwise, a thread per float4 and ``blockIdx.y``
+  the row (the grid fills the card at the train step's [256, 784]), dx
+  written only when asked for.
 * ``disc_logistic`` (``csrc/disc_logistic.cu``) replaces
   ``_disc_logistic_fwd`` / ``_disc_logistic_kernel``. Bound: memory, 3 f32
   reads per element (59.0 MB at the IWAE chunk [1600, 3072]). Design: one
@@ -32,14 +34,15 @@ blocks); each backward kernel replaces the jnp rule of that op's
   element sums over the sample axis, deterministic, no atomics.
 * ``groupnorm_gelu`` (``csrc/groupnorm_gelu.cu``) replaces
   ``apv_tpu/ops/groupnorm.py::_fwd`` / ``_gn_gelu_kernel``. Bound: memory,
-  x in and y out (67.1 MB in bf16 at [256, 32, 32, 64]). Design: one block
-  per (row, group), a plain block reduction for the statistics.
-  ``groupnorm_gelu_bwd`` (same file) replaces the rule ``_bwd``: a
+  x in and y out (67.1 MB in bf16 at [256, 32, 32, 64]). Design: a
   cluster of blocks per image reading whole pixel rows in 16-byte runs,
-  the blocks' sums meeting in distributed shared memory (other shapes: a
-  block per (row, group), one channel a thread); dgamma and dbeta as
-  per-row partials summed in a fixed order. ``groupnorm_gelu_bwd_routes``
-  counts the launches by the kernel that ran.
+  each block's per-group (count, mean, M2) meeting the others' in
+  distributed shared memory and combined in rank order (other shapes: a
+  block per (row, group), one channel a thread). ``groupnorm_gelu_bwd``
+  (same file) replaces the rule ``_bwd`` in the same two layouts, on the
+  same shapes; dgamma and dbeta as per-row partials summed in a fixed
+  order. ``groupnorm_gelu_routes`` and ``groupnorm_gelu_bwd_routes`` count
+  each direction's launches by the kernel that ran.
 * ``conv3x3`` (``csrc/conv3x3.cu``) replaces
   ``scripts/conv_microbench.py::pallas_conv``. Bound: bytes at the probe's
   stage 1 (100.7 MB in bf16 with the f32 out), bf16 tensor-core operations
@@ -82,14 +85,17 @@ launches: dict[str, int] = {
     "conv3x3": 0}
 # conv3x3's launches by the kernel that ran (``conv3x3_route``'s names)
 conv3x3_routes: dict[str, int] = {"wgmma": 0, "simt": 0}
-# groupnorm_gelu_bwd's launches by the kernel that ran, as the C entry
-# point reports it (``groupnorm_gelu_bwd_image`` or ``_rows``)
-GN_BWD_KERNELS = ("image", "rows")
-groupnorm_gelu_bwd_routes: dict[str, int] = dict.fromkeys(GN_BWD_KERNELS, 0)
+# groupnorm_gelu's and groupnorm_gelu_bwd's launches by the kernel that
+# ran, as the C entry points report it (``groupnorm_gelu_image`` or
+# ``_rows``; ``groupnorm_gelu_bwd_image`` or ``_rows``)
+GN_KERNELS = ("image", "rows")
+groupnorm_gelu_routes: dict[str, int] = dict.fromkeys(GN_KERNELS, 0)
+groupnorm_gelu_bwd_routes: dict[str, int] = dict.fromkeys(GN_KERNELS, 0)
 
 
 def reset_launches() -> None:
-    for counts in (launches, conv3x3_routes, groupnorm_gelu_bwd_routes):
+    for counts in (launches, conv3x3_routes, groupnorm_gelu_routes,
+                   groupnorm_gelu_bwd_routes):
         for name in counts:
             counts[name] = 0
 
@@ -560,7 +566,10 @@ def groupnorm_gelu_cuda(x: torch.Tensor, gamma: torch.Tensor,
                         eps: float = 1e-6
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel version of ``groupnorm_gelu_plain``: NHWC x (bf16 or f32),
-    f32 gamma and beta [C] -> (y, mean [B, G], rstd [B, G])."""
+    f32 gamma and beta [C] -> (y, mean [B, G], rstd [B, G]). The C entry
+    point picks the kernel by the rule of the backward and reports it; each
+    launch adds one to ``groupnorm_gelu_routes`` under the kernel that
+    ran."""
     b, hw, c = _group_shape(x, groups)
     _check_gn("groupnorm_gelu", x, gamma, beta)
     if gamma.shape != (c,) or beta.shape != (c,):
@@ -570,10 +579,13 @@ def groupnorm_gelu_cuda(x: torch.Tensor, gamma: torch.Tensor,
     mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     if x.numel():
+        ran = ctypes.c_int(-1)
         _launch("groupnorm_gelu", _lib().apv_groupnorm_gelu, x.data_ptr(),
                 gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
                 mean.data_ptr(), rstd.data_ptr(), b, hw, c, groups,
-                float(eps), int(x.dtype == torch.bfloat16), device=x.device)
+                float(eps), int(x.dtype == torch.bfloat16),
+                ctypes.byref(ran), device=x.device)
+        groupnorm_gelu_routes[GN_KERNELS[ran.value]] += 1
     return y, mean, rstd
 
 
@@ -612,7 +624,7 @@ def groupnorm_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
                 b, hw, c, groups, int(x.dtype == torch.bfloat16),
                 ctypes.byref(ran), device=x.device)
         if ran.value >= 0:
-            groupnorm_gelu_bwd_routes[GN_BWD_KERNELS[ran.value]] += 1
+            groupnorm_gelu_bwd_routes[GN_KERNELS[ran.value]] += 1
     return dx, dgamma, dbeta
 
 

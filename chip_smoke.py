@@ -12,8 +12,10 @@ Phases, one JSON line each:
      plain PyTorch version on the card, at the shapes the paths give it,
      with its time, the plain version's time and the least time the card
      could take; reparam also at the OOD chunk and an odd shape, with its
-     times at the OOD chunk and the train step; groupnorm_gelu_bwd also
-     at shapes that take its other paths, twice for the same bits;
+     times at the OOD chunk and the train step; bernoulli_bwd also at
+     257 rows and with dx; groupnorm_gelu and its backward
+     also at shapes that take their other kernels, each twice for the
+     same bits, each held to the kernel that ran;
      conv3x3 also at two odd shapes, one for each of its routes (tensor
      cores, SIMT), each held to the kernel that ran, and on views off
      TMA's alignment.
@@ -45,7 +47,7 @@ Phases, one JSON line each:
  10. groupnorm_gelu: the fused GroupNorm + GELU op, forward and backward
      through its autograd.Function, at the flagship's stage-1 shape
      [256, 32, 32, 64] in bf16 and f32 and at an odd shape, held to
-     autograd of the plain version.
+     autograd of the plain version and to the kernels that must run.
  11. conv3x3: the conv probe (python -m apv_tpu_torch.ops.conv_probe) at its
      three shapes, bf16 and f32: the kernel's error against f32 F.conv2d,
      its chained time and cuDNN's.
@@ -131,9 +133,10 @@ KERNEL_FNS = {"reparam": ("reparam_samples",), "kl": ("kl_rows",),
               "bernoulli": ("bernoulli_rows",),
               "reparam_bwd": ("reparam_bwd_sum",),
               "kl_bwd": ("kl_bwd_rows",),
-              "bernoulli_bwd": ("bernoulli_bwd_rows",),
+              "bernoulli_bwd": ("bernoulli_bwd_elems",),
               "disc_logistic_bwd": ("disc_logistic_bwd_rows",),
-              "groupnorm_gelu": ("groupnorm_gelu_rows",),
+              "groupnorm_gelu": ("groupnorm_gelu_image",
+                                 "groupnorm_gelu_rows"),
               "groupnorm_gelu_bwd": ("groupnorm_gelu_bwd_image",
                                      "groupnorm_gelu_bwd_rows"),
               "conv3x3": ("conv3x3_wgmma", "conv3x3_simt")}
@@ -385,9 +388,27 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
     err_odd = max(ulp_err(a, b) for a, b in
                   zip((dxo, dlo), K.bernoulli_bwd_plain(go, xo, lo)))
     check(max(err, err_odd) <= 1e-6, f"bernoulli_bwd: {err}, odd {err_odd}")
+    # 257 rows without dx (an odd row count; every row's block also has
+    # threads past the row's 196 float4s), and the train shape with dx
+    # (the float4 route's dx stores), from a generator of their own so
+    # that the checks after these see the data they did
+    rng_b = np.random.default_rng(SEED + 34)
+    more = {}
+    for tag, rows_b, want_dx in (("257_rows", tb + 1, False),
+                                 ("train_with_dx", tb, True)):
+        xb = cuda((rng_b.random((rows_b, event)) < 0.2).astype(np.float32))
+        lb = cuda((3.0 * rng_b.normal(size=(rows_b, event))).astype(
+            np.float32))
+        gb = cuda(rng_b.normal(size=rows_b).astype(np.float32))
+        dxb, dlb = K.bernoulli_bwd_cuda(gb, xb, lb, want_dx=want_dx)
+        ref_dx, ref_dl = K.bernoulli_bwd_plain(gb, xb, lb)
+        more[tag] = max(ulp_err(a, b) for a, b in
+                        ((dlb, ref_dl), (dxb, ref_dx)) if a is not None)
+        check(more[tag] <= 1e-6, f"bernoulli_bwd {tag}: {more[tag]}")
     results["bernoulli_bwd"] = {
         "shape": [tb, event], "max_abs_err": float((dl - dl_ref).abs().max()),
         "max_rel_err": err, "max_rel_err_odd_length_with_dx": err_odd,
+        **{f"max_rel_err_{tag}": e for tag, e in more.items()},
         "ms": cuda_ms(lambda: K.bernoulli_bwd_cuda(g, xt, lt, want_dx=False),
                       500),
         "plain_ms": cuda_ms(lambda: K.bernoulli_bwd_plain(g, xt, lt), 200),
@@ -536,18 +557,20 @@ def library_gn_gelu(x, g, b):
 def gn_kernel_checks(K, card: str, rng, dev) -> dict:
     """groupnorm_gelu and groupnorm_gelu_bwd against their plain versions
     at the flagship's stage-1 shape, an odd one and GN_PATHS, bf16 and
-    f32, and on views off 16-byte alignment; each backward twice, for the
-    same bits, each held to the kernel that must run there (image or rows,
-    as the C entry point reports it). Times at the flagship shape in bf16
-    beside the library's
+    f32, and on views off 16-byte alignment; each forward and each
+    backward twice, for the same bits, each held to the kernel that must
+    run there (image or rows, as the C entry points report it; one rule
+    picks it for both).
+    Times at the flagship shape in bf16 beside the library's
     F.group_norm + F.gelu (forward; backward alone on a retained graph;
-    both)."""
+    both), and the forward's in f32."""
     errs = {}
 
     def check_case(tag, x, g, b, dy, groups, kernel):
         K.reset_launches()
         with torch.inference_mode():
             yk, mk, rk = K.groupnorm_gelu_cuda(x, g, b, groups)
+            fwd_again = K.groupnorm_gelu_cuda(x, g, b, groups)
             yp, mp, rp = K.groupnorm_gelu_plain(x, g, b, groups)
             ek = K.groupnorm_gelu_bwd_cuda(dy, x, g, b, mk, rk, groups)
             ep = K.groupnorm_gelu_bwd_plain(dy, x, g, b, mk, rk, groups)
@@ -568,11 +591,17 @@ def gn_kernel_checks(K, card: str, rng, dev) -> dict:
               f"groupnorm_gelu_bwd {tag}: scale-relative {bwd}")
         check(all(torch.equal(a, c) for a, c in zip(ek, again)),
               f"groupnorm_gelu_bwd {tag}: a second call gave other bits")
-        ran = dict(K.groupnorm_gelu_bwd_routes)
-        errs[tag]["bwd_kernel"] = ran
-        check(ran == {**dict.fromkeys(K.GN_BWD_KERNELS, 0), kernel: 2},
-              f"groupnorm_gelu_bwd {tag}: launched {ran}, expected "
-              f"groupnorm_gelu_bwd_{kernel} twice")
+        check(all(torch.equal(a, c) for a, c in zip((yk, mk, rk),
+                                                    fwd_again)),
+              f"groupnorm_gelu {tag}: a second call gave other bits")
+        for key, name, routes in (
+                ("fwd_kernel", "groupnorm_gelu", K.groupnorm_gelu_routes),
+                ("bwd_kernel", "groupnorm_gelu_bwd",
+                 K.groupnorm_gelu_bwd_routes)):
+            ran = errs[tag][key] = dict(routes)
+            check(ran == {**dict.fromkeys(K.GN_KERNELS, 0), kernel: 2},
+                  f"{name} {tag}: launched {ran}, expected {name}_{kernel} "
+                  "twice")
 
     for shape, kernel in ((GN_SHAPE, "image"), (GN_ODD, "rows")):
         for dtype in (torch.bfloat16, torch.float32):
@@ -610,6 +639,12 @@ def gn_kernel_checks(K, card: str, rng, dev) -> dict:
     lib_both = cuda_ms(lambda: torch.autograd.grad(
         library_gn_gelu(xr, gr, br), (xr, gr, br), dy), 100)
     del y_lib
+    x32, g32, b32, _ = gn_inputs(rng_p, GN_SHAPE, torch.float32, dev)
+    with torch.inference_mode():
+        fwd_ms_f32 = cuda_ms(lambda: K.groupnorm_gelu_cuda(x32, g32, b32, 8),
+                             200)
+        fwd_plain_f32 = cuda_ms(lambda: K.groupnorm_gelu_plain(
+            x32, g32, b32, 8), 20)
     n = math.prod(GN_SHAPE)
     c = GN_SHAPE[-1]
     mb = 4 * (2 * c + 2 * GN_SHAPE[0] * 8)          # gamma, beta, mean, rstd
@@ -621,6 +656,9 @@ def gn_kernel_checks(K, card: str, rng, dev) -> dict:
             "tol_fwd": "1e-5 (f32), 2^-7 (bf16) x max(max|y|, 1)",
             "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": lib_fwd,
             "library": "F.group_norm + F.gelu(approximate='tanh'), forward",
+            "ms_f32": fwd_ms_f32, "plain_ms_f32": fwd_plain_f32,
+            "bound_ms_f32": bound("groupnorm_gelu", card, 2 * 4 * n + mb,
+                                  n)["bound_ms"],
             **bound("groupnorm_gelu", card, 2 * 2 * n + mb, n)},
         "groupnorm_gelu_bwd": {
             "shape": list(GN_SHAPE), "dtype": "bfloat16",
@@ -1189,8 +1227,8 @@ def cifar_ckpt_phase(cfg, state, tmp: str, dev):
 def groupnorm_phase(dev) -> dict:
     """The op's path: forward and backward through groupnorm_gelu's
     autograd.Function at the flagship shape (bf16, f32) and the odd shape
-    (bf16, f32) with the counters zeroed around it, the backward on the
-    image kernel at the first and the rows kernel at the second; values
+    (bf16, f32) with the counters zeroed around it, each direction on the
+    image kernels at the first and the rows kernels at the second; values
     and gradients held to autograd of the plain version."""
     from apv_tpu_torch import groupnorm_gelu
     from apv_tpu_torch.ops import kernels as K
@@ -1207,13 +1245,15 @@ def groupnorm_phase(dev) -> dict:
         outs.append((y.detach(), torch.autograd.grad(y, (xr, gr, br), dy)))
     torch.cuda.synchronize()
     launches = dict(K.launches)
+    fwd_kernels = dict(K.groupnorm_gelu_routes)
     bwd_kernels = dict(K.groupnorm_gelu_bwd_routes)
     check(launches == expected(K, groupnorm_gelu=len(cases),
                                groupnorm_gelu_bwd=len(cases)),
           f"groupnorm_gelu launches {launches}")
-    check(bwd_kernels == {"image": 2, "rows": 2},
-          f"groupnorm_gelu_bwd kernels {bwd_kernels}: expected the image "
-          f"kernel at {list(GN_SHAPE)} and the rows kernel at {list(GN_ODD)}")
+    check(fwd_kernels == bwd_kernels == {"image": 2, "rows": 2},
+          f"groupnorm_gelu kernels {fwd_kernels}, backward {bwd_kernels}: "
+          f"expected the image kernels at {list(GN_SHAPE)} and the rows "
+          f"kernels at {list(GN_ODD)}")
     errs = {}
     for (shape, dtype), (x, g, b, dy), (y, grads) in zip(cases, inputs,
                                                           outs):
@@ -1234,7 +1274,8 @@ def groupnorm_phase(dev) -> dict:
     xr, gr, br = (t.requires_grad_(True) for t in (x, g, b))
     fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
         groupnorm_gelu(xr, gr, br, 8), (xr, gr, br), dy), 100)
-    emit("groupnorm_gelu", launches=launches, bwd_kernels=bwd_kernels,
+    emit("groupnorm_gelu", launches=launches, fwd_kernels=fwd_kernels,
+         bwd_kernels=bwd_kernels,
          errs=errs,
          tol_fwd="1e-5 (f32), 2^-7 (bf16) x max(max|y|, 1)",
          tol_grad="scale-relative 1e-4 (f32), 1e-2 (bf16)",

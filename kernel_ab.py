@@ -1,5 +1,4 @@
-"""Two builds of the ``reparam`` and ``groupnorm_gelu_bwd`` kernels, timed
-side by side on one CUDA card.
+"""Two builds of the port's kernels, timed side by side on one CUDA card.
 
     python3 kernel_ab.py --parent DIR [--sass OUT]
 
@@ -8,9 +7,17 @@ of an earlier commit, unpacked into a directory that ``.gitignore``
 lists). Its ``apv_tpu_torch/ops/csrc`` is built with this checkout's
 flags into this checkout's ``apv_tpu_torch/ops/_build/parent`` (nothing
 is written into DIR) and loaded with the signatures of
-DIR's own ``_build.py``, beside this checkout's kernels; each case runs
-its C entry point in the order parent, change, change, parent. Per run
-(``ITERS`` launches):
+DIR's own ``_build.py``, beside this checkout's kernels.
+
+``CASES`` is the table: each row names a kernel, its shape and dtype,
+the C source it lives in, a function that makes the launch
+(``make(lib, dev)`` -> a ``Call``: the launch, its outputs, the plain version's outputs and the
+route the build reported) and an agreement check (``check(got, want)``
+-> fields with ``ok``). To add a kernel, add a row. For every row, each
+build launches once, the change a second time (equal bits required), and
+the check holds the change to the plain version (and, where it asks, to
+the parent's bits). Each timed row then runs in the order parent,
+change, change, parent; per run (``ITERS`` launches):
 
 * ``call_us``: CUDA events over back-to-back calls from Python (ctypes
   call and launch included; the host sets the pace of small kernels);
@@ -20,18 +27,11 @@ its C entry point in the order parent, change, change, parent. Per run
   interleaves each launch with a one-element ``neg_`` whose device time
   is the window's ``floor_us`` (the least a launch costs the card).
 
-Cases: ``reparam`` at the IWAE chunk [25, 64, 128], the OOD chunk
-[50, 64, 128] and the CIFAR train step's [1, 256, 128]; ``groupnorm_gelu_bwd``
-(the kernel that runs there, then the column sum) at [256, 32, 32, 64],
-G = 8, bf16 and f32.
-The change is also held to the parent (``reparam``: equal bits) and to
-the plain version, and ``groupnorm_gelu_bwd`` to itself on a second call
-(equal bits), naming the backward kernel that ran where the build
-reports it. With ``--sass OUT``: ``nvcc -Xptxas -v`` and ``cuobjdump
--sass`` of both builds of the two sources, written to OUT, with a summary
-line per kernel function (registers, spills, instruction count, stores by
-width, calls). One JSON line per result; the ``nvidia-smi`` name and
-power limit first.
+With ``--sass OUT``: ``nvcc -Xptxas -v`` and ``cuobjdump -sass`` of both
+builds of the rows' sources, written to OUT, with a summary line per
+kernel function (registers, spills, instruction count, stores by width,
+calls, 64-bit division routines). One JSON line per result; the
+``nvidia-smi`` name and power limit first. Exits 1 if a check failed.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import functools
 import importlib.util
 import json
 import re
@@ -46,6 +47,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -54,15 +56,9 @@ from apv_tpu_torch.ops import _build
 from apv_tpu_torch.ops import kernels as K
 
 ITERS = 200
-REPARAM_CASES = ((25, (64, 128)), (50, (64, 128)), (1, (256, 128)))
 GN_SHAPE, GN_GROUPS = (256, 32, 32, 64), 8
-# each case's __global__ functions, to find them in a profile: the one
-# that runs once a launch (either name), then any that run beside it
-FUNCTIONS = {"reparam": (("reparam_samples",), ()),
-             "groupnorm_gelu_bwd": (("groupnorm_gelu_bwd_image",
-                                     "groupnorm_gelu_bwd_rows"),
-                                    ("groupnorm_gelu_param_sum",))}
-SASS_SOURCES = ("reparam.cu", "groupnorm_gelu.cu")
+BERN_SHAPE = (256, 784)          # the MNIST train step's [batch, pixels]
+
 
 def emit(kind: str, **fields) -> None:
     print(json.dumps({"kind": kind, **fields}), flush=True)
@@ -84,11 +80,25 @@ def _ok(status: int) -> None:
         raise RuntimeError(f"kernel launch failed with cudaError_t {status}")
 
 
-def reparam_call(lib: ctypes.CDLL, samples: int, shape: tuple[int, ...],
-                 dev: torch.device):
-    """(launch, output) for ``apv_reparam`` on seeded [*shape] inputs."""
+class Call(NamedTuple):
+    """One build's launch of a case on fixed inputs."""
+    launch: Callable[[], None]
+    outputs: tuple[torch.Tensor, ...]       # written by launch()
+    plain: Callable[[], tuple[torch.Tensor, ...]]   # the plain version's
+    ran: ctypes.c_int | None = None         # the route the build reported
+
+
+def _seeded(rng, shape, scale=1.0, shift=0.0, dtype=torch.float32,
+            dev="cuda") -> torch.Tensor:
+    return torch.from_numpy((rng.normal(size=shape) * scale + shift).astype(
+        np.float32)).to(dev, dtype)
+
+
+def reparam_call(samples: int, shape: tuple[int, ...], lib: ctypes.CDLL,
+                 dev: torch.device) -> Call:
+    """``apv_reparam`` on seeded [*shape] inputs."""
     rng = np.random.default_rng(0)
-    mean = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    mean = _seeded(rng, shape, dev=dev)
     logvar = torch.from_numpy(
         rng.uniform(-4.0, 1.0, size=shape).astype(np.float32)).to(dev)
     z = torch.empty((samples, *shape), dtype=torch.float32, device=dev)
@@ -98,48 +108,192 @@ def reparam_call(lib: ctypes.CDLL, samples: int, shape: tuple[int, ...],
         _ok(lib.apv_reparam(mean.data_ptr(), logvar.data_ptr(), z.data_ptr(),
                             samples, mean.numel(), seed, offset, _stream()))
 
-    def plain():
-        return K.reparam_plain(mean, logvar, samples, seed, offset)
-
-    return launch, z, plain
+    return Call(launch, (z,), lambda: (K.reparam_plain(mean, logvar, samples,
+                                                       seed, offset),))
 
 
-def gn_bwd_call(lib: ctypes.CDLL, dtype: torch.dtype, dev: torch.device):
-    """(launch, outputs, plain, ran) for ``apv_groupnorm_gelu_bwd`` at
-    GN_SHAPE; ``ran`` holds the kernel the last launch reported (-1 from a
-    build that does not report it)."""
+def _gn_inputs(dtype: torch.dtype, dev: torch.device):
     rng = np.random.default_rng(1)
+    c = GN_SHAPE[-1]
+    x = _seeded(rng, GN_SHAPE, 2.0, 0.3, dtype, dev)
+    dy = _seeded(rng, GN_SHAPE, dtype=dtype, dev=dev)
+    gamma = _seeded(rng, c, 0.5, 1.0, dev=dev)
+    beta = _seeded(rng, c, 0.1, dev=dev)
+    return x, dy, gamma, beta
+
+
+def _with_route(fn, args: list) -> ctypes.c_int:
+    """Append the route out-parameter where the build's entry point takes
+    one (its signature has one more pointer before the stream); the
+    returned int stays -1 otherwise."""
+    ran = ctypes.c_int(-1)
+    if len(fn.argtypes) == len(args) + 2:
+        args.append(ctypes.byref(ran))
+    return ran
+
+
+def gn_fwd_call(dtype: torch.dtype, lib: ctypes.CDLL,
+                dev: torch.device) -> Call:
+    """``apv_groupnorm_gelu`` at GN_SHAPE."""
+    x, _, gamma, beta = _gn_inputs(dtype, dev)
     b, h, w, c = GN_SHAPE
-    x = torch.from_numpy((rng.normal(size=GN_SHAPE) * 2.0 + 0.3).astype(
-        np.float32)).to(dev, dtype)
-    dy = torch.from_numpy(rng.normal(size=GN_SHAPE).astype(np.float32)).to(
-        dev, dtype)
-    gamma = torch.from_numpy((rng.normal(size=c) * 0.5 + 1.0).astype(
-        np.float32)).to(dev)
-    beta = torch.from_numpy((rng.normal(size=c) * 0.1).astype(
-        np.float32)).to(dev)
+    y = torch.empty_like(x)
+    mean = torch.empty((b, GN_GROUPS), dtype=torch.float32, device=dev)
+    rstd = torch.empty_like(mean)
+    fn = lib.apv_groupnorm_gelu
+    args = [x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), b, h * w, c, GN_GROUPS, 1e-6,
+            int(dtype == torch.bfloat16)]
+    ran = _with_route(fn, args)
+    return Call(lambda: _ok(fn(*args, _stream())), (y, mean, rstd),
+                lambda: K.groupnorm_gelu_plain(x, gamma, beta, GN_GROUPS),
+                ran)
+
+
+def gn_bwd_call(dtype: torch.dtype, lib: ctypes.CDLL,
+                dev: torch.device) -> Call:
+    """``apv_groupnorm_gelu_bwd`` at GN_SHAPE (the kernel that runs there,
+    then the column sum), on the plain forward's statistics."""
+    x, dy, gamma, beta = _gn_inputs(dtype, dev)
+    b, h, w, c = GN_SHAPE
     _, mean, rstd = K.groupnorm_gelu_plain(x, gamma, beta, GN_GROUPS)
     dx = torch.empty_like(x)
     partials = torch.empty((2, b, c), dtype=torch.float32, device=dev)
     dgamma = torch.empty(c, dtype=torch.float32, device=dev)
     dbeta = torch.empty_like(dgamma)
-    fn, ran = lib.apv_groupnorm_gelu_bwd, ctypes.c_int(-1)
+    fn = lib.apv_groupnorm_gelu_bwd
     args = [dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
             partials[0].data_ptr(), partials[1].data_ptr(),
             dgamma.data_ptr(), dbeta.data_ptr(), b, h * w, c, GN_GROUPS,
             int(dtype == torch.bfloat16)]
-    if len(fn.argtypes) == len(args) + 2:  # a build that reports its kernel
-        args.append(ctypes.byref(ran))
+    ran = _with_route(fn, args)
+    return Call(lambda: _ok(fn(*args, _stream())), (dx, dgamma, dbeta),
+                lambda: K.groupnorm_gelu_bwd_plain(dy, x, gamma, beta, mean,
+                                                   rstd, GN_GROUPS),
+                ran)
+
+
+def bernoulli_bwd_call(lib: ctypes.CDLL, dev: torch.device) -> Call:
+    """``apv_bernoulli_bwd`` at BERN_SHAPE without dx, as the train step
+    calls it."""
+    rng = np.random.default_rng(2)
+    rows, event = BERN_SHAPE
+    x = torch.from_numpy((rng.random(BERN_SHAPE) < 0.2).astype(
+        np.float32)).to(dev)
+    logits = _seeded(rng, BERN_SHAPE, 3.0, dev=dev)
+    g = _seeded(rng, rows, dev=dev)
+    dl = torch.empty_like(logits)
 
     def launch():
-        _ok(fn(*args, _stream()))
+        _ok(lib.apv_bernoulli_bwd(g.data_ptr(), x.data_ptr(),
+                                  logits.data_ptr(), None, dl.data_ptr(),
+                                  rows, event, _stream()))
 
-    def plain():
-        return K.groupnorm_gelu_bwd_plain(dy, x, gamma, beta, mean, rstd,
-                                          GN_GROUPS)
+    return Call(launch, (dl,),
+                lambda: K.bernoulli_bwd_plain(g, x, logits)[1:])
 
-    return launch, (dx, dgamma, dbeta), plain, ran
+
+# ---------------------------------------------------------------------------
+# agreement checks: check(got, want) -> fields, with "ok"; got maps each
+# version to its outputs, want is the plain version's
+# ---------------------------------------------------------------------------
+
+def scale_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def elem_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (1 + |want|), elementwise."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (1.0 + want.abs())).max())
+
+
+def parents_bits(tol: float):
+    """The parent's bits, and elementwise within ``tol`` of plain."""
+    def check(got: dict, want: tuple) -> dict:
+        same = all(torch.equal(a, b)
+                   for a, b in zip(got["change"], got["parent"]))
+        rel = max(elem_rel(a, w) for a, w in zip(got["change"], want))
+        return {"equal_bits_to_parent": same, "rel_err_vs_plain": rel,
+                "tol": tol, "ok": same and rel <= tol}
+    return check
+
+
+def gn_forward_bars(dtype: torch.dtype):
+    """y within 1e-5 (f32) or 2^-7 (bf16) of max(max |y|, 1), mean and
+    rstd within 1e-5 scale-relative, as chip_smoke.py holds them."""
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+
+    def errs(out, want):
+        y, yw = out[0].float(), want[0].float()
+        fwd = float((y - yw).abs().max()) / max(float(yw.abs().max()), 1.0)
+        return fwd, max(scale_rel(a, w) for a, w in zip(out[1:], want[1:]))
+
+    def check(got: dict, want: tuple) -> dict:
+        fwd, stats = errs(got["change"], want)
+        p_fwd, p_stats = errs(got["parent"], want)
+        return {"fwd_vs_plain": fwd, "stats_vs_plain": stats,
+                "parent_fwd_vs_plain": p_fwd,
+                "parent_stats_vs_plain": p_stats, "tol_fwd": tol,
+                "tol_stats": 1e-5, "ok": fwd <= tol and stats <= 1e-5}
+    return check
+
+
+def gn_backward_bars(dtype: torch.dtype):
+    """dx, dgamma, dbeta within 1e-4 (f32) or 1e-2 (bf16) scale-relative."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+
+    def check(got: dict, want: tuple) -> dict:
+        rel = {v: max(scale_rel(a, w) for a, w in zip(out, want))
+               for v, out in got.items()}
+        return {"scale_rel_vs_plain": rel["change"],
+                "parent_scale_rel_vs_plain": rel["parent"], "tol": tol,
+                "ok": rel["change"] <= tol}
+    return check
+
+
+class Case(NamedTuple):
+    kernel: str
+    shape: tuple
+    dtype: torch.dtype
+    source: str                        # under apv_tpu_torch/ops/csrc
+    make: Callable[[ctypes.CDLL, torch.device], Call]
+    check: Callable[[dict, tuple], dict]
+    # __global__ functions, to find them in a profile: the one that runs
+    # once a launch (any of these names), then any that run beside it
+    functions: tuple[tuple[str, ...], tuple[str, ...]]
+    routes: tuple[str, ...] = ()       # names of the reported routes
+    timed: bool = True
+
+
+_GN_FWD_FNS = (("groupnorm_gelu_image", "groupnorm_gelu_rows"), ())
+_GN_BWD_FNS = (("groupnorm_gelu_bwd_image", "groupnorm_gelu_bwd_rows"),
+               ("groupnorm_gelu_param_sum",))
+CASES = (
+    *(Case("reparam", (s, *shape), torch.float32, "reparam.cu",
+           functools.partial(reparam_call, s, shape), parents_bits(1e-5),
+           (("reparam_samples",), ()), timed=timed)
+      for s, shape, timed in ((25, (64, 128), True), (50, (64, 128), True),
+                              (1, (256, 128), True), (3, (7, 5), False))),
+    *(Case("groupnorm_gelu", GN_SHAPE, dtype, "groupnorm_gelu.cu",
+           functools.partial(gn_fwd_call, dtype), gn_forward_bars(dtype),
+           _GN_FWD_FNS, K.GN_KERNELS)
+      for dtype in (torch.bfloat16, torch.float32)),
+    *(Case("groupnorm_gelu_bwd", GN_SHAPE, dtype, "groupnorm_gelu.cu",
+           functools.partial(gn_bwd_call, dtype), gn_backward_bars(dtype),
+           _GN_BWD_FNS, K.GN_KERNELS)
+      for dtype in (torch.bfloat16, torch.float32)),
+    Case("bernoulli_bwd", BERN_SHAPE, torch.float32, "bernoulli.cu",
+         bernoulli_bwd_call, parents_bits(1e-6),
+         (("bernoulli_bwd_rows", "bernoulli_bwd_elems"), ())),
+)
+
+
+def _dtype(case: Case) -> str:
+    return str(case.dtype).removeprefix("torch.")
 
 
 def call_us(launch, iters: int = ITERS) -> float:
@@ -206,19 +360,13 @@ def device_us(launch, functions: tuple[tuple[str, ...], tuple[str, ...]],
             sum(map(dev, floor)) / floor_calls if floor_calls else None)
 
 
-def scale_rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.float(), want.float()
-    return float((got - want).abs().max()
-                 / want.abs().max().clamp_min(1e-30))
-
-
-def measure(name: str, shape: list, libs: dict, make) -> None:
-    """parent, change, change, parent; then agreement of the change."""
-    calls = {v: make(lib) for v, lib in libs.items()}
+def measure(case: Case, libs: dict, dev: torch.device) -> None:
+    """parent, change, change, parent."""
+    calls = {v: case.make(lib, dev) for v, lib in libs.items()}
     runs = collections.defaultdict(list)
     for version in ("parent", "change", "change", "parent"):
-        launch = calls[version][0]
-        dev_us, floor = device_us(launch, FUNCTIONS[name])
+        launch = calls[version].launch
+        dev_us, floor = device_us(launch, case.functions)
         runs[version].append({"call_us": call_us(launch),
                               "queued_us": queued_us(launch),
                               "device_us": dev_us, "floor_us": floor})
@@ -226,55 +374,38 @@ def measure(name: str, shape: list, libs: dict, make) -> None:
         means = {key: (sum(r[key] for r in rs) / len(rs)
                        if all(r[key] is not None for r in rs) else None)
                  for key in rs[0]}
-        emit("time", kernel=name, shape=shape, version=version, **means,
-             runs=rs)
+        emit("time", kernel=case.kernel, shape=list(case.shape),
+             dtype=_dtype(case), version=version, **means, runs=rs)
 
 
-def agree_reparam(libs: dict, dev: torch.device) -> None:
-    for samples, shape in REPARAM_CASES + ((3, (7, 5)),):
-        outs = {}
-        for version, lib in libs.items():
-            launch, z, plain = reparam_call(lib, samples, shape, dev)
-            launch()
-            outs[version] = z.clone()
-        want = plain()
-        rel = float(((outs["change"] - want).abs() / (1.0 + want.abs()))
-                    .max())
-        emit("agree", kernel="reparam", shape=[samples, *shape],
-             equal_bits_to_parent=bool(torch.equal(outs["change"],
-                                                   outs["parent"])),
-             rel_err_vs_plain=rel, tol=1e-5)
-
-
-def agree_gn(libs: dict, dev: torch.device) -> None:
-    for dtype in (torch.bfloat16, torch.float32):
-        got, ran = {}, {}
-        for version, lib in libs.items():
-            launch, outs, plain, ran[version] = gn_bwd_call(lib, dtype, dev)
-            launch()
-            got[version] = tuple(t.clone() for t in outs)
-            if version == "change":
-                launch()
-                same = all(torch.equal(a, b) for a, b in zip(got[version],
-                                                              outs))
-        want = plain()
-        emit("agree", kernel="groupnorm_gelu_bwd", shape=list(GN_SHAPE),
-             dtype=str(dtype).removeprefix("torch."),
-             scale_rel_vs_plain=max(scale_rel(a, w) for a, w in
-                                    zip(got["change"], want)),
-             parent_scale_rel_vs_plain=max(scale_rel(a, w) for a, w in
-                                           zip(got["parent"], want)),
-             tol=1e-2 if dtype == torch.bfloat16 else 1e-4,
-             same_bits_on_second_call=same,
-             ran={v: (K.GN_BWD_KERNELS[r.value] if r.value >= 0 else None)
-                     for v, r in ran.items()})
+def agree(case: Case, libs: dict, dev: torch.device) -> bool:
+    """Each build once, the change twice; the case's check against the
+    plain version. Emits one line; returns its ``ok``."""
+    calls, got = {}, {}
+    for version, lib in libs.items():
+        calls[version] = call = case.make(lib, dev)
+        call.launch()
+        got[version] = tuple(t.clone() for t in call.outputs)
+    change = calls["change"]
+    change.launch()
+    same = all(torch.equal(a, b) for a, b in zip(got["change"],
+                                                 change.outputs))
+    fields = case.check(got, tuple(change.plain()))
+    ran = {v: case.routes[c.ran.value]
+           for v, c in calls.items() if c.ran is not None and c.ran.value >= 0}
+    ok = fields.pop("ok") and same
+    emit("agree", kernel=case.kernel, shape=list(case.shape),
+         dtype=_dtype(case), same_bits_on_second_call=same, ran=ran,
+         **fields, ok=ok)
+    return ok
 
 
 def summarize_listing(ptxas: str, sass: str) -> list[dict]:
     """One row per kernel function of a ``cuobjdump -sass`` listing, with
     its registers and spills from ``nvcc -Xptxas -v`` output, its
-    instruction count, its global stores and loads by opcode, and its
-    CALL and MUFU counts."""
+    instruction count, its global stores and loads by opcode, its CALL
+    and MUFU counts, and its calls of the 64-bit division and remainder
+    routines (``div64``)."""
     regs = {}
     for fn, body in re.findall(
             r"Compiling entry function '(\S+)' for 'sm_\w+'\n(.*?)"
@@ -300,18 +431,21 @@ def summarize_listing(ptxas: str, sass: str) -> list[dict]:
                      "calls": sum(v for k, v in count.items()
                                   if k.startswith("CALL")),
                      "mufu": sum(v for k, v in count.items()
-                                 if k.startswith("MUFU"))})
+                                 if k.startswith("MUFU")),
+                     "div64": len(re.findall(
+                         r"CALL\S*\s+`?\(?\$?\S*cuda_sm\d+_(?:div|rem)_[su]64",
+                         body))})
     return rows
 
 
 def sass_report(csrc: Path, version: str, out: Path) -> None:
-    """``-Xptxas -v`` and ``cuobjdump -sass`` of SASS_SOURCES, saved to
-    ``out``; one summary line per kernel function."""
+    """``-Xptxas -v`` and ``cuobjdump -sass`` of the sources of CASES,
+    saved to ``out``; one summary line per kernel function."""
     nvcc = _build._nvcc()
     cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).parent
                                                  / "cuobjdump")
     out.mkdir(parents=True, exist_ok=True)
-    for src in SASS_SOURCES:
+    for src in sorted({case.source for case in CASES}):
         obj = out / f"{version}_{Path(src).stem}.o"
         res = subprocess.run(
             [nvcc, *_build.ARCH_FLAGS, *_build.COMPILE_FLAGS, "-Xptxas", "-v",
@@ -362,17 +496,11 @@ def main(argv: list[str]) -> int:
                               ("change", _build.CSRC)):
             sass_report(csrc, version, args.sass)
     with torch.inference_mode():
-        agree_reparam(libs, dev)
-        agree_gn(libs, dev)
-        for samples, shape in REPARAM_CASES:
-            measure("reparam", [samples, *shape], libs,
-                    lambda lib: reparam_call(lib, samples, shape, dev))
-        for dtype in (torch.bfloat16, torch.float32):
-            measure("groupnorm_gelu_bwd",
-                    [*GN_SHAPE, str(dtype).removeprefix("torch.")], libs,
-                    lambda lib: gn_bwd_call(lib, dtype, dev))
-    return 0
-
+        ok = [agree(case, libs, dev) for case in CASES]
+        for case in CASES:
+            if case.timed:
+                measure(case, libs, dev)
+    return 0 if all(ok) else 1
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -5,9 +5,14 @@ against ``apv_tpu``.
 reference's ``_reference``), differentiated by autograd; its gradients are
 held to ``jax.vjp`` of the reference's ``custom_vjp``, whose backward is
 the hand-derived ``_bwd``. The CUDA path's ``autograd.Function`` is
-rehearsed with the plain versions standing in for the two kernels. The
-conv probe's plain contenders are held to ``lax.conv_general_dilated``.
+rehearsed with the plain versions standing in for the two kernels, and
+the wrappers' counting of the kernel each launch ran with a fake library
+standing in for the build. The conv probe's plain contenders are held to
+``lax.conv_general_dilated``.
 """
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +21,7 @@ import pytest
 import torch
 
 from apv_tpu.ops import groupnorm as jgn
-from apv_tpu_torch.ops import conv_probe
+from apv_tpu_torch.ops import _build, conv_probe
 from apv_tpu_torch.ops import groupnorm as tgn
 from apv_tpu_torch.ops import kernels as K
 from apv_tpu_torch.ops.groupnorm import groupnorm_gelu
@@ -167,6 +172,59 @@ def test_autograd_function_rehearsed(rng, gn_on_cuda_path, dtype):
     for a, w in zip(got, want):
         assert a.dtype == w.dtype
         assert _scale_rel(a.float().numpy(), w.float().numpy()) <= tol
+
+
+class _FakeLibrary:
+    """The kernel library's two groupnorm entry points on the CPU: each
+    reports ``route`` through its ``int*`` out-parameter (the argument
+    before the stream) and returns 0, writing no output."""
+
+    def __init__(self, route):
+        self.route, self.calls = route, []
+
+    def _entry(self, name):
+        def call(*args):
+            assert len(args) == len(_build.SIGNATURES[name])
+            args[-2]._obj.value = self.route
+            self.calls.append(name)
+            return 0
+        return call
+
+    def __getattr__(self, name):
+        return self._entry(name)
+
+
+@pytest.mark.parametrize("route,name", [(0, "image"), (1, "rows")])
+def test_groupnorm_route_counting_rehearsed(monkeypatch, route, name):
+    """``groupnorm_gelu_cuda`` and ``groupnorm_gelu_bwd_cuda`` count each
+    launch under the kernel the C entry point reports (0 image, 1 rows),
+    with a fake library standing in for the build and CPU tensors for CUDA
+    ones; ``reset_launches`` clears both counters."""
+    fake = _FakeLibrary(route)
+    monkeypatch.setattr(K, "_lib", lambda: fake)
+    monkeypatch.setattr(K, "_check_gn", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    K.reset_launches()
+    x = torch.zeros(2, 4, 4, 16)
+    g, b = torch.ones(16), torch.zeros(16)
+    _, mean, rstd = K.groupnorm_gelu_cuda(x, g, b, 4)
+    K.groupnorm_gelu_cuda(x, g, b, 4)
+    K.groupnorm_gelu_bwd_cuda(x, x, g, b, mean, rstd, 4)
+    assert fake.calls == ["apv_groupnorm_gelu"] * 2 \
+        + ["apv_groupnorm_gelu_bwd"]
+    assert K.groupnorm_gelu_routes == {**dict.fromkeys(K.GN_KERNELS, 0),
+                                       name: 2}
+    assert K.groupnorm_gelu_bwd_routes == {
+        **dict.fromkeys(K.GN_KERNELS, 0), name: 1}
+    assert (K.launches["groupnorm_gelu"],
+            K.launches["groupnorm_gelu_bwd"]) == (2, 1)
+    K.reset_launches()
+    assert set(K.groupnorm_gelu_routes.values()) == {0}
+    assert set(K.groupnorm_gelu_bwd_routes.values()) == {0}
+    assert set(K.launches.values()) == {0}
 
 
 def test_channels_last_view_is_the_nhwc_input(rng):

@@ -5,12 +5,15 @@ out_dir)``) into a library named by a hash of its sources, and
 ``kernel_ab.py`` (at the repo's root) builds two checkouts' kernels and
 times them on the card. Neither can compile or run here (no nvcc, no
 card); these tests hold what they do before that: the source hash, the
-refusal without nvcc or a card, the parent's own signatures, and the
-parsing of ptxas and SASS listings.
+refusal without nvcc or a card, the parent's own signatures, the
+parsing of ptxas and SASS listings, and the names and arities that
+``chip_smoke.py``, ``kernel_ab.py`` and ``_build.SIGNATURES`` give the
+CUDA sources.
 """
 
 import ctypes
 import importlib.util
+import re
 import shutil
 from pathlib import Path
 
@@ -24,6 +27,30 @@ _spec = importlib.util.spec_from_file_location("kernel_ab",
                                                ROOT / "kernel_ab.py")
 kernel_ab = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(kernel_ab)
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def _sources() -> str:
+    return "\n".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+
+
+def _globals() -> set[str]:
+    """The names of the ``__global__`` functions of ``ops/csrc``."""
+    return set(re.findall(
+        r"__global__\s+void\s+"
+        r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(",
+        _sources()))
+
+
+def _entry_points() -> dict[str, int]:
+    """Each ``extern "C"`` entry point of ``ops/csrc`` -> its number of
+    parameters."""
+    return {name: len(params.split(","))
+            for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', _sources())}
 
 PTXAS = """\
 ptxas info    : 24 bytes gmem
@@ -121,3 +148,34 @@ def test_kernel_ab_takes_the_parents_own_signatures(tmp_path):
     new = _build.SIGNATURES["apv_groupnorm_gelu_bwd"]
     assert len(new) == len(older["apv_groupnorm_gelu_bwd"]) + 1
     assert new[-2] is ctypes.POINTER(ctypes.c_int)
+
+
+def test_sources_hold_every_kernel_named_for_the_card():
+    """Every function that ``chip_smoke.KERNEL_FNS`` looks for in a
+    profile, and every one that a ``kernel_ab.CASES`` row times, is a
+    ``__global__`` of ``ops/csrc`` (a renamed kernel would otherwise show
+    up on the card as zero launches or an empty profile)."""
+    kernels = _globals()
+    assert {"groupnorm_gelu_image", "bernoulli_bwd_elems"} <= kernels
+    named = {fn for fns in chip_smoke.KERNEL_FNS.values() for fn in fns}
+    assert named <= kernels, named - kernels
+    assert set(chip_smoke.KERNEL_FNS) == set(chip_smoke.REPLACES)
+    for case in kernel_ab.CASES:
+        main, beside = case.functions
+        assert set(beside) <= kernels, case
+        # the main function: either name, since the parent may hold the
+        # other; this tree must hold one of them
+        assert set(main) & kernels, case
+        assert (_build.CSRC / case.source).exists()
+
+
+def test_entry_points_match_their_ctypes_signatures():
+    """Each ``extern "C"`` entry point takes as many parameters as
+    ``_build.SIGNATURES`` gives it (a missed out-parameter would shift the
+    stream into it on the card)."""
+    entries = _entry_points()
+    assert set(entries) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert entries[name] == len(argtypes), name
+    gn = _build.SIGNATURES["apv_groupnorm_gelu"]
+    assert gn[-2] is ctypes.POINTER(ctypes.c_int)
