@@ -2,7 +2,8 @@
 
 Per test batch: one encoder pass, then the k=1000 importance samples stream
 through a Python loop in chunks (fresh z from the reparam kernel, a decoder
-forward and the disc-logistic kernel per chunk) into a running
+forward and the disc-logistic kernel per chunk, which reads each test
+image once for all the chunk's samples) into a running
 streaming-logsumexp state, so peak memory is one chunk of decoder
 activations.
 
@@ -48,10 +49,10 @@ def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
                                    eps=eps)
         zf = z.reshape(chunk * b, -1)
         out = decode(zf)
-        xt = x_target.unsqueeze(0).expand((chunk,) + tuple(x_target.shape))
-        recon = recon_log_likelihood(
-            xt.reshape((chunk * b,) + tuple(x_target.shape[1:])), out,
-            likelihood).reshape(chunk, b)
+        # x_target [B, ...] against [chunk·B, ...] parameters: the
+        # likelihood op reads row r's image as x_target[r % B], no copy
+        recon = recon_log_likelihood(x_target, out, likelihood,
+                                     samples=chunk).reshape(chunk, b)
         logp0 = D.standard_gaussian_logpdf(z).sum(dim=-1)
         logq = D.gaussian_logpdf(z, mean, logvar).sum(dim=-1)
         logw = recon + logp0 - logq

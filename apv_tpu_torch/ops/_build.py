@@ -28,7 +28,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-# No --use_fast_math: __expf/__logf lose the t -> 0 branch of log(expm1(t)).
+# No --use_fast_math: the kernels pick their approximate intrinsics one by
+# one (each with its range and error stated); expf, expm1f and the t -> 0
+# branch of log(expm1(t)) stay libm's.
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
@@ -36,9 +38,11 @@ _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 # C symbol -> argtypes; every entry point returns its launch's cudaError_t.
 SIGNATURES = {
-    "apv_bernoulli": (_P, _P, _P, _I64, _I64, _P),
+    # the likelihoods' x_rows (after event): x's distinct rows, dividing rows
+    "apv_bernoulli": (_P, _P, _P, _I64, _I64, _I64, _P),
     "apv_bernoulli_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    "apv_disc_logistic": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P),
+    "apv_disc_logistic": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float,
+                          _P),
     "apv_conv3x3_simt": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                          ctypes.c_int, _P),
     "apv_conv3x3_wgmma": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,

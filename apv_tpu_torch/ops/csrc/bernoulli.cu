@@ -1,20 +1,31 @@
 // Per-row Bernoulli reconstruction log-likelihood and its backward.
 //
 // Forward: replaces apv_tpu/ops/kernels.py::_bernoulli_fwd (Pallas kernel
-// _bernoulli_kernel, via _reduce_call). For each row r of [rows, E]:
-//     out[r] = sum_e x[r,e] * l[r,e] - softplus(l[r,e])
+// _bernoulli_kernel, via _reduce_call). For each row r of the logits
+// [rows, E]:
+//     out[r] = sum_e x[r % x_rows, e] * l[r,e] - softplus(l[r,e])
 // with the stable softplus max(l, 0) + log1p(exp(-|l|)), full-precision
-// expf/log1pf (the build has no --use_fast_math), float32 throughout.
+// expf/log1pf (the build has no --use_fast_math), float32 throughout. x
+// holds x_rows distinct rows (x_rows divides rows): the IWAE path scores
+// each image under S samples, rows = S * B, and row r reads image r % B,
+// the order of x.expand(S, B, E).reshape(S * B, E).
 //
-// Bound on an H100: memory. Each element reads 8 bytes (x and the logit);
-// at the IWAE chunk [3200, 784] that is 20.1 MB, ~6.0 us at 3.35 TB/s. At
-// the train step's [256, 784] it is 1.6 MB, far below one launch.
-// Design: one warp per row (4 rows per 128-thread block). A row of 784 is
-// 196 float4, so each lane makes about six 16-byte loads of x and of l
-// with neighbouring lanes on neighbouring addresses; the sum stays in
-// registers and one warp-shuffle reduction writes [rows]. Rows whose length
-// is not a multiple of 4, or inputs not 16-byte aligned, take the scalar
-// loop instead.
+// Bound on an H100: memory. The logits are read once, x once per image:
+// at the IWAE chunk [3200, 784] with x [64, 784] that is 10.2 MB, ~3.05 us
+// at 3.35 TB/s. At the train step's [256, 784] it is 1.6 MB, below the
+// 1.13 us a one-element launch costs the card (PERF.md). What holds the
+// IWAE chunk above its bound is instruction issue: the full-precision
+// expf and log1pf cost ~44 instructions an element.
+// Design: the backward's layout. A block a row, a thread per float4 of the
+// row (per element on the scalar route: a length that is not a multiple
+// of 4, or a pointer not 16-byte aligned), two from 1024 rows on; each
+// thread loads its x and l before it computes, then one block reduction
+// (warps in a fixed order) writes out[r]. At E = 784 that is 196 threads
+// a row in blocks of 224: 256 blocks at the train step, one wave over 132
+// SMs. x's row costs one 32-bit remainder a block and is served from L2
+// to the S blocks that share it. (The first design, a warp per row in
+// 128-thread blocks, gave the train step 64 blocks and each lane a serial
+// walk of ~six float4s: 5.04 us there.)
 //
 // Backward: replaces apv_tpu/ops/kernels.py::_bernoulli_bwd, the custom_vjp
 // rule written in jnp:
@@ -36,8 +47,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kThreads = 256;            // the forward's largest block
 constexpr int kBwdThreads = 256;         // the backward's largest block
 
 __device__ __forceinline__ float softplus(float v) {
@@ -53,28 +63,28 @@ __device__ __forceinline__ float sigmoid(float v) {
     return 1.0f / (1.0f + expf(-v));
 }
 
+// One block a row; a thread per unit (a float4 where kVec, else an
+// element), looping past blockDim.x units.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 bernoulli_rows(const float* __restrict__ x, const float* __restrict__ logits,
-               float* __restrict__ out, int64_t rows, int64_t event, bool vec) {
-    const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= rows) return;  // whole warps leave together
-    const float* xr = x + row * event;
-    const float* lr = logits + row * event;
+               float* __restrict__ out, int event, unsigned x_rows) {
+    const float* xr = x + static_cast<int64_t>(blockIdx.x % x_rows) * event;
+    const float* lr = logits + static_cast<int64_t>(blockIdx.x) * event;
     float acc = 0.0f;
-    if (vec) {
+    if constexpr (kVec) {
         const float4* x4 = reinterpret_cast<const float4*>(xr);
         const float4* l4 = reinterpret_cast<const float4*>(lr);
-        for (int64_t i = lane; i < event / 4; i += 32) {
+        for (int i = threadIdx.x; i < event / 4; i += blockDim.x) {
             const float4 xv = x4[i], lv = l4[i];
             acc += elem(xv.x, lv.x) + elem(xv.y, lv.y)
                  + elem(xv.z, lv.z) + elem(xv.w, lv.w);
         }
     } else {
-        for (int64_t i = lane; i < event; i += 32) acc += elem(xr[i], lr[i]);
+        for (int i = threadIdx.x; i < event; i += blockDim.x) acc += elem(xr[i], lr[i]);
     }
-    acc = apv::warp_sum(acc);
-    if (lane == 0) out[row] = acc;
+    acc = apv::block_sum(acc);
+    if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 // One unit of the row a thread: a float4 where kVec (event % 4 == 0, the
@@ -107,18 +117,32 @@ bernoulli_bwd_elems(const float* __restrict__ g, const float* __restrict__ x,
     }
 }
 
-unsigned blocks_for(int64_t rows) {
-    return static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-}
-
 }  // namespace
 
+// x holds x_rows rows, x_rows dividing rows; row r reads x row r % x_rows.
 extern "C" int apv_bernoulli(const float* x, const float* logits, float* out,
-                             int64_t rows, int64_t event, void* stream) {
+                             int64_t rows, int64_t event, int64_t x_rows,
+                             void* stream) {
     if (rows <= 0) return 0;
+    if (x_rows <= 0 || rows % x_rows != 0 || rows > INT32_MAX || event > INT32_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
     const bool vec = event % 4 == 0 && apv::aligned16(x) && apv::aligned16(logits);
-    bernoulli_rows<<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, logits, out, rows, event, vec);
+    const int64_t units = vec ? event / 4 : event;
+    // a thread per unit; two units a thread from 1024 rows on, where the
+    // grid is several waves deep anyway and each block's reduction is then
+    // shared by twice the work
+    const int64_t per = rows >= 1024 ? 2 : 1;
+    const auto threads = static_cast<unsigned>(
+        std::clamp<int64_t>(((units + per - 1) / per + 31) / 32 * 32, 32, kThreads));
+    const auto blocks = static_cast<unsigned>(rows);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto n = static_cast<int>(event);
+    const auto xr = static_cast<unsigned>(x_rows);
+    if (vec) {
+        bernoulli_rows<true><<<blocks, threads, 0, s>>>(x, logits, out, n, xr);
+    } else {
+        bernoulli_rows<false><<<blocks, threads, 0, s>>>(x, logits, out, n, xr);
+    }
     return apv::launch_status();
 }
 

@@ -19,20 +19,19 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;  // lane 0 holds the warp's sum
 }
 
-// Sum over a block of kThreads threads (a multiple of 32); the result is
-// valid in thread 0. Warp shuffles first, then one shared-memory pass.
-template <int kThreads>
+// Sum over a block of blockDim.x threads (a multiple of 32, at most 1024);
+// the result is valid in thread 0. Warp shuffles first, then one
+// shared-memory pass that sums the warps in warp order: the same bits on
+// every call.
 __device__ __forceinline__ float block_sum(float v) {
-    static_assert(kThreads % 32 == 0 && kThreads <= 1024, "block size");
-    constexpr int kWarps = kThreads / 32;
-    __shared__ float partial[kWarps];
+    __shared__ float partial[32];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     v = warp_sum(v);
     if (lane == 0) partial[warp] = v;
     __syncthreads();
     if (warp == 0) {
-        v = lane < kWarps ? partial[lane] : 0.0f;
+        v = lane < static_cast<int>(blockDim.x >> 5) ? partial[lane] : 0.0f;
         v = warp_sum(v);
     }
     return v;

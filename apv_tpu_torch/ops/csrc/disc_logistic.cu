@@ -2,19 +2,38 @@
 // backward.
 //
 // Replaces apv_tpu/ops/kernels.py::_disc_logistic_fwd (Pallas kernel
-// _disc_logistic_kernel / _disc_logistic_elem). For each row r:
-//     out[r] = sum_e log P(x[r,e] | mean[r,e], log_scale[r,e])
+// _disc_logistic_kernel / _disc_logistic_elem). For each row r of the
+// parameters [rows, E]:
+//     out[r] = sum_e log P(x[r % x_rows, e] | mean[r,e], log_scale[r,e])
 // with bin 1/255, edge bins that integrate the tails, the two-branch stable
-// log(expm1(t)) and float32 arithmetic throughout.
+// log(expm1(t)) and float32 arithmetic throughout. x holds x_rows distinct
+// rows (x_rows divides rows): on the IWAE and OOD paths one image is scored
+// under S posterior samples, rows = S * B, and parameter row r reads image
+// r % B, the order of x.expand(S, B, E).reshape(S * B, E). x_rows = rows is
+// the unbroadcast call of the train step.
 //
-// Bound on an H100: memory. At the IWAE shape [1600, 3072] the three inputs
-// are 59.0 MB, ~17.6 us at 3.35 TB/s; the ~8 transcendentals per element
-// keep the SFU busy for a comparable time, so both are near the limit.
-// Design: one block of 256 threads per row, float4 loads (16 B per thread,
-// neighbouring threads on neighbouring addresses) when the row length is a
-// multiple of 4, a scalar tail for any other length, the sum kept in
-// registers and reduced by warp shuffles and one shared-memory pass. Each
-// input byte is read once and only [rows] floats are written.
+// Bound on an H100: memory. mean and log_scale are read once, x once per
+// image: at the OOD chunk [3200, 3072] with x [64, 3072] that is 79.4 MB,
+// 23.7 us at 3.35 TB/s. The first design spent ~140 instructions an
+// element (seven libm calls), enough issue to hold it at 54.5 us there;
+// this one is still held by issue, mostly expf and expm1f, kept exact.
+// Design:
+//  * arithmetic: softplus(a) + softplus(b) = max(a,0) + max(b,0)
+//    + log((1 + e^-|a|)(1 + e^-|b|)), and with a = b + t the interior log
+//    pmf is min(a,0) - max(b,0) + log((1 - e^-t) / ((1 + e^-|a|)(1 + e^-|b|))):
+//    one accurate expf (1/s), two ex2.approx, one expm1f, one approximate
+//    divide and one lg2.approx an element; the edge bins take the same log
+//    with their one factor. The t <= 1e-3 branch keeps the reference's
+//    libm series. Each approximate intrinsic's range and error are stated
+//    where it is used.
+//  * grid: a block a row (no atomics; a fixed reduction order, the same
+//    bits on every call), x's row found by one 32-bit remainder a block and
+//    served from L2 to the S blocks that share it. float4 loads when E % 4
+//    == 0 and the pointers are 16-byte aligned, a scalar loop otherwise.
+//    Block size by the entry point: at >= 1024 rows a thread takes ~3 float4
+//    (256 threads at E = 3072, up to six blocks an SM); below, one float4 a
+//    thread (768 at E = 3072) so that the train step's 256 rows still give
+//    ~46 warps an SM.
 //
 // Backward: disc_logistic_bwd_rows replaces
 // apv_tpu/ops/kernels.py::_disc_logistic_bwd, the hand-derived custom_vjp
@@ -26,73 +45,96 @@
 //     high edge: dmu =  sig(b)/s,   dls =  b*sig(b)
 // with the edges decided on x (x <= h, x >= 1 - h), then dmean = g[r]*dmu,
 // dlog_scale = g[r]*dls and, only when asked, dx = -g[r]*dmu. The training
-// path's x is data and needs no dx.
+// path's x is data and needs no dx. The backward takes x at [rows, E].
 // Bound on an H100: memory. Without dx it reads x, mean, log_scale and
 // writes two outputs, 20 bytes per element: 15.7 MB at the train step's
 // [256, 3072], 4.70 us at 3.35 TB/s; its ~30 operations per element take
-// 0.35 us at 67 TFLOP/s f32. Design: the forward's layout, one 256-thread
-// block per row (g[r] read once per block, no index divided), float4 loads
-// and stores when the row length is a multiple of 4 and every pointer is
-// 16-byte aligned, a scalar loop otherwise.
+// 0.35 us at 67 TFLOP/s f32. Design: one 256-thread block per row (g[r]
+// read once per block, no index divided), float4 loads and stores when the
+// row length is a multiple of 4 and every pointer is 16-byte aligned, a
+// scalar loop otherwise.
 //
-// Compiled without --use_fast_math: __expf/__logf would lose the t -> 0
-// branch of log(expm1(t)), and expm1f keeps the t-term exact near 1e-4.
+// Compiled without --use_fast_math: the intrinsics are chosen one by one,
+// and expf, expm1f and the small-t series stay libm's.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // the backward's block
+constexpr int kMaxThreads = 768;   // the forward's largest block
 
-__device__ __forceinline__ float softplus(float v) {
-    return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
-}
-
-// Elementwise log pmf; mirrors apv_tpu/ops/kernels.py::_disc_logistic_elem.
+// Elementwise log pmf; computes apv_tpu/ops/kernels.py::_disc_logistic_elem.
 __device__ __forceinline__ float elem(float x, float mu, float ls, float bin,
                                       float half, float lo_edge, float hi_edge) {
     const float inv_s = expf(-ls);
     const float a = (x - mu + half) * inv_s;
     const float b = (x - mu - half) * inv_s;
-    if (x <= lo_edge) return -softplus(-a);
-    if (x >= hi_edge) return -softplus(b);
-    const float t = bin * inv_s;
-    const float log_expm1_t = t > 1e-3f
-        ? t + log1pf(-expf(-t))
-        : logf(fmaxf(t, 1e-20f)) + log1pf(0.5f * t);
-    return b + log_expm1_t - softplus(a) - softplus(b);
+    // __expf is ex2.approx of v * log2(e): at most 2 + 1.173|v| ulp of
+    // e^v (CUDA C Programming Guide), so for v = -|a| <= 0 the absolute
+    // error of e^v in (0, 1] stays below 2^-23. These enter only as the
+    // factors 1 + e^v of the log's denominator: error below 1.2e-7 in it.
+    const float ea = __expf(-fabsf(a));
+    const float eb = __expf(-fabsf(b));
+    float lin, num, den;
+    if (x <= lo_edge) {          // log sig(a) = min(a,0) - log(1 + e^-|a|)
+        lin = fminf(a, 0.0f);
+        num = 1.0f;
+        den = 1.0f + ea;
+    } else if (x >= hi_edge) {   // log(1 - sig(b)) = -max(b,0) - log(1 + e^-|b|)
+        lin = -fmaxf(b, 0.0f);
+        num = 1.0f;
+        den = 1.0f + eb;
+    } else {
+        // b + log(e^t - 1) - softplus(a) - softplus(b), a = b + t
+        lin = fminf(a, 0.0f) - fmaxf(b, 0.0f);
+        den = (1.0f + ea) * (1.0f + eb);
+        const float t = bin * inv_s;
+        if (t <= 1e-3f)          // the reference's series for log(e^t - 1)
+            return lin + (logf(fmaxf(t, 1e-20f)) + log1pf(0.5f * t) - t) - logf(den);
+        num = -expm1f(-t);       // 1 - e^-t without cancellation
+    }
+    // num in [1e-3, 1], den in [1, 4]: __fdividef is within 2 ulp there, and
+    // q = num / den lies in [2.5e-4, 1]. __logf is lg2.approx times ln 2:
+    // absolute error at most 2^-21.41 on [0.5, 2] and 3 ulp of |log q| <= 8.3
+    // below it, so at most 3e-6 an element (9e-3 over a row of 3072, within
+    // the 1e-2 that chip_smoke.py allows a row sum).
+    return lin + __logf(__fdividef(num, den));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One block a row; blockDim.x (a multiple of 32, at most kMaxThreads) is
+// the entry point's choice. vec: the float4 route.
+__global__ void __launch_bounds__(kMaxThreads, 2)
 disc_logistic_rows(const float* __restrict__ x, const float* __restrict__ mean,
                    const float* __restrict__ log_scale, float* __restrict__ out,
-                   int64_t event, float bin) {
-    const int64_t row = blockIdx.x;
-    const float* xr = x + row * event;
-    const float* mr = mean + row * event;
-    const float* sr = log_scale + row * event;
+                   int event, unsigned x_rows, float bin, bool vec) {
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * event;
+    const float* xr = x + static_cast<int64_t>(blockIdx.x % x_rows) * event;
+    const float* mr = mean + base;
+    const float* sr = log_scale + base;
     const float half = 0.5f * bin;
     const float lo_edge = 0.0f + half;
     const float hi_edge = 1.0f - half;
 
     float acc = 0.0f;
-    // Rows start 16-byte aligned when event % 4 == 0 (allocations are
-    // 256-byte aligned): take the float4 path over the whole row then.
-    const int64_t n4 = (event % 4 == 0) ? event / 4 : 0;
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* m4 = reinterpret_cast<const float4*>(mr);
-    const float4* s4 = reinterpret_cast<const float4*>(sr);
-    for (int64_t i = threadIdx.x; i < n4; i += kThreads) {
-        const float4 xv = x4[i], mv = m4[i], sv = s4[i];
-        acc += elem(xv.x, mv.x, sv.x, bin, half, lo_edge, hi_edge);
-        acc += elem(xv.y, mv.y, sv.y, bin, half, lo_edge, hi_edge);
-        acc += elem(xv.z, mv.z, sv.z, bin, half, lo_edge, hi_edge);
-        acc += elem(xv.w, mv.w, sv.w, bin, half, lo_edge, hi_edge);
+    if (vec) {
+        const float4* x4 = reinterpret_cast<const float4*>(xr);
+        const float4* m4 = reinterpret_cast<const float4*>(mr);
+        const float4* s4 = reinterpret_cast<const float4*>(sr);
+        for (int i = threadIdx.x; i < event / 4; i += blockDim.x) {
+            const float4 xv = x4[i], mv = m4[i], sv = s4[i];
+            acc += elem(xv.x, mv.x, sv.x, bin, half, lo_edge, hi_edge)
+                 + elem(xv.y, mv.y, sv.y, bin, half, lo_edge, hi_edge)
+                 + elem(xv.z, mv.z, sv.z, bin, half, lo_edge, hi_edge)
+                 + elem(xv.w, mv.w, sv.w, bin, half, lo_edge, hi_edge);
+        }
+    } else {
+        for (int i = threadIdx.x; i < event; i += blockDim.x)
+            acc += elem(xr[i], mr[i], sr[i], bin, half, lo_edge, hi_edge);
     }
-    for (int64_t i = 4 * n4 + threadIdx.x; i < event; i += kThreads)
-        acc += elem(xr[i], mr[i], sr[i], bin, half, lo_edge, hi_edge);
-
-    acc = apv::block_sum<kThreads>(acc);
-    if (threadIdx.x == 0) out[row] = acc;
+    acc = apv::block_sum(acc);
+    if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 // sigmoid as 1 / (1 + e^-v), the form PyTorch's and XLA's logistic use.
@@ -170,14 +212,25 @@ disc_logistic_bwd_rows(const float* __restrict__ g, const float* __restrict__ x,
 
 }  // namespace
 
+// x holds x_rows rows, x_rows dividing rows; parameter row r reads x row
+// r % x_rows.
 extern "C" int apv_disc_logistic(const float* x, const float* mean,
                                  const float* log_scale, float* out,
-                                 int64_t rows, int64_t event, float bin_size,
-                                 void* stream) {
+                                 int64_t rows, int64_t event, int64_t x_rows,
+                                 float bin_size, void* stream) {
     if (rows <= 0) return 0;
-    disc_logistic_rows<<<static_cast<unsigned>(rows), kThreads, 0,
+    if (x_rows <= 0 || rows % x_rows != 0 || rows > INT32_MAX || event > INT32_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = event % 4 == 0 && apv::aligned16(x) && apv::aligned16(mean)
+                     && apv::aligned16(log_scale);
+    const int64_t units = vec ? event / 4 : event;
+    const int64_t per = rows >= 1024 ? 3 : 1;          // units a thread
+    const int64_t threads = std::clamp<int64_t>(
+        ((units + per - 1) / per + 31) / 32 * 32, 32, kMaxThreads);
+    disc_logistic_rows<<<static_cast<unsigned>(rows), static_cast<unsigned>(threads), 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        x, mean, log_scale, out, event, bin_size);
+        x, mean, log_scale, out, static_cast<int>(event),
+        static_cast<unsigned>(x_rows), bin_size, vec);
     return apv::launch_status();
 }
 

@@ -9,7 +9,10 @@ There is no switch and no fallback that sends CUDA tensors to the plain
 versions.
 
 All ops take tensors whose axis 0 is the batch axis; the likelihood and
-divergence ops reduce every other axis to one value per sample.
+divergence ops reduce every other axis to one value per sample. The
+likelihood ops also take x with B rows beside parameters with S·B rows
+(one image scored under S samples) where the caller names S
+(``samples=S``): the kernels read each image once.
 """
 
 from __future__ import annotations
@@ -68,6 +71,25 @@ class _KLFn(torch.autograd.Function):
         return K.kl_bwd_cuda(g.contiguous(), mean, logvar)
 
 
+def _check_samples(name: str, x: torch.Tensor, params: torch.Tensor,
+                   samples: int) -> None:
+    """The parameters hold ``samples`` rows for each of x's B rows: B·S
+    of them. S = 1, the default, asks for x at the parameters' rows."""
+    if (samples < 1 or x.dim() == 0 or params.dim() == 0
+            or params.shape[0] != samples * x.shape[0]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not pair with "
+                         f"parameters {tuple(params.shape)} at samples="
+                         f"{samples}: they need samples × x's rows")
+
+
+def _x_grad(dx: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
+    """dx at the parameters' [S·B, E] -> x's [B, E]: the sum over the S
+    samples, the adjoint of the forward's broadcast of x."""
+    if dx is None or dx.shape[0] == x.shape[0]:
+        return dx
+    return dx.reshape(-1, *x.shape).sum(dim=0)
+
+
 class _BernoulliFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, logits):
@@ -77,9 +99,13 @@ class _BernoulliFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # The backward kernel reads x at the logits' rows: a broadcast x
+        # (no path differentiates one) is repeated for it.
         x, logits = ctx.saved_tensors
-        return K.bernoulli_bwd_cuda(g.contiguous(), x, logits,
-                                    want_dx=ctx.needs_input_grad[0])
+        dx, dl = K.bernoulli_bwd_cuda(g.contiguous(),
+                                      K.expand_rows(x, logits), logits,
+                                      want_dx=ctx.needs_input_grad[0])
+        return _x_grad(dx, x), dl
 
 
 class _DiscLogisticFn(torch.autograd.Function):
@@ -94,9 +120,9 @@ class _DiscLogisticFn(torch.autograd.Function):
     def backward(ctx, g):
         x, mean, log_scale = ctx.saved_tensors
         dx, dmean, dls = K.disc_logistic_bwd_cuda(
-            g.contiguous(), x, mean, log_scale, ctx.bin_size,
-            want_dx=ctx.needs_input_grad[0])
-        return dx, dmean, dls, None
+            g.contiguous(), K.expand_rows(x, mean), mean, log_scale,
+            ctx.bin_size, want_dx=ctx.needs_input_grad[0])
+        return _x_grad(dx, x), dmean, dls, None
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +169,14 @@ def kl_standard(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     return _KLFn.apply(_rows(mean), _rows(logvar))
 
 
-def bernoulli_recon_ll(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """Per-sample Bernoulli log-likelihood, summed over pixels -> [B]."""
+def bernoulli_recon_ll(x: torch.Tensor, logits: torch.Tensor, *,
+                       samples: int = 1) -> torch.Tensor:
+    """Per-sample Bernoulli log-likelihood, summed over pixels -> [R].
+
+    x has the logits' shape, or with ``samples=S`` B rows where the logits
+    have R = S·B: logits row r is scored against x's row r % B, without
+    copying x."""
+    _check_samples("bernoulli_recon_ll", x, logits, samples)
     if _on_cpu("bernoulli_recon_ll", x, logits):
         return K.bernoulli_plain(x, logits)
     return _BernoulliFn.apply(_rows(x.to(torch.float32)),
@@ -153,9 +185,15 @@ def bernoulli_recon_ll(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 def disc_logistic_recon_ll(x: torch.Tensor, mean: torch.Tensor,
                            log_scale: torch.Tensor, *,
-                           bin_size: float = 1.0 / 255.0) -> torch.Tensor:
-    """Per-sample discretized-logistic log-likelihood -> [B]; x holds the
-    bin centres i/255."""
+                           bin_size: float = 1.0 / 255.0,
+                           samples: int = 1) -> torch.Tensor:
+    """Per-sample discretized-logistic log-likelihood -> [R]; x holds the
+    bin centres i/255.
+
+    x has mean's shape, or with ``samples=S`` B rows where mean and
+    log_scale have R = S·B: parameter row r is scored against x's row
+    r % B, without copying x."""
+    _check_samples("disc_logistic_recon_ll", x, mean, samples)
     if _on_cpu("disc_logistic_recon_ll", x, mean, log_scale):
         return K.disc_logistic_plain(x, mean, log_scale, bin_size)
     return _DiscLogisticFn.apply(_rows(x.to(torch.float32)),

@@ -7,20 +7,26 @@ blocks); each backward kernel replaces the jnp rule of that op's
 ``custom_vjp``:
 
 * ``bernoulli`` (``csrc/bernoulli.cu``) replaces ``_bernoulli_fwd`` /
-  ``_bernoulli_kernel``. Bound: memory, 2 f32 reads per element (20.1 MB at
-  the MNIST IWAE chunk [3200, 784]). Design: one warp per row, float4
-  loads, warp-shuffle sum. ``bernoulli_bwd`` (same file) replaces
-  ``_bernoulli_bwd``: elementwise, a thread per float4 and ``blockIdx.y``
-  the row (the grid fills the card at the train step's [256, 784]), dx
-  written only when asked for.
+  ``_bernoulli_kernel``. Bound: memory, the logits read once and x once per
+  image (10.2 MB at the MNIST IWAE chunk [3200, 784] with x [64, 784]).
+  Design: a block a row, a thread per float4, one block reduction.
+  ``bernoulli_bwd`` (same file) replaces ``_bernoulli_bwd``: elementwise,
+  a thread per float4 and ``blockIdx.y`` the row (the grid fills the card
+  at the train step's [256, 784]), dx written only when asked for.
 * ``disc_logistic`` (``csrc/disc_logistic.cu``) replaces
-  ``_disc_logistic_fwd`` / ``_disc_logistic_kernel``. Bound: memory, 3 f32
-  reads per element (59.0 MB at the IWAE chunk [1600, 3072]). Design: one
-  256-thread block per row, float4 loads, register sums reduced by warp
-  shuffles, [rows] written. ``disc_logistic_bwd`` (same file) replaces
-  ``_disc_logistic_bwd``: elementwise in the same layout, bound by memory
+  ``_disc_logistic_fwd`` / ``_disc_logistic_kernel``. Bound: memory, mean
+  and log_scale read once and x once per image (79.4 MB at the OOD chunk
+  [3200, 3072] with x [64, 3072]). Design: a block a row, one accurate
+  exp, two approximate exps, one expm1 and one approximate log an element,
+  float4 loads, a block reduction, [rows] written.
+  ``disc_logistic_bwd`` (same file) replaces
+  ``_disc_logistic_bwd``: elementwise in a block a row, bound by memory
   (15.7 MB at the train step's [256, 3072] without dx), dx written only
   when asked for.
+* The two likelihood forwards take x with B rows beside parameters with
+  R = S·B rows: parameter row r reads x row r % B, the order of
+  ``x.expand(S, B, ...).reshape(S·B, ...)``, so the IWAE and OOD paths
+  score each image under S samples without copying it S times.
 * ``kl`` (``csrc/kl.cu``) replaces ``_kl_fwd`` / ``_kl_kernel``. Bound:
   launch latency (65.5 KB at [64, 128]). Design: one warp per row.
   ``kl_bwd`` (same file) replaces ``_kl_bwd``.
@@ -132,6 +138,39 @@ def _check_each(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: expects contiguous tensors")
 
 
+def _x_rows(name: str, x: torch.Tensor, params: torch.Tensor) -> int:
+    """x's rows B where ``params`` has R rows: B divides R, the rest of
+    the shapes are equal. Row r of ``params`` pairs with x's row r % B."""
+    if (x.shape[1:] != params.shape[1:] or x.dim() == 0
+            or (x.shape[0] == 0) != (params.shape[0] == 0)
+            or (x.shape[0] and params.shape[0] % x.shape[0])):
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not pair with "
+                         f"parameters {tuple(params.shape)}: x needs their "
+                         "trailing shape and a row count B that divides "
+                         "theirs (row r reads x row r % B)")
+    return x.shape[0]
+
+
+def _check_x(name: str, x: torch.Tensor, params: torch.Tensor) -> int:
+    """The CUDA wrappers' x: checked as every input, on the parameters'
+    device, paired with them by ``_x_rows``."""
+    _check_each(name, x)
+    if x.device != params.device:
+        raise ValueError(f"{name}: inputs differ in device: x on {x.device}, "
+                         f"parameters on {params.device}")
+    return _x_rows(name, x, params)
+
+
+def expand_rows(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """x [B, ...] repeated to ``like``'s R = S·B rows, sample-major (row r
+    is x's row r % B); x itself when B = R."""
+    b = _x_rows("expand_rows", x, like)
+    if b == like.shape[0]:
+        return x
+    s = like.shape[0] // b
+    return x.unsqueeze(0).expand((s,) + tuple(x.shape)).reshape(like.shape)
+
+
 def _check_row_grad(name: str, g: torch.Tensor,
                     rows_like: torch.Tensor) -> None:
     """g is the [rows] incoming gradient of a per-row reduction."""
@@ -168,20 +207,23 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 def bernoulli_plain(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """Per-row sum of x·l − softplus(l) -> [rows]."""
-    ll = D.bernoulli_logpmf(x, logits)
+    """Per-row sum of x·l − softplus(l) -> [rows]; x may have B rows where
+    the logits have S·B (``expand_rows``)."""
+    ll = D.bernoulli_logpmf(expand_rows(x, logits), logits)
     return ll.reshape(ll.shape[0], -1).sum(dim=-1)
 
 
 def bernoulli_cuda(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """Kernel version of ``bernoulli_plain`` on f32 [rows, E] inputs."""
-    _check("bernoulli", x, logits)
-    rows, event = _rows_2d("bernoulli", x)
-    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    """Kernel version of ``bernoulli_plain`` on f32 logits [rows, E] and x
+    [B, E], B dividing rows (row r reads x row r % B)."""
+    _check("bernoulli", logits)
+    rows, event = _rows_2d("bernoulli", logits)
+    x_rows = _check_x("bernoulli", x, logits)
+    out = torch.empty(rows, dtype=torch.float32, device=logits.device)
     if rows:
         _launch("bernoulli", _lib().apv_bernoulli, x.data_ptr(),
-                logits.data_ptr(), out.data_ptr(), rows, event,
-                device=x.device)
+                logits.data_ptr(), out.data_ptr(), rows, event, x_rows,
+                device=logits.device)
     return out
 
 
@@ -222,22 +264,26 @@ def bernoulli_bwd_cuda(g: torch.Tensor, x: torch.Tensor,
 def disc_logistic_plain(x: torch.Tensor, mean: torch.Tensor,
                         log_scale: torch.Tensor,
                         bin_size: float = 1.0 / 255.0) -> torch.Tensor:
-    """Per-row sum of the discretized-logistic log pmf -> [rows]."""
-    ll = D.discretized_logistic_logpmf(x, mean, log_scale, bin_size=bin_size)
+    """Per-row sum of the discretized-logistic log pmf -> [rows]; x may have
+    B rows where mean and log_scale have S·B (``expand_rows``)."""
+    ll = D.discretized_logistic_logpmf(expand_rows(x, mean), mean, log_scale,
+                                       bin_size=bin_size)
     return ll.reshape(ll.shape[0], -1).sum(dim=-1)
 
 
 def disc_logistic_cuda(x: torch.Tensor, mean: torch.Tensor,
                        log_scale: torch.Tensor,
                        bin_size: float = 1.0 / 255.0) -> torch.Tensor:
-    """Kernel version of ``disc_logistic_plain`` on f32 [rows, E] inputs."""
-    _check("disc_logistic", x, mean, log_scale)
-    rows, event = _rows_2d("disc_logistic", x)
-    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    """Kernel version of ``disc_logistic_plain`` on f32 mean, log_scale
+    [rows, E] and x [B, E], B dividing rows (row r reads x row r % B)."""
+    _check("disc_logistic", mean, log_scale)
+    rows, event = _rows_2d("disc_logistic", mean)
+    x_rows = _check_x("disc_logistic", x, mean)
+    out = torch.empty(rows, dtype=torch.float32, device=mean.device)
     if rows:
         _launch("disc_logistic", _lib().apv_disc_logistic, x.data_ptr(),
                 mean.data_ptr(), log_scale.data_ptr(), out.data_ptr(), rows,
-                event, float(bin_size), device=x.device)
+                event, x_rows, float(bin_size), device=mean.device)
     return out
 
 

@@ -45,13 +45,15 @@ def decoder_output_to_likelihood_params(out: torch.Tensor, likelihood: str,
 
 
 def recon_log_likelihood(x_target: torch.Tensor, out: torch.Tensor,
-                         likelihood: str) -> torch.Tensor:
-    """Per-sample reconstruction log-likelihood [B] via the ops."""
+                         likelihood: str, *, samples: int = 1) -> torch.Tensor:
+    """Per-sample reconstruction log-likelihood [B] via the ops; with
+    ``samples=S``, ``out`` holds S decodings of each of x_target's B images
+    ([S·B, ...], sample-major) and the result has S·B rows."""
     params = decoder_output_to_likelihood_params(out, likelihood,
                                                  x_target.shape[-1])
     if likelihood == "bernoulli":
-        return ops.bernoulli_recon_ll(x_target, params[0])
-    return ops.disc_logistic_recon_ll(x_target, *params)
+        return ops.bernoulli_recon_ll(x_target, params[0], samples=samples)
+    return ops.disc_logistic_recon_ll(x_target, *params, samples=samples)
 
 
 def elbo_terms(encode: Callable, decode: Callable, x_in: torch.Tensor,

@@ -11,8 +11,13 @@ Phases, one JSON line each:
   2. kernel: each hand-written kernel (forward and backward) against its
      plain PyTorch version on the card, at the shapes the paths give it,
      with its time, the plain version's time and the least time the card
-     could take; reparam also at the OOD chunk and an odd shape, with its
-     times at the OOD chunk and the train step; bernoulli_bwd also at
+     could take; disc_logistic and bernoulli at every path shape (x
+     broadcast over the samples at the IWAE and OOD chunks, as the paths
+     call them; the bound counts x once per image) and at odd lengths,
+     disc_logistic with two rows in its t <= 1e-3 series in each case,
+     each twice for the same bits, with their times at each path shape;
+     reparam also at the OOD chunk and an odd shape, with its times at
+     the OOD chunk and the train step; bernoulli_bwd also at
      257 rows and with dx; groupnorm_gelu and its backward
      also at shapes that take their other kernels, each twice for the
      same bits, each held to the kernel that ran;
@@ -60,6 +65,9 @@ Phases, one JSON line each:
      directions, then score=complexity; exact launch counts.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
+The likelihood forwards' launches on the paths by (rows, x rows, E) are a
+"launch_shapes" line (counted by this script's shims over the two
+wrappers).
 With --quality-gate, the reference's short gate follows: 3,000 steps of
 cifar_advprior_resnet on the synthetic set, then IWAE k=100 on 512 test
 images to bits/dim, with the active units and the wall time.
@@ -70,6 +78,7 @@ Then a {"kernels": [...]} line, the nvidia-smi line and, last, the
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import io
@@ -205,40 +214,83 @@ def nvidia_smi() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def small_t_rows(log_scale: np.ndarray) -> None:
+    """Rows 2 and 3 of a disc_logistic log_scale [rows, E] set where the
+    bin's t = e^-ls / 255 reaches the forward's t <= 1e-3 series: ls 3.4
+    to 5.5 (t 1.3e-4 down to 1.6e-5) and 1.2 to 1.5 (t 1.18e-3 down to
+    8.8e-4, across the branch's edge)."""
+    log_scale[2] = np.linspace(3.4, 5.5, log_scale.shape[1])
+    log_scale[3] = np.linspace(1.2, 1.5, log_scale.shape[1])
+
+
 def kernel_checks(K, card: str, dev) -> dict:
     rng = np.random.default_rng(SEED)
     results = {}
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
 
-    # disc_logistic at the IWAE chunk's [chunk*B, H*W*C] = [1600, 3072]
+    # disc_logistic at the IWAE chunk: mean and log_scale [chunk*B, H*W*C]
+    # = [1600, 3072] beside the batch's x [64, 3072] (row r reads image
+    # r % 64, as the path calls it)
     rows, event = 25 * BATCH, 3072
     x = rng.integers(0, 256, size=(rows, event)) / 255.0
     x[0, :256] = np.arange(256) / 255.0          # every level, edges too
     mean = rng.uniform(-0.2, 1.2, size=(rows, event))
     ls = rng.uniform(-7.0, 0.0, size=(rows, event))
     ls[1] = -7.0                                  # the decoder's floor
-    x, mean, ls = (cuda(a.astype(np.float32)) for a in (x, mean, ls))
-    got = K.disc_logistic_cuda(x, mean, ls)
-    want = K.disc_logistic_plain(x, mean, ls)
-    err = float((got - want).abs().max())
-    # f32 sums of 3072 terms in another order, plus an ulp or two per
-    # transcendental: 1e-2 + 1e-5 x |sum|
-    tol = 1e-2 + 1e-5 * float(want.abs().max())
-    check(err <= tol, f"disc_logistic: max |kernel - plain| {err} > {tol}")
-    # a row length that is not a multiple of 4 takes the scalar tail
-    xo, mo, so = (cuda(rng.uniform(lo, hi, size=(7, 3073)).astype(np.float32))
+    small_t_rows(ls)
+    x, mean, ls = (cuda(a.astype(np.float32)) for a in (x[:BATCH], mean, ls))
+    # a row length that is not a multiple of 4 takes the scalar loop
+    xo, mo, so = (rng.uniform(lo, hi, size=(7, 3073)).astype(np.float32)
                   for lo, hi in ((0, 1), (-0.2, 1.2), (-7, 0)))
+    small_t_rows(so)
+    xo, mo, so = map(cuda, (xo, mo, so))
     xo = torch.round(xo * 255) / 255
-    err_tail = float((K.disc_logistic_cuda(xo, mo, so)
-                      - K.disc_logistic_plain(xo, mo, so)).abs().max())
-    check(err_tail <= tol, f"disc_logistic tail: {err_tail} > {tol}")
+    # the OOD chunk [3200, 3072] beside x [64, 3072], the CIFAR train step
+    # [256, 3072] with x unbroadcast, and the odd length with x broadcast
+    # (S = 3), from a generator of their own (rng's later draws stay)
+    rng_d = np.random.default_rng(SEED + 35)
+
+    def disc_inputs(r, b, ev):
+        xd = rng_d.integers(0, 256, size=(b, ev)) / 255.0
+        xd[0, :256] = np.arange(256) / 255.0
+        md = rng_d.uniform(-0.2, 1.2, size=(r, ev))
+        sd = rng_d.uniform(-7.0, 0.0, size=(r, ev))
+        sd[1] = -7.0
+        small_t_rows(sd)
+        return tuple(cuda(v.astype(np.float32)) for v in (xd, md, sd))
+
+    cases = {"iwae_chunk": (x, mean, ls), "odd_length": (xo, mo, so),
+             "ood_chunk": disc_inputs(50 * BATCH, BATCH, event),
+             "train": disc_inputs(256, 256, event),
+             "odd_length_broadcast": disc_inputs(21, 7, 3073)}
+    at = {}
+    for tag, (xc, mc, sc) in cases.items():
+        got = K.disc_logistic_cuda(xc, mc, sc)
+        want = K.disc_logistic_plain(xc, mc, sc)
+        err = float((got - want).abs().max())
+        # f32 sums of 3072 terms in another order, plus an ulp or two per
+        # transcendental: 1e-2 + 1e-5 x |sum|
+        tol = 1e-2 + 1e-5 * float(want.abs().max())
+        check(err <= tol, f"disc_logistic {tag}: max |kernel - plain| {err} "
+              f"> {tol}")
+        check(torch.equal(got, K.disc_logistic_cuda(xc, mc, sc)),
+              f"disc_logistic {tag}: a second call gave other bits")
+        r_, e_ = mc.shape
+        at[tag] = {"shape": [r_, e_], "x_rows": xc.shape[0],
+                   "max_abs_err": err, "tol": tol,
+                   "max_abs_err_small_t": float(
+                       (got - want)[2:4].abs().max()),
+                   # mean and log_scale read once, x once per image
+                   **bound("disc_logistic", card,
+                           4 * (2 * r_ * e_ + xc.numel() + r_), r_ * e_)}
+        if e_ == event:
+            at[tag]["ms"] = cuda_ms(lambda: K.disc_logistic_cuda(xc, mc, sc),
+                                    200)
     results["disc_logistic"] = {
-        "shape": [rows, event], "max_abs_err": err, "tol": tol,
-        "max_abs_err_odd_length": err_tail,
-        "ms": cuda_ms(lambda: K.disc_logistic_cuda(x, mean, ls), 200),
+        **at["iwae_chunk"],
+        "max_abs_err_odd_length": at["odd_length"]["max_abs_err"],
         "plain_ms": cuda_ms(lambda: K.disc_logistic_plain(x, mean, ls), 20),
-        **bound("disc_logistic", card, 4 * (3 * rows * event + rows),
-                rows * event)}
+        "at": at}
 
     # kl at the scorer's [B, Z] = [64, 128]
     m = cuda(rng.normal(size=(BATCH, 128)).astype(np.float32))
@@ -338,8 +390,10 @@ def ulp_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
-    """The MNIST training path's kernels: bernoulli at the IWAE chunk, the
-    train step and an odd row length, and the three backward kernels held
+    """The MNIST training path's kernels: bernoulli at the IWAE chunk (x
+    broadcast over the samples), the train step and odd row lengths (x
+    broadcast and not), each twice for the same bits, and the three
+    backward kernels held
     to their plain formulas elementwise at 1e-6·(1 + |ref|): the same f32
     operations, libm ulps apart."""
     results = {}
@@ -351,30 +405,45 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
         logits[0, :3] = (0.0, 60.0, -60.0)       # softplus' far branches
         return cuda(x), cuda(logits)
 
-    errs, tols = {}, {}
-    for tag, (rows, ev) in (("iwae", (50 * BATCH, event)),
-                            ("train", (tb, event)), ("odd", (7, event + 1))):
+    # the MNIST IWAE chunk: logits [50*B, 784] beside the batch's x [64,
+    # 784], as the path calls it; the train step [256, 784] and an odd row
+    # length with x unbroadcast
+    cases = {}
+    for tag, (rows, ev) in (("iwae_chunk", (50 * BATCH, event)),
+                            ("train", (tb, event)),
+                            ("odd_length", (7, event + 1))):
         x, logits = bern_inputs(rows, ev)
+        cases[tag] = (x[:BATCH] if tag == "iwae_chunk" else x, logits)
+    xt, lt = cases["train"]
+    # the odd length with x broadcast (S = 3), from a generator of its own
+    rng_o = np.random.default_rng(SEED + 36)
+    cases["odd_length_broadcast"] = (
+        cuda((rng_o.random((7, event + 1)) < 0.2).astype(np.float32)),
+        cuda((3.0 * rng_o.normal(size=(21, event + 1))).astype(np.float32)))
+    at = {}
+    for tag, (x, logits) in cases.items():
         got, want = K.bernoulli_cuda(x, logits), K.bernoulli_plain(x, logits)
-        errs[tag] = float((got - want).abs().max())
+        err = float((got - want).abs().max())
         # f32 sums of 784 terms in another order
-        tols[tag] = 1e-4 + 1e-6 * float(want.abs().max())
-        check(errs[tag] <= tols[tag], f"bernoulli {tag}: max |kernel - "
-              f"plain| {errs[tag]} > {tols[tag]}")
-        if tag == "iwae":
-            xi, li = x, logits
-        elif tag == "train":
-            xt, lt = x, logits
-    rows = 50 * BATCH
+        tol = 1e-4 + 1e-6 * float(want.abs().max())
+        check(err <= tol, f"bernoulli {tag}: max |kernel - plain| {err} > "
+              f"{tol}")
+        check(torch.equal(got, K.bernoulli_cuda(x, logits)),
+              f"bernoulli {tag}: a second call gave other bits")
+        r_, e_ = logits.shape
+        at[tag] = {"shape": [r_, e_], "x_rows": x.shape[0],
+                   "max_abs_err": err, "tol": tol,
+                   # the logits read once, x once per image
+                   **bound("bernoulli", card, 4 * (r_ * e_ + x.numel() + r_),
+                           r_ * e_)}
+        if e_ == event:
+            at[tag]["ms"] = cuda_ms(lambda: K.bernoulli_cuda(x, logits), 500)
+    xi, li = cases["iwae_chunk"]
     results["bernoulli"] = {
-        "shape": [rows, event], "max_abs_err": errs["iwae"],
-        "tol": tols["iwae"], "max_abs_err_train": errs["train"],
-        "max_abs_err_odd_length": errs["odd"],
-        "ms": cuda_ms(lambda: K.bernoulli_cuda(xi, li), 500),
+        **at["iwae_chunk"], "max_abs_err_train": at["train"]["max_abs_err"],
+        "max_abs_err_odd_length": at["odd_length"]["max_abs_err"],
         "plain_ms": cuda_ms(lambda: K.bernoulli_plain(xi, li), 50),
-        "ms_train_shape": cuda_ms(lambda: K.bernoulli_cuda(xt, lt), 500),
-        **bound("bernoulli", card, 4 * (2 * rows * event + rows),
-                rows * event)}
+        "ms_train_shape": at["train"]["ms"], "at": at}
 
     # bernoulli_bwd at the train step, without dx as the path asks; with dx
     # on the odd length (the scalar loop)
@@ -779,6 +848,44 @@ def conv_kernel_checks(K, card: str, rng, dev) -> dict:
 # phases 3-4 and 6-7: the scorer and IWAE k=1000 on one batch
 # ---------------------------------------------------------------------------
 
+# the likelihood forwards' launches on the paths by (name, (rows, x rows,
+# E)): those since the last reset, and their sum over the paths read
+SHAPES_NOW: collections.Counter = collections.Counter()
+PATH_SHAPES: collections.Counter = collections.Counter()
+
+
+def count_shapes(K) -> None:
+    """From here on, count each launch of the two likelihood forwards by
+    shape into SHAPES_NOW, which ``K.reset_launches`` clears with the
+    launch counts: shims over the wrappers, in this script only (the
+    wrappers count launches, not shapes)."""
+    reset = K.reset_launches
+
+    def reset_both():
+        reset()
+        SHAPES_NOW.clear()
+
+    def shim(name, wrapper):
+        def run(x, params, *rest, **kw):
+            out = wrapper(x, params, *rest, **kw)
+            if params.shape[0]:              # a launch (no rows: none)
+                SHAPES_NOW[(name, (params.shape[0], x.shape[0],
+                                   params.shape[1]))] += 1
+            return out
+        return run
+
+    K.reset_launches = reset_both
+    K.bernoulli_cuda = shim("bernoulli", K.bernoulli_cuda)
+    K.disc_logistic_cuda = shim("disc_logistic", K.disc_logistic_cuda)
+
+
+def path_counts(K) -> dict:
+    """The launch counts of the path just run (zeroed just before it), its
+    likelihood launches by shape added to PATH_SHAPES."""
+    PATH_SHAPES.update(SHAPES_NOW)
+    return dict(K.launches)
+
+
 def expected(K, **counts) -> dict:
     """A full launch-count dict: the named kernels at their counts, the
     rest at 0."""
@@ -824,7 +931,7 @@ def scorer_phase(phase, cfg, model, d, x, dev):
     K.reset_launches()
     elbo = scorer(x, generator=gen(SEED))
     torch.cuda.synchronize()
-    launches = dict(K.launches)
+    launches = path_counts(K)
     recon = "bernoulli" if cfg.model.likelihood == "bernoulli" \
         else "disc_logistic"
     check(launches == expected(K, reparam=1, kl=1, **{recon: 1}),
@@ -869,7 +976,7 @@ def iwae_phase(phase, cfg, model, d, images, elbo_np, chunk_want, dev):
                        device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = path_counts(K)
     recon = "bernoulli" if cfg.model.likelihood == "bernoulli" \
         else "disc_logistic"
     check(launches == expected(K, reparam=k // chunk, **{recon: k // chunk}),
@@ -1004,7 +1111,7 @@ def train_phase(dev, tmp: str):
     t0 = time.perf_counter()
     state = run_train(cfg, arrays, dev)
     wall_checked = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = path_counts(K)
     per_step = {"reparam": 1, "kl": 1, "bernoulli": 1, "reparam_bwd": 1,
                 "kl_bwd": 1, "bernoulli_bwd": 1}
     check(launches == expected(K, **{n: TRAIN_STEPS * c
@@ -1119,7 +1226,7 @@ def cifar_train_phase(dev, tmp: str):
         state = train_loop(cfg, max_steps=half, resume=True, device=dev)
         torch.cuda.synchronize()
         wall_second = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = path_counts(K)
     per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1, "reparam_bwd": 1,
                 "kl_bwd": 1, "disc_logistic_bwd": 1}
     per_valid = {"reparam": 1, "kl": 1, "disc_logistic": 1}
@@ -1204,7 +1311,7 @@ def cifar_ckpt_phase(cfg, state, tmp: str, dev):
     K.reset_launches()
     elbo = scorer(x, generator=gen(SEED))
     torch.cuda.synchronize()
-    launches = dict(K.launches)
+    launches = path_counts(K)
     check(launches == expected(K, reparam=1, kl=1, disc_logistic=1),
           f"cifar_ckpt scorer launches {launches}")
     check(bool(torch.isfinite(elbo).all()) and torch.equal(elbo, elbo_mem),
@@ -1244,7 +1351,7 @@ def groupnorm_phase(dev) -> dict:
         y = groupnorm_gelu(xr, gr, br, 8)
         outs.append((y.detach(), torch.autograd.grad(y, (xr, gr, br), dy)))
     torch.cuda.synchronize()
-    launches = dict(K.launches)
+    launches = path_counts(K)
     fwd_kernels = dict(K.groupnorm_gelu_routes)
     bwd_kernels = dict(K.groupnorm_gelu_bwd_routes)
     check(launches == expected(K, groupnorm_gelu=len(cases),
@@ -1298,7 +1405,7 @@ def conv_phase(dev) -> dict:
     records = conv_probe.run(device=dev, seed=SEED, **PROBE_BENCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = path_counts(K)
     per_run = 1 + PROBE_BENCH["n_iter"] * (
         1 + PROBE_BENCH["windows"] * PROBE_BENCH["reps"])
     check(launches == expected(K, conv3x3=per_run * 2 * len(
@@ -1337,7 +1444,7 @@ def sample_phase(tmp: str, dev) -> dict:
                         device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = path_counts(K)
     check(launches == expected(K), f"sample launches {launches} (SIR, MALA, "
           "decoding and the feature net launch no port kernel)")
     diag = next(json.loads(line)["sampler_diagnostics"]
@@ -1373,7 +1480,7 @@ def sample_phase(tmp: str, dev) -> dict:
                             seed=SEED, device=dev)
     torch.cuda.synchronize()
     wall_gmm = time.perf_counter() - t0
-    gmm_launches = dict(K.launches)
+    gmm_launches = path_counts(K)
     check(gmm_launches == expected(K, reparam=1),
           f"sample expost_gmm launches {gmm_launches} (one reparam: the "
           "posterior draws of the fit)")
@@ -1432,7 +1539,7 @@ def ood_phase(tmp: str, dev) -> dict:
         wall = time.perf_counter() - t0
     finally:
         ood_mod.ood_scores = scores_fn
-    launches = dict(K.launches)
+    launches = path_counts(K)
     n_calls = 2 * 2 * 2             # directions x datasets x (p*, N(0, I))
     check(launches == expected(K, reparam=n_calls * per_call,
                                disc_logistic=n_calls * per_call),
@@ -1454,7 +1561,7 @@ def ood_phase(tmp: str, dev) -> dict:
     cres = ood_score("ood_suite", overrides=over + ["ood.score=complexity"],
                      seed=SEED, device=dev)
     wall_c = time.perf_counter() - t0
-    c_launches = dict(K.launches)
+    c_launches = path_counts(K)
     check(c_launches == expected(K, reparam=2 * per_call,
                                  disc_logistic=2 * per_call),
           f"ood complexity launches {c_launches}")
@@ -1574,6 +1681,7 @@ def main(argv: list[str]) -> int:
         emit("kernel", name=name, **{"library_ms": None, **r})
 
     # 3-4. scorer and IWAE of the CIFAR flagship at full width
+    count_shapes(K)
     cfg = get_preset("cifar_advprior_resnet")
     model = build_model(cfg.model, device=dev, seed=SEED)
     d = make_latent_d(cfg.adversarial, cfg.model.z_dim, device=dev,
@@ -1634,6 +1742,9 @@ def main(argv: list[str]) -> int:
              for n in K.launches}
     for name, n in total.items():
         check(n > 0, f"{name} was not launched on the main paths")
+    emit("launch_shapes", shapes=[
+        {"name": name, "rows": r, "x_rows": b, "event": e, "launches": n}
+        for (name, (r, b, e)), n in sorted(PATH_SHAPES.items())])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],

@@ -1,6 +1,6 @@
 """Two builds of the port's kernels, timed side by side on one CUDA card.
 
-    python3 kernel_ab.py --parent DIR [--sass OUT]
+    python3 kernel_ab.py --parent DIR [--sass OUT] [--host]
 
 DIR is another checkout of this repository (for example ``git archive``
 of an earlier commit, unpacked into a directory that ``.gitignore``
@@ -27,6 +27,14 @@ change, change, parent; per run (``ITERS`` launches):
   interleaves each launch with a one-element ``neg_`` whose device time
   is the window's ``floor_us`` (the least a launch costs the card).
 
+With ``--host``: the two likelihood ops as the paths call them, through
+each checkout's own wrappers (``apv_tpu_torch.ops``, its autograd
+rules, ``ops/kernels.py`` and the launch), host µs a call over
+back-to-back calls (``"kind": "host"``), each checkout in a process of
+its own (``python3 -P`` with that checkout on ``PYTHONPATH``), in the
+order parent, change, change, parent. The parent's IWAE-chunk call
+expands x to the parameters' rows first, as its paths did.
+
 With ``--sass OUT``: ``nvcc -Xptxas -v`` and ``cuobjdump -sass`` of both
 builds of the rows' sources, written to OUT, with a summary line per
 kernel function (registers, spills, instruction count, stores by width,
@@ -42,10 +50,12 @@ import ctypes
 import functools
 import importlib.util
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -194,6 +204,61 @@ def bernoulli_bwd_call(lib: ctypes.CDLL, dev: torch.device) -> Call:
                 lambda: K.bernoulli_bwd_plain(g, x, logits)[1:])
 
 
+LIK_EVENT = {"disc_logistic": 3072, "bernoulli": 784}   # CIFAR, MNIST pixels
+
+
+def _x_args(fn, x: torch.Tensor, like: torch.Tensor, n_new: int):
+    """x and the trailing x_rows argument for a likelihood entry point:
+    x [B, E] and B where the build's entry point takes ``x_rows`` (``n_new``
+    parameters), else x repeated to ``like``'s rows, made once here (the
+    parent's signature: the copy the path made before the kernel)."""
+    if len(fn.argtypes) == n_new:
+        return x, [x.shape[0]]
+    return K.expand_rows(x, like).contiguous(), []
+
+
+def disc_logistic_call(rows: int, x_rows: int, lib: ctypes.CDLL,
+                       dev: torch.device) -> Call:
+    """``apv_disc_logistic`` on mean, log_scale [rows, 3072] beside x
+    [x_rows, 3072]: every level and both edges, the -7 floor, and two rows
+    whose bins reach the t <= 1e-3 series (as chip_smoke.py sets them)."""
+    rng = np.random.default_rng(3)
+    event = LIK_EVENT["disc_logistic"]
+    x = rng.integers(0, 256, size=(x_rows, event)) / 255.0
+    x[0, :256] = np.arange(256) / 255.0
+    mean = rng.uniform(-0.2, 1.2, size=(rows, event))
+    ls = rng.uniform(-7.0, 0.0, size=(rows, event))
+    ls[1] = -7.0
+    ls[2] = np.linspace(3.4, 5.5, event)     # t 1.3e-4 down to 1.6e-5
+    ls[3] = np.linspace(1.2, 1.5, event)     # t across 1e-3
+    x, mean, ls = (torch.from_numpy(v.astype(np.float32)).to(dev)
+                   for v in (x, mean, ls))
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    fn = lib.apv_disc_logistic
+    xk, extra = _x_args(fn, x, mean, 9)
+    args = [xk.data_ptr(), mean.data_ptr(), ls.data_ptr(), out.data_ptr(),
+            rows, event, *extra, 1.0 / 255.0]
+    return Call(lambda: _ok(fn(*args, _stream())), (out,),
+                lambda: (K.disc_logistic_plain(x, mean, ls),))
+
+
+def bernoulli_call(rows: int, x_rows: int, lib: ctypes.CDLL,
+                   dev: torch.device) -> Call:
+    """``apv_bernoulli`` on logits [rows, 784] beside x [x_rows, 784]."""
+    rng = np.random.default_rng(4)
+    event = LIK_EVENT["bernoulli"]
+    x = torch.from_numpy((rng.random((x_rows, event)) < 0.2).astype(
+        np.float32)).to(dev)
+    logits = _seeded(rng, (rows, event), 3.0, dev=dev)
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    fn = lib.apv_bernoulli
+    xk, extra = _x_args(fn, x, logits, 7)
+    args = [xk.data_ptr(), logits.data_ptr(), out.data_ptr(), rows, event,
+            *extra]
+    return Call(lambda: _ok(fn(*args, _stream())), (out,),
+                lambda: (K.bernoulli_plain(x, logits),))
+
+
 # ---------------------------------------------------------------------------
 # agreement checks: check(got, want) -> fields, with "ok"; got maps each
 # version to its outputs, want is the plain version's
@@ -255,9 +320,23 @@ def gn_backward_bars(dtype: torch.dtype):
     return check
 
 
+def sum_bars(abs_tol: float, rel_tol: float):
+    """Per-row sums within abs_tol + rel_tol·max |plain| of the plain
+    version, as chip_smoke.py holds them (another summation order, and
+    for disc_logistic approximate intrinsics); the parent's error beside."""
+    def check(got: dict, want: tuple) -> dict:
+        tol = abs_tol + rel_tol * float(want[0].abs().max())
+        err = {v: float((out[0] - want[0]).abs().max())
+               for v, out in got.items()}
+        return {"max_abs_err_vs_plain": err["change"],
+                "parent_max_abs_err_vs_plain": err["parent"], "tol": tol,
+                "ok": err["change"] <= tol}
+    return check
+
+
 class Case(NamedTuple):
     kernel: str
-    shape: tuple
+    shape: tuple                       # the likelihoods': (rows, x rows, E)
     dtype: torch.dtype
     source: str                        # under apv_tpu_torch/ops/csrc
     make: Callable[[ctypes.CDLL, torch.device], Call]
@@ -289,6 +368,18 @@ CASES = (
     Case("bernoulli_bwd", BERN_SHAPE, torch.float32, "bernoulli.cu",
          bernoulli_bwd_call, parents_bits(1e-6),
          (("bernoulli_bwd_rows", "bernoulli_bwd_elems"), ())),
+    # (rows, x rows): the OOD and IWAE chunks (x broadcast over 50 and 25
+    # samples), the CIFAR train step
+    *(Case("disc_logistic", (rows, x_rows, 3072), torch.float32,
+           "disc_logistic.cu",
+           functools.partial(disc_logistic_call, rows, x_rows),
+           sum_bars(1e-2, 1e-5), (("disc_logistic_rows",), ()))
+      for rows, x_rows in ((3200, 64), (1600, 64), (256, 256))),
+    # the MNIST train step, the MNIST IWAE chunk (x over 50 samples)
+    *(Case("bernoulli", (rows, x_rows, 784), torch.float32, "bernoulli.cu",
+           functools.partial(bernoulli_call, rows, x_rows),
+           sum_bars(1e-4, 1e-6), (("bernoulli_rows",), ()))
+      for rows, x_rows in ((256, 256), (3200, 64))),
 )
 
 
@@ -378,6 +469,22 @@ def measure(case: Case, libs: dict, dev: torch.device) -> None:
              dtype=_dtype(case), version=version, **means, runs=rs)
 
 
+def measure_copy(case: Case, dev: torch.device) -> None:
+    """The copy of x that the parent's paths made before a broadcast
+    likelihood launch: x [B, E] expanded to the parameters' [R, E] and
+    reshaped (one copy kernel a chunk), µs a call, call and queued."""
+    rows, x_rows, event = case.shape
+    x = torch.rand((x_rows, event), device=dev)
+
+    def copy():
+        x.unsqueeze(0).expand(rows // x_rows, x_rows, event).reshape(
+            rows, event)
+
+    emit("copy", kernel=case.kernel, shape=list(case.shape),
+         call_us=call_us(copy), queued_us=queued_us(copy),
+         bytes=4 * (x_rows + rows) * event)
+
+
 def agree(case: Case, libs: dict, dev: torch.device) -> bool:
     """Each build once, the change twice; the case's check against the
     plain version. Emits one line; returns its ``ok``."""
@@ -423,7 +530,7 @@ def summarize_listing(ptxas: str, sass: str) -> list[dict]:
                          body)
         count = collections.Counter(ops)
         rows.append({"function": fn, **regs.get(fn, {}),
-                     "instructions": len(ops),
+                     "instructions": len(ops), "loops": sass_loops(body),
                      "stores": {k: v for k, v in count.items()
                                 if k.startswith("STG")},
                      "loads": {k: v for k, v in count.items()
@@ -436,6 +543,41 @@ def summarize_listing(ptxas: str, sass: str) -> list[dict]:
                          r"CALL\S*\s+`?\(?\$?\S*cuda_sm\d+_(?:div|rem)_[su]64",
                          body))})
     return rows
+
+
+def sass_loops(body: str) -> list[int]:
+    """The instruction count of each loop of one function's SASS listing:
+    a branch back to an earlier address (``BRA 0x1c0`` or a ``.L_x_n``
+    label) closes a loop of (branch - target) / 16 + 1 instructions (SASS
+    instructions are 16 bytes on sm_90); the branch to itself that pads a
+    function's end is none. Sorted, shortest first."""
+    labels, pending, loops = {}, [], []
+    branches = []
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        inst = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][\w.]*)(.*)", line)
+        if not inst:
+            continue
+        addr = int(inst.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        if inst.group(2).startswith("BRA"):
+            target = re.search(r"`?\(?(\.L_x_\d+)\)?|0x([0-9a-f]+)",
+                               inst.group(3))
+            if target:
+                branches.append((addr, target.group(1),
+                                 int(target.group(2), 16)
+                                 if target.group(2) else None))
+    for addr, label, hexaddr in branches:
+        dest = labels.get(label) if label else hexaddr
+        if dest is not None and dest < addr:
+            loops.append((addr - dest) // 16 + 1)
+    return sorted(loops)
 
 
 def sass_report(csrc: Path, version: str, out: Path) -> None:
@@ -461,6 +603,83 @@ def sass_report(csrc: Path, version: str, out: Path) -> None:
             emit("sass", version=version, source=src, **row)
 
 
+def host_us(fn, iters: int = 1000) -> float:
+    """Wall µs a call over back-to-back calls, the card drained at the
+    end: the host's pace where each call's kernels take less."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / iters
+
+
+def host_child(version: str, lib_dir: Path) -> None:
+    """The ``--host`` timings of the checkout this process imported
+    ``apv_tpu_torch`` from, its kernels built into ``lib_dir``: the train
+    steps' calls (x at the parameters' rows, forward and forward with
+    backward) and the IWAE chunk's (mean, log_scale [25·64, ...] beside
+    the batch's x [64, ...])."""
+    import inspect
+    from apv_tpu_torch import ops
+    _build.library = functools.cache(
+        lambda: _build.load(_build.build(_build.CSRC, lib_dir)))
+    rng = np.random.default_rng(5)
+
+    def dev(a, grad=False):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda() \
+            .requires_grad_(grad)
+
+    mnist, cifar, chunk = (256, 28, 28, 1), (256, 32, 32, 3), 25
+    xb = dev(rng.random(mnist) < 0.2)
+    lb = [dev(3.0 * rng.normal(size=mnist), g) for g in (False, True)]
+    xd = dev(rng.integers(0, 256, size=cifar) / 255.0)
+    md, sd = ([dev(rng.uniform(lo, hi, size=cifar), g) for g in (False, True)]
+              for lo, hi in ((-0.2, 1.2), (-7.0, 0.0)))
+    xc = xd[:64]
+    mc, sc = (dev(rng.uniform(lo, hi, size=(chunk * 64, *cifar[1:])))
+              for lo, hi in ((-0.2, 1.2), (-7.0, 0.0)))
+    broadcast = "samples" in inspect.signature(
+        ops.disc_logistic_recon_ll).parameters
+
+    def iwae_chunk():
+        if broadcast:
+            return ops.disc_logistic_recon_ll(xc, mc, sc, samples=chunk)
+        return ops.disc_logistic_recon_ll(
+            xc.unsqueeze(0).expand(chunk, *xc.shape).reshape(mc.shape),
+            mc, sc)
+
+    cases = {
+        "bernoulli [256,784] forward":
+            lambda: ops.bernoulli_recon_ll(xb, lb[0]),
+        "bernoulli [256,784] forward+backward":
+            lambda: ops.bernoulli_recon_ll(xb, lb[1]).sum().backward(),
+        "disc_logistic [256,3072] forward":
+            lambda: ops.disc_logistic_recon_ll(xd, md[0], sd[0]),
+        "disc_logistic [256,3072] forward+backward":
+            lambda: ops.disc_logistic_recon_ll(xd, md[1],
+                                               sd[1]).sum().backward(),
+        "disc_logistic [1600,3072] x [64,3072] forward": iwae_chunk,
+    }
+    for case, fn in cases.items():
+        emit("host", version=version, case=case, us=host_us(fn))
+
+
+def host_compare(parent: Path) -> None:
+    """``host_child`` of the parent and of this checkout, each in a
+    process of its own, parent, change, change, parent."""
+    roots = {"parent": (parent, _build.BUILD_DIR / "parent"),
+             "change": (Path(__file__).resolve().parent, _build.BUILD_DIR)}
+    for version in ("parent", "change", "change", "parent"):
+        root, lib_dir = roots[version]
+        subprocess.run([sys.executable, "-P", str(Path(__file__).resolve()),
+                        "--host-child", version, str(lib_dir)],
+                       cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                       check=True)
+
+
 def parent_signatures(parent: Path) -> dict:
     """The C signatures of another checkout's kernels, from that
     checkout's own ``apv_tpu_torch/ops/_build.py`` (``SIGNATURES``)."""
@@ -473,15 +692,25 @@ def parent_signatures(parent: Path) -> dict:
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, required=True,
+    ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout of this repository")
     ap.add_argument("--sass", type=Path, default=None,
                     help="write ptxas and SASS listings of both builds here")
+    ap.add_argument("--host", action="store_true",
+                    help="also time the likelihood ops' wrappers of both "
+                         "checkouts, host µs a call")
+    ap.add_argument("--host-child", nargs=2, metavar=("VERSION", "LIB_DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; this comparison runs on the card",
               file=sys.stderr)
         return 1
+    if args.host_child:
+        host_child(args.host_child[0], Path(args.host_child[1]))
+        return 0
+    if args.parent is None:
+        ap.error("--parent is required")
     parent = args.parent.resolve()
     parent_csrc = parent / "apv_tpu_torch" / "ops" / "csrc"
     emit("device", nvidia_smi=nvidia_smi(), torch=torch.__version__,
@@ -500,6 +729,10 @@ def main(argv: list[str]) -> int:
         for case in CASES:
             if case.timed:
                 measure(case, libs, dev)
+            if case.kernel in LIK_EVENT and case.shape[1] < case.shape[0]:
+                measure_copy(case, dev)
+    if args.host:
+        host_compare(parent)
     return 0 if all(ok) else 1
 
 if __name__ == "__main__":

@@ -99,6 +99,30 @@ def test_summarize_listing_reads_registers_and_opcodes():
     assert (slow["calls"], slow["mufu"]) == (0, 0)
 
 
+LOOPS = """\
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0020*/                   FADD R3, R3, R2 ;
+        /*0030*/               @P0 BRA `(.L_x_0) ;
+        /*0040*/                   BRA `(.L_x_1) ;
+        /*0050*/                   NOP ;
+.L_x_1:
+        /*0060*/                   ISETP.GE.AND P1, PT, R4, 0x10, PT ;
+        /*0070*/              @!P1 BRA 0x0 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   BRA 0x90 ;
+"""
+
+
+def test_sass_loops_counts_each_backward_branch():
+    """A branch back to a label or an address closes a loop; a forward
+    branch and the padding branch to itself do not."""
+    assert kernel_ab.sass_loops(LOOPS) == [3, 8]
+    rows = kernel_ab.summarize_listing("", "\t\tFunction : k\n" + LOOPS)
+    assert rows[0]["loops"] == [3, 8]
+
+
 def test_digest_follows_the_sources(tmp_path):
     copy = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, copy)
