@@ -7,17 +7,22 @@ result next to the run. Eval-side entry points adopt the checkpoint's saved
 ``config.json``: its model, adversarial and data sections (preprocessing
 must match training), then re-apply the caller's overrides.
 
+A checkpoint with a trained prior (``model.prior='flow'`` or
+``'gaussian'``) samples and scores under it: ``sample``'s 'auto' prior is
+the flow's exact inverse, or SIR over the Gaussian base with its D, at
+``temperature``; ``ood_score`` scores under the checkpoint's own prior
+through ``evaluate_nll``.
+
 Not ported: ``train``/``evaluate``/``visualize``/``export_artifact``/
 ``info`` and the CLI (ROADMAP queue A item 14; ``train_loop`` and
-``evaluate_nll`` are the port's training and scoring entry points), the
-``expost_flow`` prior, the trained priors and with them ``sample``'s
-``temperature`` and ``flow_steps`` (queue A item 12).
+``evaluate_nll`` are the port's training and scoring entry points).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from pathlib import Path
 
 import torch
@@ -91,10 +96,12 @@ def _d(state, cfg: Config):
 
 
 def _expost_prior(cfg: Config, model, prior: str, *, gmm_k: int = 10,
-                  seed: int = 0, device=None):
+                  flow_steps: int = 2000, seed: int = 0, device=None):
     """Fit the requested ex-post prior on the first 2,048 test images,
     preprocessed as training saw them: ``(mean, var)`` for 'expost',
-    ``(log_w, means, vars)`` for 'expost_gmm', None for the model's own
+    ``(log_w, means, vars)`` for 'expost_gmm', a flow params dict for
+    'expost_flow' (``flow_steps`` fit steps; prints the fit's final NLL and
+    its wall time, posterior draws included), None for the model's own
     priors."""
     if prior not in ("expost", "expost_gmm", "expost_flow"):
         return None
@@ -104,14 +111,20 @@ def _expost_prior(cfg: Config, model, prior: str, *, gmm_k: int = 10,
                                             expost_prior_moments,
                                             seed_generators)
 
-    if prior == "expost_flow":
-        expost_prior_flow()                      # raises: not ported
     dev = resolve_device(device)
     images = eval_arrays(cfg, None, max_examples=2048)["image"]
     x_in = torch.from_numpy(_prep_eval_batch(cfg, images)[0]).to(dev)
     if prior == "expost":
         return expost_prior_moments(model, x_in)
     (gen,) = seed_generators(seed, 1, dev)
+    if prior == "expost_flow":
+        t0 = time.perf_counter()
+        flow = expost_prior_flow(model, x_in, steps=flow_steps,
+                                 generator=gen)
+        nll = float(flow["flow_nll"])          # waits for the fit
+        print(json.dumps({"expost_flow_fit_nll": nll,
+                          "expost_flow_fit_s": time.perf_counter() - t0}))
+        return flow
     return expost_prior_gmm(model, x_in, k=gmm_k, generator=gen)
 
 
@@ -121,18 +134,25 @@ def sample(config: str | Config = "mnist_vae", *,
            mode: str = "mean", seed: int = 0,
            out_path: str | None = None, quality_n: int = 0,
            refine: int = 0, prior: str = "auto", gmm_k: int = 10,
+           flow_steps: int = 2000, temperature: float = 1.0,
            device=None) -> torch.Tensor:
     """Decode n prior samples of a trained checkpoint; writes a PNG grid
     and returns the images [n, H, W, C] in [0, 1].
 
-    ``prior``: 'auto' draws from the model's own prior (SIR from the
-    adversarially shaped prior when a D exists, else N(0, I)); 'standard'
-    forces N(0, I); 'expost' fits a diagonal Gaussian to the aggregate
-    posterior over the test split, 'expost_gmm' a ``gmm_k``-component
-    diagonal GMM. ``refine > 0`` runs that many MALA steps after SIR and
-    prints the sampler diagnostics (SIR ESS, MALA acceptance).
-    ``quality_n > 0`` also computes the sample-quality distances over that
-    many samples and writes ``sample_quality.json``.
+    ``prior``: 'auto' draws from the model's own prior (the trained flow's
+    exact inverse; SIR from the adversarially shaped prior when a D exists,
+    over the trained Gaussian base where there is one; else N(0, I) or the
+    base); 'standard' forces N(0, I); 'expost' fits a diagonal Gaussian to
+    the aggregate posterior over the test split, 'expost_gmm' a
+    ``gmm_k``-component diagonal GMM, 'expost_flow' a RealNVP flow
+    (``flow_steps`` fit steps). ``temperature`` T tempers a trained
+    prior's base draw to N(0, T²I) (refused on any other prior).
+    ``refine > 0`` runs that many MALA steps after SIR and prints the
+    sampler diagnostics (SIR ESS, MALA acceptance). ``quality_n > 0`` also
+    computes the sample-quality distances over that many samples and
+    writes ``sample_quality.json``. Files of a prior other than 'auto' or
+    a temperature other than 1 carry suffixes (``samples_expost_flow.png``,
+    ``samples_T0.7.png``).
     """
     from apv_tpu_torch.sampling.run import generate_samples, save_image_grid
 
@@ -145,18 +165,26 @@ def sample(config: str | Config = "mnist_vae", *,
     state = _restore_state(cfg, checkpoint_dir, device=dev)
     model = state.model
     d = _d(state, cfg) if prior == "auto" else None
-    prior_moments = _expost_prior(cfg, model, prior, gmm_k=gmm_k, seed=seed,
+    prior_moments = _expost_prior(cfg, model, prior, gmm_k=gmm_k,
+                                  flow_steps=flow_steps, seed=seed,
                                   device=dev)
+    # 'auto' on a trained-prior checkpoint is that prior: the flow's
+    # inverse (model_prior), or SIR/D over the Gaussian base (model_base)
+    model_prior = cfg.model.prior == "flow" and prior == "auto"
+    model_base = cfg.model.prior == "gaussian" and prior == "auto"
     images, diag = generate_samples(
         model, n, cfg.model.z_dim, cfg.model.likelihood,
         cfg.model.image_shape[2], d=d, seed=seed, mode=mode,
         refine_steps=refine, prior_moments=prior_moments,
-        return_diagnostics=True)
+        model_prior=model_prior, model_base=model_base,
+        temperature=temperature, return_diagnostics=True)
     if diag:
         print(json.dumps({"sampler_diagnostics": diag}))
     # Non-default priors get suffixed file names, so an A/B over them never
     # overwrites the default protocol's files.
     suffix = "" if prior == "auto" else f"_{prior}"
+    if temperature != 1.0:
+        suffix += f"_T{temperature:g}"
     path = (out_path
             or Path(cfg.results_dir) / cfg.name / f"samples{suffix}.png")
     save_image_grid(images, path)
@@ -164,7 +192,10 @@ def sample(config: str | Config = "mnist_vae", *,
         from apv_tpu_torch.eval.sample_quality import sample_quality
         metrics = sample_quality(cfg, model, d, n=quality_n, seed=seed,
                                  refine_steps=refine,
-                                 prior_moments=prior_moments, device=dev)
+                                 prior_moments=prior_moments,
+                                 model_prior=model_prior,
+                                 model_base=model_base,
+                                 temperature=temperature, device=dev)
         metrics["prior"] = prior
         _write_json(cfg, f"sample_quality{suffix}.json", metrics)
         print(json.dumps(metrics, indent=2))

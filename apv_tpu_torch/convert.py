@@ -10,7 +10,13 @@ the same for the latent discriminator. Layouts:
 * ConvTranspose kernels are flipped spatially and laid out (in, out, kh, kw),
   which makes ``F.conv_transpose2d(stride=2, padding=1)`` equal flax's
   'SAME' transposed conv;
-* norm ``scale`` becomes ``weight``.
+* norm ``scale`` becomes ``weight``;
+* the trained priors keep their layouts: ``gaussian_prior`` {mu,
+  log_sigma} -> ``prior.mu``/``prior.log_sigma``, ``flow_prior.flow``
+  {whiten, layers[i]} -> ``prior.whiten.*``/``prior.layers.i.*``.
+
+``flow_from_flax`` carries an ex-post flow dict (``apv_tpu.core.flow``'s
+tree) into the tensor dict that ``apv_tpu_torch.core.flow`` takes.
 
 Flax names submodules by class and creation order (``Conv_0``,
 ``ResBlock_3``, ...); the stage structure is recovered from those counts.
@@ -94,7 +100,37 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
     blocks; that tells the two families apart."""
     enc, dec = flax_params["encoder"], flax_params["decoder"]
     if "Dense_0" in enc:
-        return _conv_vae(enc, dec)
+        sd = _conv_vae(enc, dec)
+    else:
+        sd = _resnet_vae(enc, dec)
+    sd.update(_prior(flax_params))
+    return sd
+
+
+def _prior(flax_params) -> dict[str, torch.Tensor]:
+    """The trained prior's parameters (none for the standard prior)."""
+    sd: dict[str, torch.Tensor] = {}
+    if "gaussian_prior" in flax_params:
+        _put(sd, "prior", {k: _t(v) for k, v in
+                           flax_params["gaussian_prior"].items()})
+    if "flow_prior" in flax_params:
+        flow = flow_from_flax(flax_params["flow_prior"]["flow"])
+        _put(sd, "prior.whiten", flow["whiten"])
+        for i, layer in enumerate(flow["layers"]):
+            _put(sd, f"prior.layers.{i}", layer)
+    return sd
+
+
+def flow_from_flax(flow) -> dict:
+    """A flow params dict (numpy or JAX leaves) -> ``core/flow``'s dict of
+    float32 tensors; other keys (the ex-post fit's ``flow_nll``) are
+    dropped."""
+    return {"whiten": {k: _t(flow["whiten"][k]) for k in ("mean", "log_std")},
+            "layers": [{k: _t(v) for k, v in layer.items()}
+                       for layer in flow["layers"]]}
+
+
+def _resnet_vae(enc, dec) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
 
     # encoder: Conv_0 is the stem, Conv_1.. the stride-2 downsamples

@@ -50,6 +50,16 @@ def gaussian_kl_standard(mean: torch.Tensor,
     return 0.5 * (mean * mean + torch.exp(logvar) - 1.0 - logvar)
 
 
+def gaussian_kl(mean_q: torch.Tensor, logvar_q: torch.Tensor,
+                mean_p: torch.Tensor, logvar_p: torch.Tensor) -> torch.Tensor:
+    """Elementwise KL( N(mean_q, exp(logvar_q)) || N(mean_p, exp(logvar_p)) )."""
+    mean_q, logvar_q, mean_p, logvar_p = (
+        _f32(a) for a in (mean_q, logvar_q, mean_p, logvar_p))
+    var_ratio = torch.exp(logvar_q - logvar_p)
+    t = (mean_q - mean_p) ** 2 * torch.exp(-logvar_p)
+    return 0.5 * (var_ratio + t - 1.0 - (logvar_q - logvar_p))
+
+
 def bernoulli_logpmf(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Elementwise log Bernoulli(x; sigmoid(logits)) = x·l − softplus(l).
 

@@ -7,8 +7,10 @@ image once for all the chunk's samples) into a running
 streaming-logsumexp state, so peak memory is one chunk of decoder
 activations.
 
-With the adversarial learned prior, log p*(z) = log p0(z) + D(z) - log Z;
-``estimate_log_partition`` MC-estimates log Z = log E_{p0}[e^{D(z)}].
+The prior term is N(0, I), or the model's own trained prior
+(``prior_logpdf_p``: the flow or the Gaussian base). With the adversarial learned prior, log p*(z) =
+log p_base(z) + D(z) − log Z; ``estimate_log_partition`` MC-estimates
+log Z = log E_{p_base}[e^{D(z)}] under the same base.
 """
 
 from __future__ import annotations
@@ -36,10 +38,15 @@ def sample_posterior_chunk(mean: torch.Tensor, logvar: torch.Tensor,
 
 
 def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
-                       d_apply: Callable | None = None) -> Callable:
+                       d_apply: Callable | None = None,
+                       prior_logpdf_p: Callable | None = None) -> Callable:
     """One chunk's log importance weights [chunk, B] — the one place the
-    estimator's math lives. ``d_apply`` (``z [N, Z] -> [N]``) switches the
-    prior to the shaped p*(z) ∝ N(0, I)·e^{D(z)} (pass the matching log Z).
+    estimator's math lives.
+
+    ``prior_logpdf_p`` (``z [..., Z] -> [...]``, the model's trained flow
+    or Gaussian base) replaces the N(0, I) prior term. ``d_apply``
+    (``z [N, Z] -> [N]``) shapes the prior to p*(z) ∝ p_base(z)·e^{D(z)}
+    (pass the log Z estimated under the same base).
     """
 
     def logw_chunk(mean, logvar, x_target, log_z=0.0, *, generator=None,
@@ -53,7 +60,10 @@ def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
         # likelihood op reads row r's image as x_target[r % B], no copy
         recon = recon_log_likelihood(x_target, out, likelihood,
                                      samples=chunk).reshape(chunk, b)
-        logp0 = D.standard_gaussian_logpdf(z).sum(dim=-1)
+        if prior_logpdf_p is not None:
+            logp0 = prior_logpdf_p(z)
+        else:
+            logp0 = D.standard_gaussian_logpdf(z).sum(dim=-1)
         logq = D.gaussian_logpdf(z, mean, logvar).sum(dim=-1)
         logw = recon + logp0 - logq
         if d_apply is not None:
@@ -64,12 +74,15 @@ def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
 
 
 def make_iwae_fn(model, likelihood: str, k: int, chunk: int,
-                 d_apply: Callable | None = None) -> Callable:
-    """Build ``fn(x_in, x_target, log_z=0.0, *, generator, eps) -> [B]``.
+                 d_apply: Callable | None = None,
+                 prior_logpdf_p: Callable | None = None) -> Callable:
+    """Build ``fn(x_in, x_target, log_z=0.0, *, generator, eps) -> [B]``;
+    the priors as ``make_logw_chunk_fn``'s.
 
     ``eps`` ([k // chunk, chunk, B, Z], CPU only) injects each chunk's noise.
     """
-    logw_chunk = make_logw_chunk_fn(model.decode, likelihood, chunk, d_apply)
+    logw_chunk = make_logw_chunk_fn(model.decode, likelihood, chunk, d_apply,
+                                    prior_logpdf_p)
 
     def iwae_fn(x_in, x_target, log_z=0.0, *, generator=None, eps=None):
         mean, logvar = model.encode(x_in)          # [B, Z], once
@@ -87,9 +100,14 @@ def make_iwae_fn(model, likelihood: str, k: int, chunk: int,
 
 def estimate_log_partition(d_apply: Callable, z_dim: int, *, seed: int = 0,
                            n: int = 100_000, batch: int = 5_000,
-                           with_se: bool = False, device=None):
-    """log Z = log E_{z~N(0,I)}[e^{D(z)}], a streamed logsumexp over n
-    draws from a generator on ``device`` seeded with ``seed``.
+                           with_se: bool = False, device=None,
+                           base_from: Callable | None = None,
+                           draws: torch.Tensor | None = None):
+    """log Z = log E_{z~base}[e^{D(z)}], a streamed logsumexp over n
+    draws u ~ N(0, I) from a generator on ``device`` seeded with ``seed``
+    (``draws`` [n // batch, batch, Z] injects them). ``base_from`` (``u ->
+    z``) maps them to the shaped prior's base: the identity by default,
+    the current μ + σ·u for the trainable Gaussian base.
 
     ``with_se=True`` also returns a delete-one-chunk jackknife standard
     error over the n/batch chunks, each computed as a logsumexp over the
@@ -100,10 +118,14 @@ def estimate_log_partition(d_apply: Callable, z_dim: int, *, seed: int = 0,
         raise ValueError(f"n={n} must be divisible by batch={batch}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    chunk_lse = torch.stack([
-        torch.logsumexp(d_apply(torch.randn((batch, z_dim), generator=gen,
-                                            device=dev)), dim=0)
-        for _ in range(n // batch)])
+
+    def chunk(i):
+        u = (draws[i].to(dev) if draws is not None else
+             torch.randn((batch, z_dim), generator=gen, device=dev))
+        return torch.logsumexp(d_apply(u if base_from is None
+                                       else base_from(u)), dim=0)
+
+    chunk_lse = torch.stack([chunk(i) for i in range(n // batch)])
     log_z = torch.logsumexp(chunk_lse, dim=0) - math.log(float(n))
     if not with_se:
         return log_z

@@ -70,12 +70,15 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
                  per_sample: bool = False, device=None) -> dict:
     """Mean NLL (nats) and bits/dim of ``images_u8`` [N, H, W, C] under the
     IWAE-k estimator, batch by batch (the last partial batch is dropped, as
-    the reference's eval Batcher does).
+    the reference's eval Batcher does), under the checkpoint's own prior.
 
-    With the adversarial prior (``use_adversarial_prior``, default
-    ``cfg.adversarial.enabled``; it needs the latent D ``d``), log Z is
-    MC-estimated first (n=100k draws, jackknife SE). Batch ``i`` draws its
-    noise from a CPU generator seeded ``seed + i``.
+    A trained prior (``model.prior``) is scored exactly: the flow (with
+    log Z = 0: it excludes the adversarial D) and the Gaussian base, which
+    composes with D. With the adversarial prior (``use_adversarial_prior``,
+    default ``cfg.adversarial.enabled``; it needs the latent D ``d``), log Z
+    is MC-estimated first (n=100k draws from the base the weights use, the
+    current N(μ, σ) for the Gaussian base; jackknife SE). Batch ``i`` draws
+    its noise from a CPU generator seeded ``seed + i``.
     """
     dev = resolve_device(device)
     model = model.to(dev)
@@ -93,16 +96,22 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
         raise ValueError("evaluate_nll: no images to score")
 
     d_apply = None
+    model_prior = cfg.model.prior
+    prior_logpdf_p = None
+    if (model_prior == "flow" and not use_adv) or model_prior == "gaussian":
+        prior_logpdf_p = model.prior_logpdf
     log_z = torch.zeros((), device=dev)
     log_z_se = torch.zeros((), device=dev)
     with torch.inference_mode():
         if use_adv:
             d_apply = d.to(dev)
+            base_from = (model.prior_sample_from
+                         if model_prior == "gaussian" else None)
             log_z, log_z_se = estimate_log_partition(
                 d_apply, cfg.model.z_dim, seed=seed + 17, with_se=True,
-                device=dev)
+                device=dev, base_from=base_from)
         iwae_fn = make_iwae_fn(model, cfg.model.likelihood, k, chunk,
-                               d_apply)
+                               d_apply, prior_logpdf_p=prior_logpdf_p)
         scores = []
         for i in range(n_batches):
             x_in, x_target = _prep_eval_batch(

@@ -138,18 +138,27 @@ def density_coverage(f_real: np.ndarray, f_fake: np.ndarray,
 def sample_quality(cfg, model, d=None, *, n: int = 2048, seed: int = 0,
                    feature_seed: int = 0, batch_size: int = 256,
                    mode: str = "sample", refine_steps: int = 0,
-                   prior_moments=None, device=None) -> dict:
+                   prior_moments=None, model_prior: bool | None = None,
+                   model_base: bool | None = None, temperature: float = 1.0,
+                   device=None) -> dict:
     """Generated-vs-real distances for a model on ``device`` (``None``: the
     model's). Real side: the test split with train-matched preprocessing
     (``eval/run.eval_arrays``). Generated side: ``generate_samples`` with
-    pixel ``mode`` from the shaped prior (``d``; N(0, I) without it) or
-    the ex-post ``prior_moments``, batch i seeded from (``seed``, i)."""
+    pixel ``mode`` from the shaped prior (``d``; N(0, I) without it), the
+    ex-post ``prior_moments``, or the model's trained prior
+    (``model_prior``, default: a flow checkpoint without ex-post moments;
+    ``model_base``, default: a Gaussian-base checkpoint without them) at
+    ``temperature``, batch i seeded from (``seed``, i)."""
     from apv_tpu_torch.eval.run import eval_arrays
     from apv_tpu_torch.sampling.run import generate_samples
 
     if n < 2:
         raise ValueError(f"sample_quality needs n >= 2, got n={n}")
     d_use = d if cfg.adversarial.enabled else None
+    if model_prior is None:
+        model_prior = cfg.model.prior == "flow" and prior_moments is None
+    if model_base is None:
+        model_base = cfg.model.prior == "gaussian" and prior_moments is None
     dev = (torch.device(device) if device is not None
            else next(model.parameters()).device)
 
@@ -173,7 +182,10 @@ def sample_quality(cfg, model, d=None, *, n: int = 2048, seed: int = 0,
                                 cfg.model.likelihood, c, d=d_use,
                                 seed=batch_seed, mode=mode,
                                 refine_steps=refine_steps,
-                                prior_moments=prior_moments)
+                                prior_moments=prior_moments,
+                                model_prior=model_prior,
+                                model_base=model_base,
+                                temperature=temperature)
         with torch.no_grad():
             f_fake.append(extract_features(fparams, fake).cpu().numpy())
             f_real.append(extract_features(

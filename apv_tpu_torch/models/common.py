@@ -17,6 +17,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apv_tpu_torch.core.distributions import standard_gaussian_logpdf
+from apv_tpu_torch.models.flow_prior import FlowPrior
+from apv_tpu_torch.models.gaussian_prior import GaussianPrior
+
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     # flax's default gelu is the tanh approximation
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -161,6 +165,43 @@ def make_norm(norm: str, channels: int, dtype: torch.dtype,
     if norm == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm {norm!r} (group|rms|none)")
+
+
+# ---------------------------------------------------------------------------
+# the model's own prior
+# ---------------------------------------------------------------------------
+
+def make_prior(prior: str, z_dim: int, flow_layers: int = 6,
+               flow_hidden: int = 64) -> nn.Module | None:
+    """'standard' -> None (N(0, I)), 'gaussian' -> ``GaussianPrior``,
+    'flow' -> ``FlowPrior``. Its parameters are float32 and it computes in
+    float32 whatever the model's dtype, as the reference's prior does."""
+    if prior == "standard":
+        return None
+    if prior == "gaussian":
+        return GaussianPrior(z_dim)
+    if prior == "flow":
+        return FlowPrior(z_dim, flow_layers, flow_hidden)
+    raise ValueError(f"unknown model prior {prior!r} (standard|flow|gaussian)")
+
+
+class PriorMixin:
+    """``prior_logpdf`` and ``prior_sample_from`` of a VAE whose
+    ``self.prior`` is ``make_prior``'s module (None: N(0, I))."""
+
+    def prior_logpdf(self, z: torch.Tensor, *,
+                     detach_params: bool = False) -> torch.Tensor:
+        """log p(z) under the model's own prior, shape ``z.shape[:-1]``,
+        exact for every family (the adversarially shaped prior is not a
+        model prior: it lives in D and carries a log Z)."""
+        if self.prior is None:
+            return torch.sum(standard_gaussian_logpdf(z), dim=-1)
+        return self.prior(z, detach_params=detach_params)
+
+    def prior_sample_from(self, u: torch.Tensor) -> torch.Tensor:
+        """Base draws u ~ N(0, I) -> prior draws (the identity for the
+        standard prior)."""
+        return u if self.prior is None else self.prior.sample_from(u)
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from apv_tpu_torch.models.common import (Conv, Dense, get_activation,
-                                         likelihood_out_params)
+from apv_tpu_torch.models.common import (Conv, Dense, PriorMixin,
+                                         get_activation,
+                                         likelihood_out_params, make_prior)
 
 
 def _to_nchw(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -99,15 +100,17 @@ class ConvDecoder(nn.Module):
         return out.permute(0, 2, 3, 1)          # [B, H, W, C*out_params]
 
 
-class ConvVAE(nn.Module):
-    """Conv encoder/decoder; likelihood Bernoulli over pixels by default."""
+class ConvVAE(PriorMixin, nn.Module):
+    """Conv encoder/decoder; likelihood Bernoulli over pixels by default.
+    ``prior`` as ``ResNetVAE``'s."""
 
     def __init__(self, z_dim: int = 40, widths: Sequence[int] = (32, 64),
                  dense: int = 512,
                  image_shape: tuple[int, int, int] = (28, 28, 1),
                  dtype: torch.dtype = torch.bfloat16,
                  likelihood: str = "bernoulli", activation: str = "gelu",
-                 mix_components: int = 5):
+                 mix_components: int = 5, prior: str = "standard",
+                 prior_flow_layers: int = 6, prior_flow_hidden: int = 64):
         super().__init__()
         self.z_dim = z_dim
         self.likelihood = likelihood
@@ -118,6 +121,8 @@ class ConvVAE(nn.Module):
             z_dim, self.image_shape, tuple(reversed(widths)), dense,
             likelihood_out_params(likelihood, mix_components), dtype,
             activation)
+        self.prior = make_prior(prior, z_dim, prior_flow_layers,
+                                prior_flow_hidden)
 
     def encode(self, x: torch.Tensor):
         """x [B, H, W, C] -> (mean, logvar), each f32 [B, Z]."""

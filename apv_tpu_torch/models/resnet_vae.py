@@ -22,8 +22,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from apv_tpu_torch.models.common import (Conv, ConvTranspose2x, Dense,
-                                         get_activation,
-                                         likelihood_out_params, make_norm)
+                                         PriorMixin, get_activation,
+                                         likelihood_out_params, make_norm,
+                                         make_prior)
 
 
 class ResBlock(nn.Module):
@@ -161,8 +162,10 @@ class ResNetDecoder(nn.Module):
         return out.permute(0, 2, 3, 1)          # [B, H, W, C*out_params]
 
 
-class ResNetVAE(nn.Module):
-    """Residual VAE; likelihood = discretized logistic (CIFAR-10)."""
+class ResNetVAE(PriorMixin, nn.Module):
+    """Residual VAE; likelihood = discretized logistic (CIFAR-10). ``prior``
+    is the model's own: 'standard' N(0, I), or a trained 'gaussian' base
+    or 'flow', held in ``self.prior`` (``models/common.make_prior``)."""
 
     def __init__(self, z_dim: int = 128, widths: Sequence[int] = (64, 128, 256),
                  blocks_per_stage: int = 2,
@@ -170,7 +173,9 @@ class ResNetVAE(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  likelihood: str = "discretized_logistic",
                  upsample: str = "nearest", activation: str = "gelu",
-                 norm: str = "group", mix_components: int = 5):
+                 norm: str = "group", mix_components: int = 5,
+                 prior: str = "standard", prior_flow_layers: int = 6,
+                 prior_flow_hidden: int = 64):
         super().__init__()
         self.z_dim = z_dim
         self.likelihood = likelihood
@@ -181,6 +186,8 @@ class ResNetVAE(nn.Module):
             z_dim, self.image_shape, tuple(reversed(widths)), blocks_per_stage,
             likelihood_out_params(likelihood, mix_components), dtype,
             activation, norm, upsample)
+        self.prior = make_prior(prior, z_dim, prior_flow_layers,
+                                prior_flow_hidden)
 
     def encode(self, x: torch.Tensor):
         """x [B, H, W, C] -> (mean, logvar), each f32 [B, Z]."""

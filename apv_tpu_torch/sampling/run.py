@@ -1,12 +1,17 @@
-"""Sampling: SIR and MALA from the shaped prior, ex-post priors, decoding
-to pixels, image grids (counterpart of ``apv_tpu/sampling/run.py``).
+"""Sampling: SIR and MALA from the shaped prior, the model's trained
+priors, ex-post priors, decoding to pixels, image grids (counterpart of
+``apv_tpu/sampling/run.py``).
 
 Prior sampling under the adversarial prior uses SIR
-(sampling-importance-resampling): draw a pool from N(0, I), weight by
-e^{D(z)}, resample; ``refine_steps > 0`` then runs batched MALA chains on
-log p*(z) = −‖z‖²/2 + D(z) from the SIR draws, the step size adapting
-toward MALA's optimal acceptance with a Robbins–Monro gain. Gradients of
-D with respect to z come from ``torch.autograd.grad``.
+(sampling-importance-resampling): draw a pool from the base (N(0, I), or
+the trained Gaussian base N(μ, σ)), weight by e^{D(z)}, resample;
+``refine_steps > 0`` then runs batched MALA chains on log p*(z) =
+log p_base(z) + D(z) from the SIR draws, the step size adapting toward
+MALA's optimal acceptance with a Robbins–Monro gain. Gradients of D with
+respect to z come from ``torch.autograd.grad``. The trained flow prior is
+drawn exactly, by its inverse on a (tempered) base draw. The ex-post
+priors are a diagonal Gaussian, a diagonal GMM or a RealNVP flow fitted to
+the aggregate posterior.
 
 Every random draw comes from an explicit ``torch.Generator`` on the
 sampler's device, and can be injected instead (``pool``, ``pick``,
@@ -14,10 +19,6 @@ sampler's device, and can be injected instead (``pool``, ``pick``,
 hand in JAX's own draws. Entry points that take a ``seed`` derive distinct
 generators for the latent draw and the pixel noise from it
 (``seed_generators``).
-
-Not ported: the flow ex-post prior (``expost_prior_flow``, which needs
-``core/flow.py``) and the trained priors (``model_prior``, ``model_base``,
-``temperature``), ROADMAP queue A item 12.
 """
 
 from __future__ import annotations
@@ -31,14 +32,12 @@ import torch
 
 from apv_tpu_torch import ops
 from apv_tpu_torch.core import distributions as D
+from apv_tpu_torch.core.flow import fit_flow, flow_inverse, flow_logpdf
 from apv_tpu_torch.training.losses import decoder_output_to_likelihood_params
 from apv_tpu_torch.utils import png
 
 INIT_STEP = 0.1          # MALA's initial step size
 TARGET_ACCEPT = 0.574    # MALA's optimal acceptance rate
-_NOT_PORTED = ("needs the trained flow and gaussian priors (core/flow.py, "
-               "models/flow_prior.py, models/gaussian_prior.py), which are "
-               "not ported yet: ROADMAP queue A item 12")
 
 
 def seed_generators(seed: int, count: int,
@@ -79,10 +78,14 @@ def _categorical(logits: torch.Tensor, n: int, generator,
     return torch.multinomial(probs, n, replacement=True, generator=generator)
 
 
-def shaped_prior_logp(z: torch.Tensor, d: Callable) -> torch.Tensor:
-    """log p*(z) up to the log-partition constant: log N(z; 0, I) + D(z),
-    per sample (a trainable base's log-density is queue A item 12)."""
-    return -0.5 * torch.sum(z * z, dim=-1) + d(z)
+def shaped_prior_logp(z: torch.Tensor, d: Callable,
+                      base_logp: Callable | None = None) -> torch.Tensor:
+    """log p*(z) up to the log-partition constant: log p_base(z) + D(z),
+    per sample; the base is N(0, I) (up to its constant) unless
+    ``base_logp`` gives a trainable base's exact log-density."""
+    lp0 = (-0.5 * torch.sum(z * z, dim=-1) if base_logp is None
+           else base_logp(z))
+    return lp0 + d(z)
 
 
 def sir_ess(logw: torch.Tensor) -> torch.Tensor:
@@ -151,13 +154,19 @@ def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
                  pool_factor: int = 16, refine_steps: int = 0,
                  return_diagnostics: bool = False,
                  generator: torch.Generator | None = None, device=None,
+                 base_from: Callable | None = None,
+                 base_logp: Callable | None = None,
                  pool: torch.Tensor | None = None,
                  pick: torch.Tensor | None = None,
                  mala_noise: torch.Tensor | None = None,
                  mala_uniforms: torch.Tensor | None = None):
-    """n draws from the prior: N(0, I) without ``d``; with the latent D,
-    SIR from the shaped prior over a pool of ``n * pool_factor`` draws,
-    optionally MALA-refined for ``refine_steps``.
+    """n draws from the prior: the base without ``d``; with the latent D,
+    SIR from the shaped prior over a pool of ``n * pool_factor`` base
+    draws, optionally MALA-refined for ``refine_steps``.
+
+    The base is N(0, I) unless ``base_from`` (u ~ N(0, I) -> z) and
+    ``base_logp`` (its log-density, MALA's target with D) give a trainable
+    one; they come as a pair.
 
     Draws: ``pool`` (the N(0, I) draws: [n, Z] without D, [n·pool_factor,
     Z] with it), ``pick`` ([n] pool indices), ``mala_noise`` and
@@ -167,6 +176,9 @@ def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
     effective sample size and size and, when refining, the MALA acceptance
     rate, adapted step size and step count.
     """
+    if (base_from is None) != (base_logp is None):
+        raise ValueError("base_from and base_logp come as a pair (the SIR "
+                         "pool and the MALA target must use the same base)")
     dev = torch.device(device) if device is not None else (
         generator.device if generator is not None else torch.device("cpu"))
     if d is None:
@@ -175,15 +187,19 @@ def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
                              "shaped prior; this model has no latent "
                              "discriminator — drop --refine")
         z = _normal((n, z_dim), generator, dev, pool, "pool")
+        if base_from is not None:
+            z = base_from(z)
         return (z, {}) if return_diagnostics else z
     pool = _normal((n * pool_factor, z_dim), generator, dev, pool, "pool")
+    if base_from is not None:
+        pool = base_from(pool)
     logw = d(pool)
     idx = _categorical(logw, n, generator, pick)
     z = pool[idx]
     diag = {"sir_ess": sir_ess(logw), "sir_pool": n * pool_factor}
     if refine_steps > 0:
         z, rate, eps = langevin_refine(
-            z, lambda zz: shaped_prior_logp(zz, d), refine_steps,
+            z, lambda zz: shaped_prior_logp(zz, d, base_logp), refine_steps,
             generator=generator, noise=mala_noise, uniforms=mala_uniforms)
         diag.update(mala_accept_rate=rate, mala_step_size=eps,
                     mala_steps=refine_steps)
@@ -306,9 +322,24 @@ def expost_prior_gmm(model, x_in: torch.Tensor, *, k: int = 10,
     return fit_gmm_em(z, k, iters=iters, generator=generator, first=first)
 
 
-def expost_prior_flow(*args, **kwargs):
-    """The flow ex-post prior: not ported."""
-    raise NotImplementedError("expost_prior_flow " + _NOT_PORTED)
+def expost_prior_flow(model, x_in: torch.Tensor, *, n_layers: int = 6,
+                      hidden: int = 64, steps: int = 2000,
+                      draws_per_x: int = 4,
+                      generator: torch.Generator | None = None,
+                      eps: torch.Tensor | None = None, fit_draws=None):
+    """Flow ex-post prior: a RealNVP MLE-fit to aggregate-posterior samples
+    (``core/flow.fit_flow``). Returns the flow params dict, the third
+    ``prior_moments`` form beside the two tuples, with ``flow_nll`` (the
+    mean train NLL of the fit's last 50 steps, nats, a 0-d tensor) added.
+    ``eps`` [draws_per_x, N, Z] and ``fit_draws`` (``fit_flow``'s ``perm``,
+    ``init_draws`` and ``indices``) may be injected."""
+    z = posterior_draws(model, x_in, draws_per_x, generator=generator,
+                        eps=eps)
+    flow, nll_trace = fit_flow(z, n_layers=n_layers, hidden=hidden,
+                               steps=steps, generator=generator,
+                               **(fit_draws or {}))
+    flow["flow_nll"] = nll_trace[-50:].mean()
+    return flow
 
 
 def expost_prior_sample(prior_moments, n: int, z_dim: int, *,
@@ -316,10 +347,14 @@ def expost_prior_sample(prior_moments, n: int, z_dim: int, *,
                         device=None, eps: torch.Tensor | None = None,
                         ids: torch.Tensor | None = None) -> torch.Tensor:
     """n latents from a fitted ex-post prior: a ``(mean, var)`` diagonal
-    Gaussian or a ``(log_w, means, vars)`` diagonal GMM. ``eps`` [n, Z]
-    and ``ids`` [n] (the GMM's component picks) may be injected."""
+    Gaussian, a ``(log_w, means, vars)`` diagonal GMM or a flow params
+    dict. ``eps`` [n, Z] (the flow's base draw) and ``ids`` [n] (the GMM's
+    component picks) may be injected."""
     if isinstance(prior_moments, dict):
-        raise NotImplementedError("the flow ex-post prior " + _NOT_PORTED)
+        dev = torch.device(device) if device is not None else \
+            prior_moments["whiten"]["mean"].device
+        return flow_inverse(prior_moments,
+                            _normal((n, z_dim), generator, dev, eps, "eps"))
     dev = torch.device(device) if device is not None else \
         prior_moments[0].device
     if len(prior_moments) == 2:
@@ -334,9 +369,9 @@ def expost_prior_sample(prior_moments, n: int, z_dim: int, *,
 
 def expost_prior_logpdf(prior_moments) -> Callable:
     """``z [..., Z] -> log p(z) [...]`` for a fitted ex-post prior, exact
-    and closed-form for both forms."""
+    and closed-form for all three forms."""
     if isinstance(prior_moments, dict):
-        raise NotImplementedError("the flow ex-post prior " + _NOT_PORTED)
+        return lambda z: flow_logpdf(prior_moments, z)
     if len(prior_moments) == 2:
         agg_mean, agg_var = prior_moments
 
@@ -362,11 +397,17 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
 
     The latent draw is SIR (+ MALA with ``refine_steps``) from the shaped
     prior when the latent D ``d`` is given, N(0, I) otherwise, or the
-    ex-post prior ``prior_moments`` (from ``expost_prior_moments`` or
-    ``expost_prior_gmm``). The latent draw and the pixel noise use
-    distinct generators derived from ``seed``. ``draws`` injects draws by
-    name: ``pool``, ``pick``, ``mala_noise``, ``mala_uniforms`` (the
-    shaped prior), ``eps``, ``ids`` (the ex-post prior) and ``pixel_u``.
+    ex-post prior ``prior_moments`` (from ``expost_prior_moments``,
+    ``expost_prior_gmm`` or ``expost_prior_flow``). ``model_prior`` draws
+    the model's own trained prior exactly: ``prior_sample_from`` on a base
+    draw u ~ N(0, T²I) at ``temperature`` T (the flow's inverse pass).
+    ``model_base`` keeps the SIR/MALA machinery over the model's trainable
+    Gaussian base, tempered to N(μ, T²σ²) for both the pool and the MALA
+    target. The latent draw and the pixel noise use distinct generators
+    derived from ``seed``. ``draws`` injects draws by name: ``pool`` (the
+    N(0, I) base draws, also the trained prior's), ``pick``,
+    ``mala_noise``, ``mala_uniforms`` (the shaped prior), ``eps``, ``ids``
+    (the ex-post prior) and ``pixel_u``.
     """
     if prior_moments is not None and refine_steps > 0:
         raise ValueError("refine_steps applies to the adversarially-shaped "
@@ -386,9 +427,6 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
                          "prior (model.prior='flow'/'gaussian' drawn via "
                          "prior_sample_from) - other priors are drawn at "
                          "their fitted scale")
-    if model_prior or model_base:
-        raise NotImplementedError("model_prior, model_base and temperature "
-                                  + _NOT_PORTED)
     draws = draws or {}
     dev = next(model.parameters()).device
     gen_z, gen_x = seed_generators(seed, 2, dev)
@@ -398,10 +436,27 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
                                     device=dev, eps=draws.get("eps"),
                                     ids=draws.get("ids"))
             diag = {}
+        elif model_prior:
+            u = _normal((n, z_dim), gen_z, dev, draws.get("pool"), "pool")
+            z = model.prior_sample_from(temperature * u)
+            diag = {}
         else:
+            base_from = base_logp = None
+            if model_base:
+                def base_from(u):
+                    return model.prior_sample_from(temperature * u)
+
+                def base_logp(zz):
+                    if temperature != 1.0:
+                        # log N(z; μ, T²σ²) = log N(μ + (z − μ)/T; μ, σ²)
+                        # + const; MALA needs only its gradient
+                        mu = model.prior_sample_from(torch.zeros_like(zz))
+                        zz = mu + (zz - mu) / temperature
+                    return model.prior_logpdf(zz)
             z, diag = sample_prior(
                 n, z_dim, d=d, refine_steps=refine_steps,
                 return_diagnostics=True, generator=gen_z, device=dev,
+                base_from=base_from, base_logp=base_logp,
                 pool=draws.get("pool"), pick=draws.get("pick"),
                 mala_noise=draws.get("mala_noise"),
                 mala_uniforms=draws.get("mala_uniforms"))

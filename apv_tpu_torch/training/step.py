@@ -1,6 +1,7 @@
-"""The train step: ELBO with the adversarial latent prior, G phase then D
-phase, each with its own clipped Adam (counterpart of
-``apv_tpu/training/step.py``).
+"""The train step: the ELBO or the IWAE-k bound, with the model's own
+prior (N(0, I), a trained Gaussian base or a trained flow) and the
+adversarial latent prior, G phase then D phase, each with its own clipped
+Adam (counterpart of ``apv_tpu/training/step.py``).
 
 The reference jits both phases into one XLA program; here they run eagerly
 on the card, with the reparameterized sample, the KL and the Bernoulli and
@@ -16,12 +17,22 @@ Noise: step ``t`` of a run with seed ``s`` draws everything from a CPU
 ``torch.Generator`` seeded by (s, t) alone, the counterpart of
 ``fold_in(rng, step)``: never the global generator, so a step can be
 replayed. The draws come in a fixed order: the dequantization u, then the
-G phase's ε, then the critic's z_p (u and z_p on the device, from a device
-generator reseeded from the step's generator). On CPU tensors
-``train_step`` also takes the noise injected (``noise=``), which the
-parity tests use to hand the port JAX's draws.
+G phase's ε (k of them a row under the IWAE objective), then the flow
+dispersion penalty's base draw u (the reference's ``fold_in(key, 1)``;
+drawn only when the penalty is on), then the critic's z_p (the u's and z_p
+on the device, from a device generator reseeded from the step's
+generator). On CPU tensors ``train_step`` also takes the noise injected
+(``noise=``), which the parity tests use to hand the port JAX's draws.
 
-Knobs outside this slice raise ``NotImplementedError`` naming the knob.
+The model's prior: the flow takes the single-sample MC KL log q(z|x) −
+log p_θ(z), the Gaussian base the analytic KL against (μ, 2·log σ), the
+standard prior the KL kernel. The prior's parameters are part of
+``model.parameters()``, so the G optimizer clips and updates them with the
+VAE's, as optax does with one param tree. With the Gaussian base the D
+phase draws z_p from the (detached) base.
+
+Knobs outside this slice raise ``NotImplementedError`` naming the knob;
+the combinations the reference refuses raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 
 from apv_tpu_torch import ops
+from apv_tpu_torch.core import distributions as D
 from apv_tpu_torch.data.preprocess import (normalize_center,
                                            uniform_dequantize, unpack_bits)
 from apv_tpu_torch.models import build_model, make_latent_d
@@ -118,24 +130,39 @@ def _loss_scale(cfg: Config) -> float:
 
 
 def _check_knobs(cfg: Config) -> None:
-    """Raise on every knob this slice does not run."""
+    """Raise on the combinations the reference refuses, and on every knob
+    this slice does not run."""
     t, a = cfg.train, cfg.adversarial
+    prior = cfg.model.prior
     if t.objective not in ("elbo", "iwae"):
         raise ValueError(f"unknown train.objective {t.objective!r} "
                          "(elbo|iwae)")
+    if t.iwae_grad not in ("reparam", "dreg"):
+        raise ValueError(f"unknown iwae grad estimator {t.iwae_grad!r} "
+                         "(reparam|dreg)")
+    if prior == "flow" and a.enabled:
+        raise ValueError(
+            "model.prior='flow' and adversarial.enabled are mutually "
+            "exclusive: each is a complete reading of log p(z). "
+            "model.prior='gaussian' is the trainable base that composes "
+            "with the adversarial D.")
+    if t.flow_dispersion_penalty > 0.0 and (prior != "flow"
+                                            or t.objective != "elbo"):
+        raise ValueError("train.flow_dispersion_penalty requires "
+                         "model.prior='flow' and train.objective='elbo'")
+    if t.objective == "iwae" and t.free_bits > 0.0:
+        raise ValueError("train.free_bits applies to the elbo objective "
+                         "only: the IWAE bound has no per-dimension KL term "
+                         "to floor")
     unported = [
-        ("train.objective='iwae'", t.objective == "iwae"),
-        (f"model.prior={cfg.model.prior!r}", cfg.model.prior != "standard"),
         ("adversarial.variant='biadversarial'",
          a.enabled and a.variant == "biadversarial"),
         ("adversarial.r1_gamma>0", a.enabled and a.r1_gamma > 0.0),
         ("adversarial.d_spectral_norm", a.enabled and a.d_spectral_norm),
         (f"adversarial.d_lr_schedule={a.d_lr_schedule!r}",
          a.enabled and a.d_lr_schedule != "constant"),
-        ("train.free_bits>0", t.free_bits > 0.0),
         ("train.ema_decay>0", t.ema_decay > 0.0),
         ("train.grad_accum>1", t.grad_accum > 1),
-        ("train.flow_dispersion_penalty>0", t.flow_dispersion_penalty > 0.0),
     ]
     for knob, on in unported:
         if on:
@@ -146,18 +173,35 @@ def _check_knobs(cfg: Config) -> None:
 def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
                 x_target: torch.Tensor, beta: float, *,
                 generator: torch.Generator | None = None,
-                eps: torch.Tensor | None = None):
-    """The G phase's loss on the standard prior -> (loss, aux, z).
+                eps: torch.Tensor | None = None,
+                draw_u: Callable | None = None):
+    """The G phase's ELBO loss -> (loss, aux, z).
 
-    loss = −(mean(recon + w·adv(D(z))) − β·mean(KL))·scale, where the
-    learned-prior term carries β (D(z) is part of log p*(z)); aux holds
-    the batch means recon, kl, elbo and g_adv. ``eps`` (CPU only) injects
-    the reparameterization noise."""
+    loss = −(mean(recon + w·adv(D(z))) − β·KL_obj − penalty)·scale: the
+    KL against the model's prior (module docstring), KL_obj its batch
+    mean or, with ``train.free_bits``, the prior's floor (per dimension
+    for N(0, I) and the Gaussian base, on the total for the flow); the
+    learned-prior term carries β (D(z) is part of log p*(z)). With
+    ``train.flow_dispersion_penalty`` λ the penalty is
+    λ·max(0, m_s/m_q − 1)², m_s the mean ‖z‖² of the flow's inverse on a
+    fresh base draw u (``draw_u(shape)``) and m_q the batch posterior's,
+    detached. aux holds the batch means recon, kl, elbo and, as they
+    apply, g_adv and flow_dispersion. ``eps`` (CPU only) injects the
+    reparameterization noise."""
+    t = cfg.train
+    prior = cfg.model.prior
     mean, logvar = model.encode(x_in)
     z = ops.reparam_sample(mean, logvar, generator=generator, eps=eps)
     out = model.decode(z)
     recon = L.recon_log_likelihood(x_target, out, cfg.model.likelihood)
-    kl = ops.kl_standard(mean, logvar)
+    if prior == "flow":
+        log_q = torch.sum(D.gaussian_logpdf(z, mean, logvar), dim=-1)
+        kl = log_q - model.prior_logpdf(z)
+    elif prior == "gaussian":
+        mu_p, logvar_p = model.prior.mu, 2.0 * model.prior.log_sigma
+        kl = torch.sum(D.gaussian_kl(mean, logvar, mu_p, logvar_p), dim=-1)
+    else:
+        kl = ops.kl_standard(mean, logvar)
     aux = {"recon": recon.mean(), "kl": kl.mean()}
     per_sample = recon
     if d is not None:
@@ -166,9 +210,43 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
         adv_w = a.weight * beta if a.variant == "learned_prior" else a.weight
         per_sample = per_sample + adv_w * adv_term
         aux["g_adv"] = adv_term.mean()
-    objective = per_sample.mean() - beta * kl.mean()
+    if t.free_bits > 0.0:
+        if prior == "gaussian":
+            kl_obj = L.free_bits_kl_gaussian_base(mean, logvar, mu_p,
+                                                  logvar_p, t.free_bits)
+        elif prior == "flow":
+            kl_obj = L.free_information_kl(kl, cfg.model.z_dim, t.free_bits)
+        else:
+            kl_obj = L.free_bits_kl(mean, logvar, t.free_bits)
+    else:
+        kl_obj = kl.mean()
+    objective = per_sample.mean() - beta * kl_obj
+    if prior == "flow" and t.flow_dispersion_penalty > 0.0:
+        z_s = model.prior_sample_from(draw_u(z.shape))
+        m_s = torch.sum(z_s.square(), dim=-1).mean()
+        m_q = torch.sum(z.detach().square(), dim=-1).mean()
+        excess = torch.clamp_min(m_s / m_q - 1.0, 0.0)
+        objective = objective - t.flow_dispersion_penalty * excess.square()
+        aux["flow_dispersion"] = (m_s / m_q).detach()
     aux["elbo"] = (recon - kl).mean()
     return -objective * _loss_scale(cfg), aux, z
+
+
+def g_objective_iwae(cfg: Config, model, d, x_in: torch.Tensor,
+                     x_target: torch.Tensor, beta: float, *,
+                     generator: torch.Generator | None = None,
+                     eps: torch.Tensor | None = None):
+    """The G phase's loss on the IWAE-k bound (``train.objective='iwae'``,
+    ``losses.iwae_objective``) -> (loss, aux, z_q): aux adds the MC ELBO
+    recon − kl for reporting, z_q is sample 0 [B, Z], detached."""
+    a = cfg.adversarial
+    objective, aux, z_q = L.iwae_objective(
+        model, x_in, x_target, cfg.model.likelihood, cfg.train.iwae_k, beta,
+        cfg.train.iwae_grad, trained_prior=cfg.model.prior != "standard",
+        d=d, adv_variant=a.variant if d is not None else None,
+        adv_weight=a.weight, generator=generator, eps=eps)
+    aux["elbo"] = aux["recon"] - aux["kl"]
+    return -objective * _loss_scale(cfg), aux, z_q
 
 
 def make_train_fns(cfg: Config, *, device=None,
@@ -180,6 +258,8 @@ def make_train_fns(cfg: Config, *, device=None,
     dev = resolve_device(device)
     adv = cfg.adversarial.enabled
     a = cfg.adversarial
+    gauss_prior = cfg.model.prior == "gaussian"
+    trainable_prior = cfg.model.prior in ("gaussian", "flow")
     noise_gen = torch.Generator(device=dev)
 
     def init_fn(seed: int) -> TrainState:
@@ -206,9 +286,17 @@ def make_train_fns(cfg: Config, *, device=None,
         return lambda shape: torch.rand(shape, generator=device_gen(gen),
                                         device=dev)
 
-    def g_phase(state, x_in, x_target, beta, gen, eps):
-        loss, aux, z = g_objective(cfg, state.model, state.d, x_in, x_target,
-                                   beta, generator=gen, eps=eps)
+    def g_phase(state, x_in, x_target, beta, gen, eps, u_disp):
+        if cfg.train.objective == "iwae":
+            loss, aux, z = g_objective_iwae(cfg, state.model, state.d, x_in,
+                                            x_target, beta, generator=gen,
+                                            eps=eps)
+        else:
+            loss, aux, z = g_objective(
+                cfg, state.model, state.d, x_in, x_target, beta,
+                generator=gen, eps=eps,
+                draw_u=lambda shape: (u_disp if u_disp is not None
+                                      else normal(shape, gen)))
         grads = torch.autograd.grad(loss, state.opt.params)
         grad_norm = state.opt.step(grads)
         metrics = {k: v.detach() for k, v in aux.items()}
@@ -224,6 +312,11 @@ def make_train_fns(cfg: Config, *, device=None,
                                          eps=d_eps)
         if z_p is None:
             z_p = normal(z_q.shape, gen)
+        if gauss_prior:
+            # D separates q(z) from the model's own base N(μ, σ): the shaped
+            # prior is p*(z) ∝ N(μ, σ)·e^{D(z)}; the base trains in G only
+            with torch.no_grad():
+                z_p = state.model.prior_sample_from(z_p)
         d_loss, d_acc = L.discriminator_loss(state.d(z_q), state.d(z_p),
                                              a.label_smoothing)
         state.d_opt.step(torch.autograd.grad(d_loss, state.d_opt.params))
@@ -234,8 +327,9 @@ def make_train_fns(cfg: Config, *, device=None,
         """One step on a batch of device tensors, in place.
 
         ``noise`` (CPU tensors only): ``u`` [B, H, W, C] for the
-        dequantization, ``eps`` [B, Z] for the G phase, ``z_p``
-        [n_critic, B, Z] for the critic steps and, with
+        dequantization, ``eps`` [B, Z] for the G phase ([k, B, Z] under
+        the IWAE objective), ``u_disp`` [B, Z] for the flow dispersion
+        penalty, ``z_p`` [n_critic, B, Z] for the critic steps and, with
         ``d_reuse_posterior=False``, ``d_eps`` [n_critic, B, Z]."""
         if noise is not None and dev.type != "cpu":
             raise ValueError("train_step: noise is accepted only on the CPU; "
@@ -261,7 +355,7 @@ def make_train_fns(cfg: Config, *, device=None,
         if adv and not a.d_reuse_posterior:
             run_d_phases(None)          # reference order: D, then G
         g_metrics, z_q = g_phase(state, x_in, x_target, beta, gen,
-                                 noise.get("eps"))
+                                 noise.get("eps"), noise.get("u_disp"))
         metrics.update(g_metrics)
         if adv and a.d_reuse_posterior:
             # G then D: D sees z_q drawn under the pre-update params
@@ -271,13 +365,23 @@ def make_train_fns(cfg: Config, *, device=None,
         return state, metrics
 
     def eval_step(state: TrainState, batch: dict) -> dict:
-        """Single-sample ELBO on a batch; deterministic in (seed, batch)."""
+        """Single-sample ELBO on a batch; deterministic in (seed, batch).
+        With a trained prior the KL is the MC log q(z|x) − log p_θ(z)."""
         gen = step_generator(state.seed, 0x7FFFFFFF)
         x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen))
+        model = state.model
         with torch.no_grad():
-            recon, kl, _ = L.elbo_terms(state.model.encode,
-                                        state.model.decode, x_in, x_target,
-                                        cfg.model.likelihood, generator=gen)
+            if trainable_prior:
+                mean, logvar = model.encode(x_in)
+                z = ops.reparam_sample(mean, logvar, generator=gen)
+                recon = L.recon_log_likelihood(x_target, model.decode(z),
+                                               cfg.model.likelihood)
+                kl = (torch.sum(D.gaussian_logpdf(z, mean, logvar), dim=-1)
+                      - model.prior_logpdf(z))
+            else:
+                recon, kl, _ = L.elbo_terms(model.encode, model.decode, x_in,
+                                            x_target, cfg.model.likelihood,
+                                            generator=gen)
         return {"valid_elbo": (recon - kl).mean(),
                 "valid_recon": recon.mean(), "valid_kl": kl.mean()}
 

@@ -63,6 +63,26 @@ Phases, one JSON line each:
  13. ood: api.ood_score on the ood_suite preset as it stands (cifar10 vs
      svhn, prior_ratio, k=100, chunk 50, 2,000 examples, batch 64), both
      directions, then score=complexity; exact launch counts.
+ 14. gb_train: cifar_gb (the trained Gaussian base under the adversarial
+     D) through train_loop at full width, 24 steps in calls of 8 on the
+     synthetic CIFAR set (loaded once for phases 14-16, 50,000 resident
+     rows, no validation), β and the learning rate warmed over the first
+     12; exact launches, finite metrics, a falling loss; ms a step from
+     the loop's logger over a 48-step rerun at log_every=8, as phases 5
+     and 8 time theirs; the step-24 checkpoint restored bit for bit, its
+     scorer and IWAE k=1000, chunk 25, on 64 test images under its own
+     prior, log Z drawn from the learned base; then api.sample, 256 draws by SIR over the base at
+     temperature 1 and 0.7, each PNG read back.
+ 15. flow_train: cifar_flow (the trained RealNVP prior) likewise, IWAE
+     with log Z exactly 0; api.sample from the flow at temperature 0.7,
+     then prior='expost_flow' with its 2,000-step fit (its wall time).
+ 16. iwae_train: cifar_advprior_resnet with train.objective=iwae, k=5,
+     DReG, 8 steps in one call: the decoder at 1,280 rows, the likelihood
+     beside x's 256, reparam's backward summing 5 samples; exact
+     launches, a falling loss, the peak of allocated memory, ms a step
+     as in 14; one step's G gradients and loss through the kernels held
+     to the objective written out with the kernels' plain versions on the
+     same Philox draws.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
 The likelihood forwards' launches on the paths by (rows, x rows, E) are a
@@ -158,6 +178,11 @@ CIFAR_STEPS = 48           # 24, then 24 more after a resume
 CIFAR_EVAL_EVERY = 24      # validation and checkpoint at steps 24 and 48
 CIFAR_SPLIT = (47_500, 2_500)   # CIFAR-10's 50,000 at valid_fraction 0.05
 GATE_STEPS = 3_000         # the reference's short quality gate
+PRIOR_STEPS = 24           # cifar_gb and cifar_flow: three calls of 8
+IWAE_STEPS = 8             # the IWAE objective: one call of 8
+IWAE_K = 5                 # its samples a row (the preset's iwae_k)
+FLOW_FIT_STEPS = 2_000     # the ex-post flow's fit, api.sample's default
+TIMED_STEPS = 48           # a timed rerun: five logged calls of 8 steps
 
 
 class CheckFailed(RuntimeError):
@@ -262,7 +287,9 @@ def kernel_checks(K, card: str, dev) -> dict:
     cases = {"iwae_chunk": (x, mean, ls), "odd_length": (xo, mo, so),
              "ood_chunk": disc_inputs(50 * BATCH, BATCH, event),
              "train": disc_inputs(256, 256, event),
-             "odd_length_broadcast": disc_inputs(21, 7, 3073)}
+             "odd_length_broadcast": disc_inputs(21, 7, 3073),
+             # the IWAE objective's k=5 decodings beside x [256, 3072]
+             "iwae_train": disc_inputs(IWAE_K * 256, 256, event)}
     at = {}
     for tag, (xc, mc, sc) in cases.items():
         got = K.disc_logistic_cuda(xc, mc, sc)
@@ -306,16 +333,21 @@ def kernel_checks(K, card: str, dev) -> dict:
         **bound("kl", card, 4 * (2 * BATCH * 128 + BATCH), BATCH * 128)}
 
     # reparam from [64, 128] to the IWAE chunk's [25, 64, 128], the OOD
-    # chunk's [50, 64, 128], and an odd shape whose total and row length
-    # are not multiples of 4 (the scalar tail and the row wrap)
+    # chunk's [50, 64, 128], an odd shape whose total and row length are
+    # not multiples of 4 (the scalar tail and the row wrap), and the IWAE
+    # objective's [5, 256, 128] (its inputs from a generator of their own)
     seed, offset = 0x0123456789ABCDEF, 42
     rng_r = np.random.default_rng(SEED + 32)   # leaves rng's later draws
     odd = [cuda(rng_r.normal(size=(7, 5)).astype(np.float32)),
            cuda(rng_r.uniform(-4.0, 1.0, size=(7, 5)).astype(np.float32))]
+    rng_5 = np.random.default_rng(SEED + 38)
+    iw = [cuda(rng_5.normal(size=(256, 128)).astype(np.float32)),
+          cuda(rng_5.uniform(-4.0, 1.0, size=(256, 128)).astype(np.float32))]
     rels = {}
     for tag, (mi, li, s_) in {"25x64x128": (m, lv, 25),
                               "50x64x128": (m, lv, 50),
-                              "3x7x5": (*odd, 3)}.items():
+                              "3x7x5": (*odd, 3),
+                              f"{IWAE_K}x256x128": (*iw, IWAE_K)}.items():
         got = K.reparam_cuda(mi, li, s_, seed, offset)
         want = K.reparam_plain(mi, li, s_, seed, offset)
         rels[tag] = float(((got - want).abs() / (1.0 + want.abs())).max())
@@ -355,13 +387,14 @@ def kernel_checks(K, card: str, dev) -> dict:
     }
     for what, c in corrs.items():
         check(abs(c) <= 0.01, f"reparam: eps correlation {what} = {c}")
-    # the OOD chunk [50, 64, 128] (most of the paths' launches) and the
-    # CIFAR train step's S = 1 at [256, 128]
+    # the OOD chunk [50, 64, 128] (most of the paths' launches), the
+    # CIFAR train step's S = 1 at [256, 128] and the IWAE objective's S = 5
     m_t = cuda(rng_r.normal(size=(256, 128)).astype(np.float32))
     lv_t = cuda(rng_r.uniform(-4.0, 1.0, size=(256, 128)).astype(np.float32))
     more = {}
     for tag, (mi, li, s_) in {"ood_chunk": (m, lv, 50),
-                              "train": (m_t, lv_t, 1)}.items():
+                              "train": (m_t, lv_t, 1),
+                              "iwae_train": (*iw, IWAE_K)}.items():
         more[tag] = {
             "shape": [s_, *mi.shape],
             "ms": cuda_ms(lambda: K.reparam_cuda(mi, li, s_, seed, offset),
@@ -512,6 +545,21 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
                    (gz, z, mean))
         check(res[s_][0] <= 1e-6, f"reparam_bwd S={s_}: max rel err "
               f"{res[s_][0]}")
+    # and at the IWAE objective's S = 5, [256, 128], from a generator of
+    # its own
+    rng_i = np.random.default_rng(SEED + 37)
+    mi, zi, gi = (cuda(rng_i.normal(size=sh).astype(np.float32)) for sh in (
+        (tb, 128), (IWAE_K, tb, 128), (IWAE_K, tb, 128)))
+    got = K.reparam_bwd_cuda(gi, zi, mi)
+    err_i = max(ulp_err(a, b) for a, b in zip(
+        got, K.reparam_bwd_plain(gi, zi, mi)))
+    check(err_i <= 1e-6, f"reparam_bwd iwae_train: max rel err {err_i}")
+    ni = tb * 128
+    at = {"iwae_train": {
+        "shape": [IWAE_K, tb, 128], "max_rel_err": err_i,
+        "ms": cuda_ms(lambda: K.reparam_bwd_cuda(gi, zi, mi), 500),
+        **bound("reparam_bwd", card, 4 * (2 * IWAE_K * ni + ni + 2 * ni),
+                IWAE_K * ni)}}
     gz, z, mean = res[1][2]
     n = tb * z_dim
     results["reparam_bwd"] = {
@@ -519,7 +567,7 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
         "max_rel_err": res[1][0], "max_rel_err_s50": res[50][0],
         "ms": cuda_ms(lambda: K.reparam_bwd_cuda(gz, z, mean), 500),
         "plain_ms": cuda_ms(lambda: K.reparam_bwd_plain(gz, z, mean), 200),
-        **bound("reparam_bwd", card, 4 * (2 * n + n + 2 * n), n)}
+        **bound("reparam_bwd", card, 4 * (2 * n + n + 2 * n), n), "at": at}
     return results
 
 
@@ -543,8 +591,10 @@ def disc_logistic_bwd_err(got, want, g, x, mean, ls,
 def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
     """disc_logistic_bwd at the train step's [256, 3072] without dx, as the
     path calls it, and with dx at an odd row length (the scalar loop), on
-    every level, both edges, the −7 floor and the t <= 1e-4 series."""
-    def inputs(rows, event):
+    every level, both edges, the −7 floor and the t <= 1e-4 series; then
+    at the IWAE objective's [1280, 3072], x [256, 3072] repeated to the
+    rows as the wrapper's caller does (``K.expand_rows``)."""
+    def inputs(rows, event, rng=rng):
         x = rng.integers(0, 256, size=(rows, event)) / 255.0
         x[0, :256] = np.arange(256) / 255.0        # every level, edges too
         mean = rng.uniform(-0.2, 1.2, size=(rows, event))
@@ -569,6 +619,25 @@ def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
         go, xo, mo, so), go, xo, mo, so)
     check(max(err, err_odd) <= 1.0, f"disc_logistic_bwd: max |kernel - "
           f"plain| / bar {err}, odd length with dx {err_odd} > 1")
+    # the IWAE objective: k=5 rows of parameters per image, from a
+    # generator of its own
+    gi, xi, mi, si = inputs(IWAE_K * rows, event,
+                            np.random.default_rng(SEED + 36))
+    xi = K.expand_rows(xi[:rows].contiguous(), mi)
+    got_i = K.disc_logistic_bwd_cuda(gi, xi, mi, si, want_dx=False)
+    err_i = disc_logistic_bwd_err(got_i, K.disc_logistic_bwd_plain(
+        gi, xi, mi, si), gi, xi, mi, si)
+    check(err_i <= 1.0, f"disc_logistic_bwd iwae_train: max |kernel - "
+          f"plain| / bar {err_i} > 1")
+    ni = IWAE_K * rows * event
+    # the bound counts x once per image, not the expanded copy the
+    # wrapper is handed: a bound is of the function, not of a route
+    at = {"iwae_train": {
+        "shape": [IWAE_K * rows, event], "max_err_over_bar": err_i,
+        "ms": cuda_ms(lambda: K.disc_logistic_bwd_cuda(
+            gi, xi, mi, si, want_dx=False), 200),
+        **bound("disc_logistic_bwd", card,
+                4 * (IWAE_K * rows + 2 * ni + rows * event + 2 * ni), ni)}}
     n = rows * event
     return {"disc_logistic_bwd": {
         "shape": [rows, event], "max_abs_err": max(
@@ -580,7 +649,8 @@ def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
             g, x, mean, ls, want_dx=False), 500),
         "plain_ms": cuda_ms(lambda: K.disc_logistic_bwd_plain(
             g, x, mean, ls), 50),
-        **bound("disc_logistic_bwd", card, 4 * (rows + 3 * n + 2 * n), n)}}
+        **bound("disc_logistic_bwd", card, 4 * (rows + 3 * n + 2 * n), n),
+        "at": at}}
 
 
 GN_SHAPE = (256, 32, 32, 64)   # the flagship's stage 1 at batch 256
@@ -959,9 +1029,11 @@ def scorer_phase(phase, cfg, model, d, x, dev):
     return launches, elbo_np
 
 
-def iwae_phase(phase, cfg, model, d, images, elbo_np, chunk_want, dev):
+def iwae_phase(phase, cfg, model, d, images, elbo_np, chunk_want, dev,
+               want_log_z: float | None = None):
     """evaluate_nll over one batch at k=1000 with the counters zeroed
-    around it; IWAE mean >= ELBO mean - SE; then a timed repeat."""
+    around it; IWAE mean >= ELBO mean - SE (and, given ``want_log_z``, its
+    log-partition estimate is that); then a timed repeat."""
     from apv_tpu_torch import evaluate_nll
     from apv_tpu_torch.ops import kernels as K
     k, chunk = cfg.eval.iwae_k, cfg.eval.iwae_chunk
@@ -984,6 +1056,10 @@ def iwae_phase(phase, cfg, model, d, images, elbo_np, chunk_want, dev):
     per = np.asarray(res.pop("per_sample"))
     check(per.shape == (batch,) and np.all(np.isfinite(per))
           and math.isfinite(res["bits_per_dim"]), f"{phase}: not finite")
+    if want_log_z is not None:
+        check(abs(res["log_partition"] - want_log_z)
+              <= 1e-6 * max(1.0, abs(want_log_z)),
+              f"{phase}: log Z {res['log_partition']}, want {want_log_z}")
     margin = elbo_np.std(ddof=1) / math.sqrt(batch)
     check(per.mean() >= elbo_np.mean() - margin,
           f"{phase}: iwae mean {per.mean()} below ELBO mean "
@@ -1047,6 +1123,18 @@ def run_train(cfg, arrays, dev):
                            device=dev)
     torch.cuda.synchronize()
     return state
+
+
+def loop_step_s(cfg, arrays, dev) -> float:
+    """Mean seconds a step of ``train_loop(cfg)`` over ``arrays``, as the
+    loop's logger times it (``cfg`` logs every 8 steps: one read-back per
+    call of 8)."""
+    from apv_tpu_torch import train_loop
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_loop(cfg, arrays=arrays, device=dev)
+    torch.cuda.synchronize()
+    return float(np.mean([r["step_time_s"] for r in read_metrics(cfg)
+                          if "step_time_s" in r]))
 
 
 def grad_check(cfg, state, x_in, x_target, dev, phase="train") -> dict:
@@ -1172,11 +1260,13 @@ def states_equal(a, b) -> bool:
     both optimizers' counts and moments."""
     def flat(st):
         sd = st.state_dict()
-        out = [sd["step"], sd["seed"], sd["opt"]["count"],
-               sd["d_opt"]["count"]]
-        tensors = [*sd["model"].values(), *sd["d"].values(),
-                   *sd["opt"]["mu"], *sd["opt"]["nu"], *sd["d_opt"]["mu"],
-                   *sd["d_opt"]["nu"]]
+        out = [sd["step"], sd["seed"], sd["opt"]["count"]]
+        tensors = [*sd["model"].values(), *sd["opt"]["mu"],
+                   *sd["opt"]["nu"]]
+        if "d" in sd:
+            out.append(sd["d_opt"]["count"])
+            tensors += [*sd["d"].values(), *sd["d_opt"]["mu"],
+                        *sd["d_opt"]["nu"]]
         return out, tensors
     (ha, ta), (hb, tb) = flat(a), flat(b)
     return ha == hb and len(ta) == len(tb) and all(
@@ -1265,12 +1355,7 @@ def cifar_train_phase(dev, tmp: str):
     # of 8 steps, no validation
     cfg_t = cifar_config(tmp, f"name={cfg.name}_timed", "train.log_every=8",
                          "train.eval_every=0")
-    with contextlib.redirect_stdout(io.StringIO()):
-        train_loop(cfg_t, arrays=train_arrays, device=dev)
-    torch.cuda.synchronize()
-    dts = [r["step_time_s"] for r in read_metrics(cfg_t)
-           if "step_time_s" in r]
-    step_s = float(np.mean(dts))
+    step_s = loop_step_s(cfg_t, train_arrays, dev)
     last_rec = train_recs[-1]
     emit("cifar_train", preset=cfg.name, batch=cfg.train.batch_size,
          steps=CIFAR_STEPS, steps_per_call=k, n_train=n_train,
@@ -1325,6 +1410,317 @@ def cifar_ckpt_phase(cfg, state, tmp: str, dev):
     iw = iwae_phase("cifar_ckpt", get_preset("iwae_eval"), fresh.model,
                     fresh.d, images, elbo_np, 25, dev)
     return {n: launches[n] + iw[n] for n in K.launches}
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the trained priors and the IWAE objective, on the synthetic
+# CIFAR set loaded once
+# ---------------------------------------------------------------------------
+
+def prior_config(preset: str, results_dir: str, steps: int, *extra: str):
+    """``preset`` with its schedule cut to ``steps`` (the learning rate's
+    warm-up and β's over the first half) and a checkpoint at the end, no
+    validation (the set comes as arrays=)."""
+    from apv_tpu_torch import apply_overrides, get_preset
+    return apply_overrides(get_preset(preset), [
+        f"results_dir={results_dir}", "train.log_every=1",
+        f"train.steps={steps}", f"train.beta_warmup_steps={steps // 2}",
+        "train.eval_every=0", f"train.checkpoint_every={steps}", *extra])
+
+
+def checked_train(phase: str, cfg, arrays, dev, per_step: dict):
+    """train_loop over ``arrays`` with the counters zeroed just around it:
+    exact launches, one finite metrics line per step, and a falling loss
+    (the mean over the last min(8, steps/2) steps below the first's).
+    Returns (state, launches, records, wall_s, (first, last))."""
+    from apv_tpu_torch import train_loop
+    from apv_tpu_torch.ops import kernels as K
+    steps = cfg.train.steps
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_loop(cfg, arrays=arrays, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_counts(K)
+    check(launches == expected(K, **{n: steps * c
+                                     for n, c in per_step.items()}),
+          f"{phase} launches {launches}")
+    records = read_metrics(cfg)
+    check([r["step"] for r in records] == list(range(steps)),
+          f"{phase}: one metrics line per step")
+    check(all(math.isfinite(v) for r in records for v in r.values()),
+          f"{phase}: a metric is not finite")
+    loss = [r["loss"] for r in records]
+    n = min(8, steps // 2)
+    first, last = float(np.mean(loss[:n])), float(np.mean(loss[-n:]))
+    check(last < first, f"{phase}: mean loss of the last {n} steps {last} "
+          f"not below the first {n} {first}")
+    return state, launches, records, wall, (first, last)
+
+
+def check_flagship_width(phase: str, cfg) -> None:
+    m, t = cfg.model, cfg.train
+    check((m.z_dim, tuple(m.widths), m.blocks_per_stage, t.batch_size,
+           t.steps_per_call, cfg.data.device_resident)
+          == (128, (64, 128, 256), 2, 256, 8, True),
+          f"{phase}: {cfg.name} is not the flagship's width, batch 256, "
+          "resident data in calls of 8")
+
+
+def sample_png(phase: str, preset: str, tmp: str, dev, **kw):
+    """api.sample with the counters zeroed around it -> (images, launches,
+    the JSON lines it printed, wall_s); 256 draws in [0, 1] whose PNG grid
+    decodes to them."""
+    from apv_tpu_torch import sample
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.sampling.run import image_grid
+    from apv_tpu_torch.utils.png import decode_png
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        images = sample(preset, overrides=[f"results_dir={tmp}"],
+                        n=SAMPLE_N, seed=SEED, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_counts(K)
+    check(tuple(images.shape) == (SAMPLE_N, 32, 32, 3)
+          and bool(torch.isfinite(images).all())
+          and float(images.min()) >= 0.0 and float(images.max()) <= 1.0,
+          f"{phase}: images {tuple(images.shape)} not finite in [0, 1]")
+    prior, temp = kw.get("prior", "auto"), kw.get("temperature", 1.0)
+    suffix = ("" if prior == "auto" else f"_{prior}") + (
+        "" if temp == 1.0 else f"_T{temp:g}")
+    png = Path(tmp) / preset / f"samples{suffix}.png"
+    check(np.array_equal(decode_png(png.read_bytes()), image_grid(images)),
+          f"{phase}: {png.name} does not decode to the pixels written")
+    lines = [json.loads(line) for line in out.getvalue().splitlines()
+             if line.startswith("{")]
+    return images, launches, lines, wall
+
+
+def prior_phase(phase: str, preset: str, arrays, tmp: str, dev) -> dict:
+    """cifar_gb (the trained Gaussian base under D) or cifar_flow (the
+    trained flow) through train_loop, 24 steps; the step-24 checkpoint
+    restored bit for bit, its scorer and IWAE k=1000 on 64 test images
+    under its own prior (log Z from the learned base, or exactly 0);
+    then api.sample from that prior. Returns (the launches of its paths,
+    cfg)."""
+    from apv_tpu_torch import (apply_overrides, load_dataset, make_scorer,
+                               make_train_fns, restore_checkpoint)
+    from apv_tpu_torch.eval.iwae_eval import estimate_log_partition
+    from apv_tpu_torch.ops import kernels as K
+    cfg = prior_config(preset, tmp, PRIOR_STEPS)
+    gauss = cfg.model.prior == "gaussian"
+    check_flagship_width(phase, cfg)
+    check(cfg.model.prior in ("gaussian", "flow")
+          and cfg.adversarial.enabled == gauss,
+          f"{phase}: {preset} has prior {cfg.model.prior}, adversarial "
+          f"{cfg.adversarial.enabled}")
+    per_step = {"reparam": 1, "disc_logistic": 1, "reparam_bwd": 1,
+                "disc_logistic_bwd": 1}
+    state, launches, records, wall, (first, last) = checked_train(
+        phase, cfg, arrays, dev, per_step)
+
+    fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+    restore_checkpoint(Path(tmp) / cfg.name / "checkpoints", fresh)
+    check(states_equal(fresh, state), f"{phase}: the restored state "
+          "differs from the trained one")
+    del state
+    model, prior = fresh.model, fresh.model.prior
+    with torch.no_grad():
+        moved = float(prior.mu.abs().max() if gauss else max(
+            layer["w3"].abs().max() for layer in prior.layers))
+    check(moved > 0.0, f"{phase}: the prior never left its init")
+    images = load_dataset("cifar10", "test")[0][:BATCH]
+    x = torch.from_numpy(images.astype(np.float32) / 255.0).to(dev)
+    d, log_z, log_z_std = (fresh.d if gauss else None), 0.0, None
+    if gauss:
+        with torch.inference_mode():
+            log_z = float(estimate_log_partition(
+                d, cfg.model.z_dim, seed=SEED + 17, device=dev,
+                base_from=model.prior_sample_from))
+            log_z_std = float(estimate_log_partition(
+                d, cfg.model.z_dim, seed=SEED + 17, device=dev))
+        check(log_z != log_z_std, f"{phase}: log Z under the learned base "
+              "equals log Z under N(0, I)")
+    scorer = make_scorer(cfg, model, d, log_z, device=dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    elbo = scorer(x, generator=gen(SEED))
+    torch.cuda.synchronize()
+    sc_launches = path_counts(K)
+    check(sc_launches == expected(K, reparam=1, kl=1, disc_logistic=1),
+          f"{phase} scorer launches {sc_launches}")
+    check(bool(torch.isfinite(elbo).all()), f"{phase}: ELBO not finite")
+    elbo_np = elbo.double().cpu().numpy()
+    cfg_k = apply_overrides(cfg, ["eval.iwae_k=1000", "eval.iwae_chunk=25"])
+    iw = iwae_phase(f"{phase}_iwae", cfg_k, model, d, images, elbo_np, 25,
+                    dev, want_log_z=log_z)
+    del fresh, model
+    step_s = loop_step_s(prior_config(
+        preset, tmp, TIMED_STEPS, f"name={cfg.name}_timed",
+        "train.log_every=8"), arrays, dev)
+
+    samples = {}
+    total = {n: launches[n] + sc_launches[n] + iw[n] for n in K.launches}
+    kinds = ([("T1", {}), ("T0.7", {"temperature": 0.7})] if gauss else
+             [("T0.7", {"temperature": 0.7}),
+              ("expost_flow", {"prior": "expost_flow",
+                               "flow_steps": FLOW_FIT_STEPS})])
+    for tag, kw in kinds:
+        imgs, sl, lines, s_wall = sample_png(phase, preset, tmp, dev, **kw)
+        want = expected(K, reparam=1) if tag == "expost_flow" \
+            else expected(K)
+        check(sl == want, f"{phase} sample {tag} launches {sl}")
+        info = {"launches": sl, "wall_s": s_wall,
+                "images_mean": float(imgs.mean()),
+                "images_std": float(imgs.std())}
+        for line in lines:
+            info.update(line)
+        if gauss:
+            diag = info["sampler_diagnostics"]
+            check(diag["sir_pool"] == SAMPLE_N * 16
+                  and 1.0 <= diag["sir_ess"] <= SAMPLE_N * 16,
+                  f"{phase}: SIR over the base {diag}")
+        if tag == "expost_flow":
+            check(math.isfinite(info["expost_flow_fit_nll"]),
+                  f"{phase}: ex-post flow fit NLL not finite")
+        samples[tag] = info
+        total = {n: total[n] + sl[n] for n in K.launches}
+    last_rec = records[-1]
+    emit(phase, preset=preset, prior=cfg.model.prior, batch=256,
+         steps=PRIOR_STEPS, launches=launches, loss_first8=first,
+         loss_last8=last, last_step={k: v for k, v in last_rec.items()
+                                     if k != "step"},
+         wall_s_checked_run=wall, ms_per_step=step_s * 1e3,
+         images_per_s=cfg.train.batch_size / step_s,
+         prior_max_abs_move=moved, scorer_launches=sc_launches,
+         elbo_mean=float(elbo_np.mean()), log_partition=log_z,
+         log_partition_standard_base=log_z_std, samples=samples)
+    return total, cfg
+
+
+def iwae_plain_objective(cfg, model, d, x_in, x_target, key):
+    """The IWAE-k objective at β = 1 written out with the kernels' plain
+    versions (standard prior, learned_prior D inside log w, DReG): returns
+    (-bound, -surrogate), each times the loss scale. The surrogate has the
+    objective's gradient: θ reads recon at w̃ and φ reaches log w only
+    through z (q's moments detached), at w̃²; a hook on the decoder's input
+    lifts recon's z-path from w̃ to w̃². ``K.disc_logistic_plain`` expands x
+    to the k·B rows."""
+    from apv_tpu_torch.core.distributions import (gaussian_logpdf,
+                                                  standard_gaussian_logpdf)
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.training.losses import \
+        decoder_output_to_likelihood_params
+    from apv_tpu_torch.training.step import _loss_scale
+    k, b = cfg.train.iwae_k, x_in.shape[0]
+    mean, logvar = model.encode(x_in)
+    z = K.reparam_plain(mean, logvar, k, *key)                 # [k, B, Z]
+    holder = {}
+    z_dec = z.clone()
+    z_dec.register_hook(lambda g: g * holder["w"][..., None])
+    lik = decoder_output_to_likelihood_params(
+        model.decode(z_dec.reshape(k * b, -1)), cfg.model.likelihood,
+        x_target.shape[-1])
+    recon = K.disc_logistic_plain(x_target, *lik).reshape(k, b)
+    prior = (standard_gaussian_logpdf(z).sum(-1)
+             - gaussian_logpdf(z, mean.detach(), logvar.detach()).sum(-1)
+             + cfg.adversarial.weight * d(z.reshape(k * b, -1)).reshape(k, b))
+    log_w = recon + prior
+    holder["w"] = w = torch.softmax(log_w.detach(), dim=0)
+    bound = (torch.logsumexp(log_w, dim=0) - math.log(k)).mean()
+    surrogate = (w * recon + w.square() * prior).sum(0).mean()
+    return -bound * _loss_scale(cfg), -surrogate * _loss_scale(cfg)
+
+
+def iwae_grad_check(cfg, state, x_in, x_target, dev) -> dict:
+    """One IWAE-objective G step's gradients through the kernels against
+    ``iwae_plain_objective`` on the same Philox draws; f32 compute and
+    deterministic cuDNN, as ``grad_check``. The two losses differ by no
+    more than the likelihood's per-row bar in ``kernel_checks`` (the mean
+    and the logsumexp over rows move by no more than their largest row)."""
+    from apv_tpu_torch import build_model
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.training.step import g_objective_iwae
+    torch.backends.cudnn.deterministic = True
+    try:
+        m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
+        m32.load_state_dict(state.model.state_dict())
+        params = list(m32.parameters())
+        loss_k, _, _ = g_objective_iwae(cfg, m32, state.d, x_in, x_target,
+                                        1.0, generator=gen(SEED + 5))
+        grads_k = torch.autograd.grad(loss_k, params)
+        loss_p, surrogate = iwae_plain_objective(
+            cfg, m32, state.d, x_in, x_target, K.draw_key(gen(SEED + 5)))
+        grads_p = torch.autograd.grad(surrogate, params)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(grads_k, grads_p))
+    check(rel <= 1e-3, f"iwae_train: G gradients kernels vs plain, "
+          f"scale-relative {rel} > 1e-3")
+    lk, lp = float(loss_k.detach()), float(loss_p.detach())
+    tol = 1e-2 + 1e-5 * abs(lp)
+    check(abs(lk - lp) <= tol, f"iwae_train: loss kernels {lk} vs plain "
+          f"{lp}, |diff| > {tol}")
+    return {"grad_max_scale_rel_err": rel, "loss_kernels": lk,
+            "loss_plain": lp, "loss_tol": tol}
+
+
+def iwae_train_phase(arrays, tmp: str, dev):
+    """cifar_advprior_resnet with train.objective=iwae (k=5, DReG) through
+    train_loop, 8 steps: the decoder at 1,280 rows, the likelihood beside
+    x's 256, reparam's backward summing 5 samples; the peak of allocated
+    memory; then one step's G gradients through the kernels held to the
+    plain ops. Returns (launches, cfg)."""
+    from apv_tpu_torch.data.preprocess import (normalize_center,
+                                               uniform_dequantize)
+    cfg = prior_config("cifar_advprior_resnet", tmp, IWAE_STEPS,
+                       "name=cifar_iwae", "train.objective=iwae",
+                       f"train.iwae_k={IWAE_K}", "train.iwae_grad=dreg")
+    check_flagship_width("iwae_train", cfg)
+    check(cfg.adversarial.enabled and cfg.adversarial.d_reuse_posterior
+          and cfg.adversarial.variant == "learned_prior"
+          and cfg.model.prior == "standard"
+          and cfg.model.likelihood == "discretized_logistic",
+          "iwae_train: expected the standard prior, D inside log w on the "
+          "G phase's posterior, the discretized logistic")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {"reparam": 1, "disc_logistic": 1, "reparam_bwd": 1,
+                "disc_logistic_bwd": 1}
+    state, launches, records, wall, (first, last) = checked_train(
+        "iwae_train", cfg, arrays, dev, per_step)
+    peak = torch.cuda.max_memory_allocated()
+    image = torch.from_numpy(arrays["image"][:cfg.train.batch_size]).to(dev)
+    u = torch.rand(image.shape, generator=torch.Generator(dev).manual_seed(
+        SEED + 7), device=dev)
+    x_in = normalize_center(uniform_dequantize(image, u=u))
+    grads = iwae_grad_check(cfg, state, x_in,
+                            image.to(torch.float32) / 255.0, dev)
+    del state
+    step_s = loop_step_s(prior_config(
+        "cifar_advprior_resnet", tmp, TIMED_STEPS, "name=cifar_iwae_timed",
+        "train.objective=iwae", f"train.iwae_k={IWAE_K}",
+        "train.iwae_grad=dreg", "train.log_every=8"), arrays, dev)
+    last_rec = records[-1]
+    emit("iwae_train", preset="cifar_advprior_resnet", objective="iwae",
+         iwae_k=IWAE_K, iwae_grad="dreg", batch=256, steps=IWAE_STEPS,
+         decoder_rows=IWAE_K * 256, launches=launches, loss_first4=first,
+         loss_last4=last, last_step={k: v for k, v in last_rec.items()
+                                     if k != "step"},
+         wall_s_checked_run=wall, ms_per_step=step_s * 1e3,
+         images_per_s=cfg.train.batch_size / step_s,
+         max_memory_allocated_bytes=peak,
+         max_memory_allocated_gib=peak / 2 ** 30,
+         card=torch.cuda.get_device_name(0), **grads)
+    return launches, cfg
 
 
 # ---------------------------------------------------------------------------
@@ -1636,8 +2032,10 @@ def quality_gate(dev, tmp: str) -> None:
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="also profile one IWAE batch of each family and "
-                         "16 train steps of each; write tables here")
+                    help="also profile one IWAE batch of each family, 16 "
+                         "train steps of each family, of both trained "
+                         "priors and of the IWAE objective; write tables "
+                         "here")
     ap.add_argument("--quality-gate", action="store_true",
                     help="also run the 3k-step CIFAR gate and IWAE k=100 "
                          "on 512 test images (a few minutes)")
@@ -1737,6 +2135,26 @@ def main(argv: list[str]) -> int:
             profile_train(args.profile, cfg3, dev, tag="cifar_train")
         if args.quality_gate:
             quality_gate(dev, tmp)
+
+    # 14-16. the trained priors and the IWAE objective at full width, on
+    # the synthetic CIFAR set loaded once for the three
+    with tempfile.TemporaryDirectory() as tmp:
+        from apv_tpu_torch.training.loop import load_train_arrays
+        t0 = time.perf_counter()
+        arrays, _ = load_train_arrays(prior_config("cifar_gb", tmp,
+                                                   PRIOR_STEPS))
+        emit("cifar_arrays", rows=len(arrays["image"]),
+             load_s=time.perf_counter() - t0)
+        path_launches["gb_train"], cfg_gb = prior_phase(
+            "gb_train", "cifar_gb", arrays, tmp, dev)
+        path_launches["flow_train"], cfg_flow = prior_phase(
+            "flow_train", "cifar_flow", arrays, tmp, dev)
+        path_launches["iwae_train"], cfg5 = iwae_train_phase(arrays, tmp,
+                                                             dev)
+        if args.profile is not None:
+            profile_train(args.profile, cfg_gb, dev, tag="gb_train")
+            profile_train(args.profile, cfg_flow, dev, tag="flow_train")
+            profile_train(args.profile, cfg5, dev, tag="iwae_train")
 
     total = {n: sum(pl[n] for pl in path_launches.values())
              for n in K.launches}

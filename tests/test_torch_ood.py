@@ -251,9 +251,16 @@ def test_api_sample_end_to_end(trained):
                           prior=prior, gmm_k=2, device="cpu")
         assert imgs.shape == (6, 32, 32, 3)
         assert (run / f"samples_{prior}.png").exists()
-    with pytest.raises(NotImplementedError):
-        sample("cifar_advprior_resnet", overrides=over, prior="expost_flow",
-               device="cpu")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        imgs = sample("cifar_advprior_resnet", overrides=over, n=6,
+                      prior="expost_flow", flow_steps=5, device="cpu")
+    assert imgs.shape == (6, 32, 32, 3)
+    assert (run / "samples_expost_flow.png").exists()
+    assert np.isfinite(json.loads(out.getvalue())["expost_flow_fit_nll"])
+    with pytest.raises(ValueError, match="temperature"):
+        sample("cifar_advprior_resnet", overrides=over, n=2,
+               temperature=0.7, device="cpu")
     with pytest.raises(ValueError, match="unknown prior"):
         sample("cifar_advprior_resnet", overrides=over, prior="flow",
                device="cpu")
@@ -300,9 +307,16 @@ def test_make_sampler_and_its_refusals(trained):
     with pytest.raises(ValueError, match="refine_steps"):
         make_sampler(cfg, state.model, state.d, refine_steps=2,
                      prior_moments=pm, device="cpu")
-    flow = tcfg.apply_overrides(cfg, ["model.prior=flow"])
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        make_sampler(flow, state.model, None, device="cpu")
+    flow = tcfg.apply_overrides(cfg, ["model.prior=flow",
+                                      "adversarial.enabled=false"])
+    from apv_tpu_torch.models import build_model
+    flow_model = build_model(flow.model, device="cpu")
+    a = make_sampler(flow, flow_model, None, temperature=0.7,
+                     device="cpu")(1)
+    assert a.shape == (5, 32, 32, 3) and torch.isfinite(a).all()
+    with pytest.raises(ValueError, match="temperature"):
+        make_sampler(cfg, state.model, state.d, temperature=0.7,
+                     device="cpu")
 
 
 def test_config5_entry_points_need_the_card_by_default(trained):

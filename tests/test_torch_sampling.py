@@ -158,8 +158,9 @@ def _x_in(rng, n=16):
 
 def test_expost_moments_and_gmm(rng, pair):
     """expost_prior_moments; expost_prior_gmm from the same posterior
-    draws and first point; expost_prior_sample and expost_prior_logpdf
-    for both forms."""
+    draws and first point; expost_prior_flow from the same posterior draws
+    and fit draws; expost_prior_sample and expost_prior_logpdf for all
+    three forms."""
     fmodel, params, _, _, tmodel, _ = pair
     x = _x_in(rng)
     want_m = jrun.expost_prior_moments(fmodel, params, jnp.asarray(x))
@@ -198,10 +199,46 @@ def test_expost_moments_and_gmm(rng, pair):
             trun.expost_prior_logpdf(pm_t)(_t(zq)).numpy(),
             _np(jrun.expost_prior_logpdf(pm_j)(jnp.asarray(zq))),
             rtol=1e-5, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        trun.expost_prior_flow(tmodel, _t(x))
-    with pytest.raises(NotImplementedError):
-        trun.expost_prior_sample({"flow": 1}, 2, Z)
+
+    # the flow form: a 10-step fit of a 2-layer flow on 4 draws per image,
+    # JAX's posterior draws, shuffle, init draws and minibatch rows
+    # injected (core/flow.fit_flow); f32 gradients through 10 AdamW steps
+    key, draws, steps, hidden = jax.random.PRNGKey(9), 4, 10, 8
+    want_f = jrun.expost_prior_flow(fmodel, params, jnp.asarray(x), key,
+                                    n_layers=2, hidden=hidden, steps=steps)
+    k_draw, k_fit = jax.random.split(key)
+    eps = jnp.stack([jax.random.normal(kk, (len(x), Z), jnp.float32)
+                     for kk in jax.random.split(k_draw, draws)])
+    k_init, k_perm, k_idx = jax.random.split(k_fit, 3)
+    n_pts = draws * len(x)
+    n_train = n_pts - int(n_pts * 0.1)
+    init, kk = [], k_init
+    for _ in range(2):
+        kk, k1, k2 = jax.random.split(kk, 3)
+        init.append((_np(jax.random.normal(k1, (Z, hidden))),
+                     _np(jax.random.normal(k2, (hidden, hidden)))))
+    fit_draws = {
+        "perm": torch.from_numpy(_np(jax.random.permutation(k_perm, n_pts))),
+        "init_draws": init,
+        "indices": torch.from_numpy(np.stack([
+            _np(jax.random.randint(ki, (n_train,), 0, n_train))
+            for ki in jax.random.split(k_idx, steps)]))}
+    got_f = trun.expost_prior_flow(tmodel, _t(x), n_layers=2, hidden=hidden,
+                                   steps=steps, eps=_t(eps),
+                                   fit_draws=fit_draws)
+    np.testing.assert_allclose(float(got_f["flow_nll"]),
+                               float(want_f["flow_nll"]), rtol=1e-4)
+    ks = jax.random.PRNGKey(10)
+    want_s = jrun.expost_prior_sample(ks, want_f, 24, Z)
+    got_s = trun.expost_prior_sample(
+        got_f, 24, Z, eps=_t(jax.random.normal(ks, (24, Z), jnp.float32)))
+    np.testing.assert_allclose(got_s.numpy(), _np(want_s), rtol=1e-3,
+                               atol=1e-3)
+    zq = rng.normal(size=(5, Z)).astype(np.float32)
+    np.testing.assert_allclose(
+        trun.expost_prior_logpdf(got_f)(_t(zq)).numpy(),
+        _np(jrun.expost_prior_logpdf(want_f)(jnp.asarray(zq))),
+        rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("likelihood,chans", [("discretized_logistic", 6),
@@ -276,8 +313,9 @@ def test_generate_samples_seeded_and_shapes(pair):
 
 
 def test_generate_samples_refusals(pair):
-    """The reference's argument checks, in its order, then the
-    not-ported trained priors."""
+    """The reference's argument checks, in its order; then the trained
+    prior's draws, which on a standard-prior model are the N(0, I) draws
+    themselves (its prior_sample_from is the identity)."""
     _, _, _, _, tmodel, td = pair
     pm = (torch.zeros(Z), torch.ones(Z))
 
@@ -292,10 +330,12 @@ def test_generate_samples_refusals(pair):
         gen(model_base=True, prior_moments=pm)
     with pytest.raises(ValueError, match="temperature"):
         gen(temperature=0.8)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        gen(model_prior=True)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        gen(model_base=True, d=td, temperature=0.9)
+    pool = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, Z)).astype(np.float32))
+    assert torch.equal(gen(model_prior=True, draws={"pool": pool}),
+                       gen(draws={"pool": pool}))
+    assert gen(model_base=True, d=td, temperature=0.9).shape == (2, 32, 32,
+                                                                 3)
     with pytest.raises(ValueError, match="no latent"):
         trun.sample_prior(4, Z, refine_steps=2)
     with pytest.raises(ValueError, match="steps >= 1"):

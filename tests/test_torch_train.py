@@ -265,8 +265,23 @@ def test_step_noise_depends_only_on_seed_and_step():
     "adversarial.d_spectral_norm=true", "adversarial.d_lr_schedule=cosine",
     "train.free_bits=0.5", "train.ema_decay=0.99", "train.grad_accum=2"])
 def test_knobs_outside_the_slice_raise(knob):
+    """Knobs the port does not run raise NotImplementedError naming the
+    knob. The trained priors, the IWAE objective and free bits are ported:
+    they build, and raise only where the reference refuses them (a
+    ValueError)."""
     from apv_tpu_torch.utils.config import apply_overrides
     cfg = apply_overrides(_port_cfg(tiny_config("mnist_advprior")), [knob])
+    refused_with = {
+        "train.objective=iwae": ("train.free_bits=0.5", "free_bits"),
+        "model.prior=gaussian": ("train.flow_dispersion_penalty=1.0",
+                                 "flow_dispersion_penalty"),
+        "train.free_bits=0.5": ("train.objective=iwae", "free_bits")}
+    if knob in refused_with:
+        other, match = refused_with[knob]
+        tstep.make_train_fns(cfg, device="cpu")
+        with pytest.raises(ValueError, match=match):
+            tstep.make_train_fns(apply_overrides(cfg, [other]), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
         tstep.make_train_fns(cfg, device="cpu")
 
