@@ -7,6 +7,12 @@ training on one card of the MNIST configs and of the CIFAR-10 flagship
 with their synthetic fallback, validation, checkpoints and exact resume),
 and config 5 on a trained checkpoint: SIR/MALA and ex-post sampling with
 sample-quality distances (``sample``) and OOD scoring (``ood_score``).
+The front door is ``train``, ``evaluate`` (config 4, under the model's
+prior or an ex-post prior, with the active units of
+``posterior_activity``), ``sample``, ``ood_score`` and ``info``, and the
+``apv-torch`` CLI (``python -m apv_tpu_torch.cli``). The discriminators
+include the spectrally normalized latent D, the R1 penalty and the
+biadversarial pixel D with its ``pixel_d`` OOD score.
 Reparameterized sampling, KL and the Bernoulli and discretized-logistic
 likelihoods run in hand-written CUDA kernels on the card
 (``apv_tpu_torch.ops``), each with a backward kernel, and in plain
@@ -18,10 +24,10 @@ Entry points take ``device=None``, meaning the CUDA card; they raise when
 there is none. Pass ``device="cpu"`` for the plain path.
 """
 
-from apv_tpu_torch.api import ood_score, sample
+from apv_tpu_torch.api import evaluate, info, ood_score, sample, train
 from apv_tpu_torch.data.datasets import load_dataset
 from apv_tpu_torch.eval.ood import ood_both, ood_scores
-from apv_tpu_torch.eval.run import evaluate_nll
+from apv_tpu_torch.eval.run import evaluate_nll, posterior_activity
 from apv_tpu_torch.eval.sample_quality import sample_quality
 from apv_tpu_torch.models import build_model, make_latent_d
 from apv_tpu_torch.ops.groupnorm import groupnorm_gelu
@@ -33,9 +39,10 @@ from apv_tpu_torch.utils.checkpoint import (latest_step, restore_checkpoint,
                                            save_checkpoint)
 from apv_tpu_torch.utils.config import apply_overrides, get_preset
 
-__all__ = ["apply_overrides", "build_model", "evaluate_nll",
-           "generate_samples", "get_preset", "groupnorm_gelu", "latest_step",
-           "load_dataset", "make_latent_d", "make_sampler", "make_scorer",
-           "make_train_fns", "ood_both", "ood_score", "ood_scores",
-           "restore_checkpoint", "sample", "sample_quality",
-           "save_checkpoint", "train_loop"]
+__all__ = ["apply_overrides", "build_model", "evaluate", "evaluate_nll",
+           "generate_samples", "get_preset", "groupnorm_gelu", "info",
+           "latest_step", "load_dataset", "make_latent_d", "make_sampler",
+           "make_scorer", "make_train_fns", "ood_both", "ood_score",
+           "ood_scores", "posterior_activity", "restore_checkpoint",
+           "sample", "sample_quality", "save_checkpoint", "train",
+           "train_loop"]

@@ -1,11 +1,15 @@
-"""Public entry points for config 5: ``sample`` and ``ood_score``
-(counterpart of ``apv_tpu/api.py:18-111,193-330,561-609``).
+"""Public entry points: ``train``, ``evaluate`` (config 4), ``sample``
+and ``ood_score`` (config 5), and ``info`` (counterpart of
+``apv_tpu/api.py``).
 
 Each is config-driven (a preset name or Config, plus dot-path overrides),
-restores the port's own checkpoint (``utils/checkpoint.py``) and writes its
-result next to the run. Eval-side entry points adopt the checkpoint's saved
-``config.json``: its model, adversarial and data sections (preprocessing
-must match training), then re-apply the caller's overrides.
+reads and writes the port's own checkpoints (``utils/checkpoint.py``) and
+writes its result next to the run. Eval-side entry points adopt the
+checkpoint's saved ``config.json``: its model, adversarial and data
+sections (preprocessing must match training), then re-apply the caller's
+overrides; ``train(resume=True)`` does the same when a checkpoint exists.
+``info`` reads the results dir only: it loads no checkpoint and touches no
+device.
 
 A checkpoint with a trained prior (``model.prior='flow'`` or
 ``'gaussian'``) samples and scores under it: ``sample``'s 'auto' prior is
@@ -13,9 +17,11 @@ the flow's exact inverse, or SIR over the Gaussian base with its D, at
 ``temperature``; ``ood_score`` scores under the checkpoint's own prior
 through ``evaluate_nll``.
 
-Not ported: ``train``/``evaluate``/``visualize``/``export_artifact``/
-``info`` and the CLI (ROADMAP queue A item 14; ``train_loop`` and
-``evaluate_nll`` are the port's training and scoring entry points).
+A biadversarial checkpoint's D is the ``{"latent", "pixel"}`` pair:
+sampling and the likelihood scores read its latent D (``_d``), the OOD
+suite gets the pair (``ood.score='pixel_d'`` reads the pixel D).
+
+Not ported: ``visualize`` and ``export_artifact``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,14 @@ def _resolve(config: str | Config, overrides: list[str] | None) -> Config:
     return apply_overrides(cfg, overrides or [])
 
 
+def _decode_result_json(text: str):
+    """A results-dir JSON payload, also in the legacy double-encoded form
+    (a JSON string holding the JSON): ``_saved_config`` and ``info`` read
+    through here."""
+    d = json.loads(text)
+    return json.loads(d) if isinstance(d, str) else d
+
+
 def _saved_config(cfg: Config, checkpoint_dir: str | None = None,
                   name: str | None = None) -> Config | None:
     """The config.json saved beside the checkpoint this cfg points at, or
@@ -50,7 +64,7 @@ def _saved_config(cfg: Config, checkpoint_dir: str | None = None,
         cfg_path = Path(cfg.results_dir) / owner / "config.json"
     if not cfg_path.exists():
         return None
-    return config_from_dict(json.loads(cfg_path.read_text()))
+    return config_from_dict(_decode_result_json(cfg_path.read_text()))
 
 
 def _adopt_checkpoint_arch(cfg: Config, overrides: list[str] | None,
@@ -89,20 +103,172 @@ def _write_json(cfg: Config, name: str, data: dict) -> None:
     MetricLogger(Path(cfg.results_dir) / cfg.name).write_json(name, data)
 
 
-def _d(state, cfg: Config):
-    """The latent D eval-side entry points consume (None when the run is
-    not adversarial)."""
-    return state.d if cfg.adversarial.enabled else None
+def _d(state, cfg: Config, *, whole: bool = False):
+    """The D eval-side entry points consume: None when the run is not
+    adversarial, else the latent D (the pair's latent D under the
+    biadversarial variant), or with ``whole`` the state's whole D (the OOD
+    suite routes the latent and the pixel D itself)."""
+    if not cfg.adversarial.enabled:
+        return None
+    if whole:
+        return state.d
+    from apv_tpu_torch.models import latent_d_params
+    return latent_d_params(cfg.adversarial.variant, state.d)
+
+
+def train(config: str | Config = "mnist_vae", *,
+          overrides: list[str] | None = None, resume: bool = False,
+          max_steps: int | None = None, trace_dir: str | None = None,
+          overwrite: bool = False, device=None):
+    """Train the configured model through ``train_loop``; returns the final
+    TrainState. ``resume=True`` continues the newest checkpoint under
+    ``<results_dir>/<name>/checkpoints``, rebuilt with that checkpoint's
+    saved architecture, data section and train seed (the explicit
+    overrides re-applied), but only when a checkpoint exists: a dir that
+    holds only a crashed run's config.json leaves the preset as it is.
+    ``overwrite=True`` lets a fresh run clear a results dir that holds a
+    run. ``trace_dir`` writes a profiler trace of steps 10-15 of this
+    invocation (``utils/logging.py``)."""
+    from apv_tpu_torch.training.loop import train_loop
+    from apv_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = _resolve(config, overrides)
+    if resume and ckpt.latest_step(
+            Path(cfg.results_dir) / cfg.name / "checkpoints") is not None:
+        cfg = _adopt_checkpoint_arch(cfg, overrides)
+    return train_loop(cfg, resume=resume, max_steps=max_steps,
+                      trace_dir=trace_dir, overwrite=overwrite,
+                      device=device)
+
+
+_EVAL_PRIORS = ("model", "expost", "expost_gmm", "expost_flow")
+
+
+def evaluate(config: str | Config = "iwae_eval", *,
+             overrides: list[str] | None = None,
+             checkpoint_dir: str | None = None, dataset: str | None = None,
+             k: int | None = None, per_sample: bool = False,
+             activity: bool = True, prior: str = "model", gmm_k: int = 10,
+             flow_steps: int = 2000, device=None) -> dict:
+    """IWAE-k test NLL and bits/dim of a trained checkpoint over the first
+    ``eval.max_examples`` test images of ``dataset`` (default the config's).
+
+    ``prior``: 'model' scores under the checkpoint's own prior; 'expost',
+    'expost_gmm' (``gmm_k`` components) and 'expost_flow' (``flow_steps``
+    fit steps) under an ex-post prior fitted to the first 2,048 images of
+    the train split, preprocessed as training saw them: an exact density,
+    no log-partition estimate. ``activity`` adds the active-units report
+    (``posterior_activity``). Writes ``eval.json`` (``eval_<prior>.json``
+    for an ex-post prior) without ``per_sample``, which only the returned
+    dict holds.
+    """
+    from apv_tpu_torch.eval.run import (eval_arrays, evaluate_nll,
+                                        posterior_activity)
+
+    if prior not in _EVAL_PRIORS:
+        raise ValueError(f"unknown prior {prior!r} "
+                         "(model|expost|expost_gmm|expost_flow)")
+    dev = resolve_device(device)
+    cfg = _adopt_checkpoint_arch(_resolve(config, overrides), overrides,
+                                 checkpoint_dir)
+    state = _restore_state(cfg, checkpoint_dir, device=dev)
+    prior_moments = _expost_prior(cfg, state.model, prior, gmm_k=gmm_k,
+                                  flow_steps=flow_steps, split="train",
+                                  device=dev)
+    images = eval_arrays(cfg, dataset,
+                         max_examples=cfg.eval.max_examples)["image"]
+    result = evaluate_nll(cfg, state.model, _d(state, cfg), images, k=k,
+                          per_sample=per_sample,
+                          prior_moments=prior_moments, device=dev)
+    if activity:
+        result.update(posterior_activity(cfg, state.model, images,
+                                         device=dev))
+    out = {k_: v for k_, v in result.items() if k_ != "per_sample"}
+    # an ex-post prior's file never overwrites the model prior's eval.json
+    suffix = "" if prior == "model" else f"_{prior}"
+    _write_json(cfg, f"eval{suffix}.json", out)
+    return result
+
+
+def info(name: str | None = None, *, results_dir: str = "results") -> dict:
+    """The results dir, read from the files alone (no checkpoint is loaded
+    and no device touched). Without ``name``: one summary a run (config
+    highlights, newest checkpoint step). With ``name``: that run's summary,
+    its checkpoint steps on disk, ``best.json``, its result files
+    (``eval*.json``, ``ood*.json``, ``sample_quality*.json``) and the last
+    ``metrics.jsonl`` record."""
+    from apv_tpu_torch.utils.checkpoint import _steps
+
+    root = Path(results_dir)
+
+    def _read(p: Path):
+        try:
+            return _decode_result_json(p.read_text())
+        except (OSError, json.JSONDecodeError):
+            return None
+
+    def _summary(run: Path) -> dict:
+        cfg = _read(run / "config.json") or {}
+        model, adv = cfg.get("model", {}), cfg.get("adversarial", {})
+        steps = _steps(run / "checkpoints")
+        return {
+            "name": run.name,
+            "family": model.get("family"),
+            "z_dim": model.get("z_dim"),
+            "likelihood": model.get("likelihood"),
+            "adversarial": (adv.get("variant") if adv.get("enabled")
+                            else None),
+            "dataset": cfg.get("data", {}).get("dataset"),
+            "train_steps": cfg.get("train", {}).get("steps"),
+            "latest_checkpoint": steps[-1] if steps else None,
+        }
+
+    if name is None:
+        runs = sorted(p for p in root.iterdir()
+                      if p.is_dir() and (p / "config.json").exists()) \
+            if root.exists() else []
+        return {"results_dir": str(root),
+                "runs": [_summary(r) for r in runs]}
+
+    run = root / name
+    if not (run / "config.json").exists():
+        raise FileNotFoundError(
+            f"no run named {name!r} under {root} (no config.json)")
+    out = _summary(run)
+    out["checkpoint_steps"] = _steps(run / "checkpoints")
+    out["best"] = _read(run / "best.json")
+    result_files = ["eval.json", "ood.json", "sample_quality.json"]
+    result_files += sorted(
+        p.name for p in run.glob("*.json")
+        if (p.name.startswith(("eval_", "sample_quality_", "ood_"))
+            and p.name not in result_files))
+    for f in result_files:
+        data = _read(run / f)
+        if data is not None:
+            out[f.removesuffix(".json")] = data
+    metrics = run / "metrics.jsonl"
+    if metrics.exists():
+        lines = [ln for ln in metrics.read_text().splitlines() if ln.strip()]
+        if lines:
+            try:
+                out["last_metrics"] = json.loads(lines[-1])
+            except json.JSONDecodeError:
+                pass
+    return out
 
 
 def _expost_prior(cfg: Config, model, prior: str, *, gmm_k: int = 10,
-                  flow_steps: int = 2000, seed: int = 0, device=None):
-    """Fit the requested ex-post prior on the first 2,048 test images,
-    preprocessed as training saw them: ``(mean, var)`` for 'expost',
-    ``(log_w, means, vars)`` for 'expost_gmm', a flow params dict for
-    'expost_flow' (``flow_steps`` fit steps; prints the fit's final NLL and
-    its wall time, posterior draws included), None for the model's own
-    priors."""
+                  flow_steps: int = 2000, seed: int = 0,
+                  split: str = "test", device=None):
+    """Fit the requested ex-post prior on the first 2,048 images of
+    ``split``, preprocessed as training saw them: ``(mean, var)`` for
+    'expost', ``(log_w, means, vars)`` for 'expost_gmm', a flow params
+    dict for 'expost_flow' (``flow_steps`` fit steps; prints the fit's
+    final NLL and its wall time, posterior draws included), None for the
+    model's own priors. ``sample`` fits the test split (the recorded A/B
+    protocol); ``evaluate`` fits the train split, binarized as the train
+    loop binarizes it, since a prior fitted on the images it then scores
+    would leak."""
     if prior not in ("expost", "expost_gmm", "expost_flow"):
         return None
     from apv_tpu_torch.eval.run import _prep_eval_batch, eval_arrays
@@ -112,7 +278,18 @@ def _expost_prior(cfg: Config, model, prior: str, *, gmm_k: int = 10,
                                             seed_generators)
 
     dev = resolve_device(device)
-    images = eval_arrays(cfg, None, max_examples=2048)["image"]
+    if split == "test":
+        images = eval_arrays(cfg, None, max_examples=2048)["image"]
+    else:
+        from apv_tpu_torch.data.datasets import load_dataset
+        from apv_tpu_torch.data.preprocess import static_binarize
+        images, _ = load_dataset(cfg.data.dataset, split,
+                                 data_dir=cfg.data.data_dir,
+                                 synthetic_size=cfg.data.synthetic_size)
+        if cfg.data.binarize:
+            # the train loop's binarization (training/loop.py)
+            images = static_binarize(images, seed=cfg.train.seed)
+        images = images[:2048]
     x_in = torch.from_numpy(_prep_eval_batch(cfg, images)[0]).to(dev)
     if prior == "expost":
         return expost_prior_moments(model, x_in)
@@ -205,12 +382,12 @@ def sample(config: str | Config = "mnist_vae", *,
 def _load_named_model(cfg: Config, name: str, *, device=None):
     """(cfg_b, model_b, d_b) for a results-dir run name: the architecture
     from its saved config.json (else the preset of that name), the weights
-    from its checkpoint."""
+    from its checkpoint; d_b is the whole D (the OOD suite routes it)."""
     cfg_b = _saved_config(cfg, name=name)
     if cfg_b is None:
         cfg_b = get_preset(name)
     state_b = _restore_state(cfg_b, device=device)
-    return cfg_b, state_b.model, _d(state_b, cfg_b)
+    return cfg_b, state_b.model, _d(state_b, cfg_b, whole=True)
 
 
 def ood_score(config: str | Config = "ood_suite", *,
@@ -220,14 +397,15 @@ def ood_score(config: str | Config = "ood_suite", *,
     """Run the OOD suite for the configured dataset pair and write
     ``ood.json``. ``both=True`` also scores the reversed direction (with
     the ``ood.reverse_of`` checkpoint when set); ``score='model_ratio'``
-    loads the ``ood.baseline_of`` checkpoint as the denominator."""
+    loads the ``ood.baseline_of`` checkpoint as the denominator;
+    ``score='pixel_d'`` scores with a biadversarial checkpoint's pixel D."""
     from apv_tpu_torch.eval.ood import ood_both, ood_scores
 
     dev = resolve_device(device)
     cfg = _adopt_checkpoint_arch(_resolve(config, overrides), overrides,
                                  checkpoint_dir)
     state = _restore_state(cfg, checkpoint_dir, device=dev)
-    d = _d(state, cfg)
+    d = _d(state, cfg, whole=True)
     baseline = (None if cfg.ood.baseline_of is None
                 else _load_named_model(cfg, cfg.ood.baseline_of, device=dev))
     if both:

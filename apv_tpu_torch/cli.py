@@ -1,0 +1,204 @@
+"""The port's CLI: ``apv-torch {train,evaluate,sample,ood,presets,info}
+--preset <name> [--set k=v ...]`` (counterpart of ``apv_tpu/cli.py``), also
+``python -m apv_tpu_torch.cli``.
+
+Commands run on the CUDA card unless ``--device cpu``. ``presets`` and
+``info`` read only the config registry and the results dir: they touch no
+device. What the port lacks exits nonzero naming the ROADMAP item:
+``sample --visualize`` (items 12.6 and 14b), ``export`` (14b) and
+``train --distributed`` (13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _add_common(p: argparse.ArgumentParser, default_preset: str) -> None:
+    p.add_argument("--preset", default=default_preset,
+                   help="named config preset")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="PATH=VALUE",
+                   help="dot-path config override, e.g. train.lr=3e-4")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--debug-nans", action="store_true",
+                   help="torch.autograd.set_detect_anomaly(True): raise at "
+                        "the op whose backward makes a NaN (slow)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="run on the CUDA card (default) or on the CPU "
+                        "(the kernels' plain PyTorch versions)")
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="apv-torch",
+        description="adversarial-prior VAE framework, PyTorch/CUDA port")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_train = sub.add_parser("train", help="train a model")
+    _add_common(p_train, "mnist_vae")
+    p_train.add_argument("--resume", action="store_true")
+    p_train.add_argument("--overwrite", action="store_true",
+                         help="let a fresh (non-resume) run clear an "
+                              "existing run of the same name (refused "
+                              "otherwise)")
+    p_train.add_argument("--max-steps", type=int, default=None)
+    p_train.add_argument("--trace-dir", default=None,
+                         help="write a torch.profiler trace of this run's "
+                              "steps 10-15 into this dir")
+    p_train.add_argument("--distributed", action="store_true",
+                         help="multi-card training (not ported: ROADMAP "
+                              "queue A item 13)")
+
+    p_eval = sub.add_parser("evaluate", help="IWAE-k NLL + bits/dim")
+    _add_common(p_eval, "iwae_eval")
+    p_eval.add_argument("--dataset", default=None)
+    p_eval.add_argument("--k", type=int, default=None)
+    p_eval.add_argument("--prior", choices=("model", "expost",
+                                            "expost_gmm", "expost_flow"),
+                        default="model",
+                        help="score under the checkpoint's own prior, or "
+                             "an ex-post (Gaussian, GMM or RealNVP-flow) "
+                             "prior fitted to the train split: an exact "
+                             "density, no log-partition term")
+    p_eval.add_argument("--gmm-k", type=int, default=10, metavar="K",
+                        help="components for --prior expost_gmm")
+    p_eval.add_argument("--flow-steps", type=int, default=2000,
+                        metavar="N",
+                        help="MLE fit steps for --prior expost_flow")
+
+    p_sample = sub.add_parser("sample", help="decode prior samples to a grid")
+    _add_common(p_sample, "mnist_vae")
+    p_sample.add_argument("-n", type=int, default=64)
+    p_sample.add_argument("--mode", choices=("mean", "sample"),
+                          default="mean")
+    p_sample.add_argument("--seed", type=int, default=0)
+    p_sample.add_argument("--out", default=None)
+    p_sample.add_argument("--visualize", choices=("reconstruct",
+                                                  "interpolate", "latent"),
+                          default=None,
+                          help="reconstruction, slerp or latent-scatter "
+                               "grids (not ported: ROADMAP queue A items "
+                               "12.6 and 14b)")
+    p_sample.add_argument("--prior", choices=("auto", "standard", "expost",
+                                              "expost_gmm", "expost_flow"),
+                          default="auto",
+                          help="latent draw: the model's own (shaped or "
+                               "trained) prior, N(0,I), or an ex-post "
+                               "Gaussian, --gmm-k-component GMM or RealNVP "
+                               "flow fitted to the test split")
+    p_sample.add_argument("--gmm-k", type=int, default=10, metavar="K",
+                          help="components for --prior expost_gmm")
+    p_sample.add_argument("--flow-steps", type=int, default=2000,
+                          metavar="N",
+                          help="MLE fit steps for --prior expost_flow")
+    p_sample.add_argument("--refine", type=int, default=0, metavar="STEPS",
+                          help="MALA steps on the adversarially shaped prior "
+                               "after the SIR draw (0 = SIR only)")
+    p_sample.add_argument("--temperature", type=float, default=1.0,
+                          metavar="T",
+                          help="base-draw temperature of the model's own "
+                               "trained prior (model.prior=flow/gaussian): "
+                               "u ~ N(0, T²I)")
+    p_sample.add_argument("--quality", type=int, default=0, metavar="N",
+                          help="also compute sample-quality distances over "
+                               "N samples -> sample_quality.json")
+
+    p_ood = sub.add_parser("ood", help="OOD scoring suite")
+    _add_common(p_ood, "ood_suite")
+    p_ood.add_argument("--seed", type=int, default=0)
+    p_ood.add_argument("--both", action="store_true",
+                       help="also score the reversed dataset-pair direction "
+                            "(with the ood.reverse_of checkpoint when set)")
+
+    sub.add_parser("presets",
+                   help="list the named config presets with their "
+                        "docstrings (touches no device)")
+
+    p_info = sub.add_parser("info",
+                            help="list the runs of the results dir, or one "
+                                 "run's config, checkpoints, results and "
+                                 "last metrics (touches no device)")
+    p_info.add_argument("name", nargs="?", default=None,
+                        help="run name (omit to list all runs)")
+    p_info.add_argument("--results-dir", default="results")
+
+    # the reference's export flags (and sample --visualize's --steps) are
+    # left to parse_known_args, so that the refusal is what shows
+    sub.add_parser("export", help="export a serving artifact (not ported: "
+                                  "ROADMAP queue A item 14b)")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = _parser()
+    args, unknown = parser.parse_known_args(argv)
+    if args.command == "export":
+        raise SystemExit("export is not ported to apv_tpu_torch yet "
+                         "(ROADMAP queue A item 14b)")
+    if args.command == "sample" and args.visualize:
+        raise SystemExit("sample --visualize is not ported to apv_tpu_torch "
+                         "yet (ROADMAP queue A items 12.6 and 14b)")
+    if unknown:
+        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.command == "info":
+        from apv_tpu_torch.api import info
+        print(json.dumps(info(args.name, results_dir=args.results_dir),
+                         indent=2))
+        return 0
+    if args.command == "presets":
+        from apv_tpu_torch.utils.config import PRESETS
+        for name, factory in PRESETS.items():
+            doc = ((factory.__doc__ or "").strip().splitlines() or [""])[0]
+            print(f"{name:24s} {doc}")
+        return 0
+    if args.command == "train":
+        if args.distributed:
+            raise SystemExit("--distributed is not ported to apv_tpu_torch "
+                             "yet (ROADMAP queue A item 13)")
+        if args.checkpoint_dir:
+            # train resumes from its own results dir by name
+            raise SystemExit(
+                "--checkpoint-dir is eval-side only (evaluate/sample/ood); "
+                "train resumes from <results_dir>/<name>/checkpoints — use "
+                "--set name=... / --set results_dir=...")
+    if args.debug_nans:
+        import torch
+        torch.autograd.set_detect_anomaly(True)
+    import apv_tpu_torch as api
+
+    dev = args.device
+    if args.command == "train":
+        state = api.train(args.preset, overrides=args.overrides,
+                          resume=args.resume, max_steps=args.max_steps,
+                          trace_dir=args.trace_dir, overwrite=args.overwrite,
+                          device=dev)
+        print(f"trained to step {int(state.step)}")
+    elif args.command == "evaluate":
+        result = api.evaluate(args.preset, overrides=args.overrides,
+                              checkpoint_dir=args.checkpoint_dir,
+                              dataset=args.dataset, k=args.k,
+                              prior=args.prior, gmm_k=args.gmm_k,
+                              flow_steps=args.flow_steps, device=dev)
+        print(json.dumps(result, indent=2))
+    elif args.command == "sample":
+        api.sample(args.preset, overrides=args.overrides,
+                   checkpoint_dir=args.checkpoint_dir, n=args.n,
+                   mode=args.mode, seed=args.seed, out_path=args.out,
+                   quality_n=args.quality, refine=args.refine,
+                   prior=args.prior, gmm_k=args.gmm_k,
+                   flow_steps=args.flow_steps,
+                   temperature=args.temperature, device=dev)
+        print("wrote sample grid")
+    elif args.command == "ood":
+        result = api.ood_score(args.preset, overrides=args.overrides,
+                               checkpoint_dir=args.checkpoint_dir,
+                               seed=args.seed, both=args.both, device=dev)
+        print(json.dumps(result, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

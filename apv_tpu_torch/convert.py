@@ -3,7 +3,8 @@
 ``params_from_flax`` maps a ``ResNetVAE`` or ``ConvVAE`` params tree (numpy
 leaves; any tree of that structure, such as Adam's moments) to a state
 dict of the port's model of the same family; ``d_params_from_flax`` does
-the same for the latent discriminator. Layouts:
+the same for the discriminators (the latent D, spectrally normalized or
+not, and the biadversarial pair). Layouts:
 
 * Dense kernels are (in, out) in flax and (out, in) in torch;
 * Conv kernels go HWIO -> OIHW;
@@ -177,9 +178,31 @@ def _conv_vae(enc, dec) -> dict[str, torch.Tensor]:
     return sd
 
 
-def d_params_from_flax(flax_d_params) -> dict[str, torch.Tensor]:
-    """flax ``LatentDiscriminator`` params -> the port's state dict."""
+def _latent_d(tree) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
-    for i in range(_count(flax_d_params, "Dense")):
-        _put(sd, f"layers.{i}", _dense(flax_d_params[f"Dense_{i}"]))
+    cls = "SNDense" if "SNDense_0" in tree else "Dense"
+    for i in range(_count(tree, cls)):
+        _put(sd, f"layers.{i}", _dense(tree[f"{cls}_{i}"]))
     return sd
+
+
+def _pixel_d(tree) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(_count(tree, "Conv")):
+        _put(sd, f"convs.{i}", _conv(tree[f"Conv_{i}"]))
+    _put(sd, "head", _dense(tree["Dense_0"]))
+    return sd
+
+
+def d_params_from_flax(flax_d_params) -> dict[str, torch.Tensor]:
+    """flax discriminator params -> the port's state dict: a
+    ``LatentDiscriminator`` tree (``Dense_i``, or ``SNDense_i`` under
+    spectral norm), or the biadversarial ``{"latent", "pixel"}`` pair,
+    whose pixel tree (``Conv_i``, ``Dense_0``) maps to
+    ``PixelDiscriminator``'s ``convs.i`` and ``head``."""
+    if "latent" in flax_d_params:
+        sd: dict[str, torch.Tensor] = {}
+        _put(sd, "latent", _latent_d(flax_d_params["latent"]))
+        _put(sd, "pixel", _pixel_d(flax_d_params["pixel"]))
+        return sd
+    return _latent_d(flax_d_params)

@@ -8,9 +8,11 @@ streaming-logsumexp state, so peak memory is one chunk of decoder
 activations.
 
 The prior term is N(0, I), or the model's own trained prior
-(``prior_logpdf_p``: the flow or the Gaussian base). With the adversarial learned prior, log p*(z) =
-log p_base(z) + D(z) − log Z; ``estimate_log_partition`` MC-estimates
-log Z = log E_{p_base}[e^{D(z)}] under the same base.
+(``prior_logpdf_p``: the flow or the Gaussian base), or an ex-post prior
+fitted after training (``prior_logpdf``), which replaces the model's prior
+entirely. With the adversarial learned prior, log p*(z) = log p_base(z) +
+D(z) − log Z; ``estimate_log_partition`` MC-estimates log Z =
+log E_{p_base}[e^{D(z)}] under the same base.
 """
 
 from __future__ import annotations
@@ -39,15 +41,24 @@ def sample_posterior_chunk(mean: torch.Tensor, logvar: torch.Tensor,
 
 def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
                        d_apply: Callable | None = None,
-                       prior_logpdf_p: Callable | None = None) -> Callable:
+                       prior_logpdf_p: Callable | None = None,
+                       prior_logpdf: Callable | None = None) -> Callable:
     """One chunk's log importance weights [chunk, B] — the one place the
     estimator's math lives.
 
     ``prior_logpdf_p`` (``z [..., Z] -> [...]``, the model's trained flow
     or Gaussian base) replaces the N(0, I) prior term. ``d_apply``
     (``z [N, Z] -> [N]``) shapes the prior to p*(z) ∝ p_base(z)·e^{D(z)}
-    (pass the log Z estimated under the same base).
+    (pass the log Z estimated under the same base). ``prior_logpdf`` (the
+    same signature: an exact ex-post prior,
+    ``sampling.run.expost_prior_logpdf``) replaces the model's prior
+    entirely, so it excludes the other two.
     """
+    if prior_logpdf is not None and (d_apply is not None
+                                     or prior_logpdf_p is not None):
+        raise ValueError("prior_logpdf (ex-post prior) replaces the "
+                         "model's prior entirely: it excludes d_apply and "
+                         "prior_logpdf_p")
 
     def logw_chunk(mean, logvar, x_target, log_z=0.0, *, generator=None,
                    eps=None):
@@ -60,7 +71,9 @@ def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
         # likelihood op reads row r's image as x_target[r % B], no copy
         recon = recon_log_likelihood(x_target, out, likelihood,
                                      samples=chunk).reshape(chunk, b)
-        if prior_logpdf_p is not None:
+        if prior_logpdf is not None:
+            logp0 = prior_logpdf(z)
+        elif prior_logpdf_p is not None:
             logp0 = prior_logpdf_p(z)
         else:
             logp0 = D.standard_gaussian_logpdf(z).sum(dim=-1)
@@ -75,14 +88,15 @@ def make_logw_chunk_fn(decode: Callable, likelihood: str, chunk: int,
 
 def make_iwae_fn(model, likelihood: str, k: int, chunk: int,
                  d_apply: Callable | None = None,
-                 prior_logpdf_p: Callable | None = None) -> Callable:
+                 prior_logpdf_p: Callable | None = None,
+                 prior_logpdf: Callable | None = None) -> Callable:
     """Build ``fn(x_in, x_target, log_z=0.0, *, generator, eps) -> [B]``;
     the priors as ``make_logw_chunk_fn``'s.
 
     ``eps`` ([k // chunk, chunk, B, Z], CPU only) injects each chunk's noise.
     """
     logw_chunk = make_logw_chunk_fn(model.decode, likelihood, chunk, d_apply,
-                                    prior_logpdf_p)
+                                    prior_logpdf_p, prior_logpdf)
 
     def iwae_fn(x_in, x_target, log_z=0.0, *, generator=None, eps=None):
         mean, logvar = model.encode(x_in)          # [B, Z], once

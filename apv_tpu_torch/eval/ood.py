@@ -10,12 +10,17 @@ and AUROC in both labelings. Scores (``cfg.ood.score``):
   default);
 * ``model_ratio``: log p_A(x) − log p_B(x) under two checkpoints (the
   baseline, ``ood.baseline_of``, scores the same examples);
+* ``pixel_d``: the biadversarial pixel D's realness logit D_x(x), one
+  conv forward per image (biadversarial checkpoints only,
+  ``eval/run.pixel_d_scores``);
 * ``complexity``: log p(x) + L(x), with L(x) the PNG codelength in nats
   (Serrà et al. 2020), from the port's own PNG encoder
   (``utils/png.py``, byte for byte what Pillow writes).
 
-``pixel_d`` needs the biadversarial pixel discriminator, not ported yet
-(ROADMAP queue A item 12): it raises ``NotImplementedError``.
+``d`` throughout is the checkpoint's whole D: under the biadversarial
+variant the ``{"latent", "pixel"}`` pair, whose latent D the likelihood
+scores read (``models.latent_d_params``) and whose pixel D ``pixel_d``
+reads.
 
 ``ood_both`` runs both pair directions, optionally with a second model
 trained on the other dataset for the reversed direction.
@@ -27,9 +32,11 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 from scipy.stats import rankdata
 
-from apv_tpu_torch.eval.run import eval_arrays, evaluate_nll
+from apv_tpu_torch.eval.run import eval_arrays, evaluate_nll, pixel_d_scores
+from apv_tpu_torch.models.discriminator import latent_d_params
 from apv_tpu_torch.utils import png
 from apv_tpu_torch.utils.config import Config
 
@@ -98,19 +105,29 @@ def ood_scores(cfg: Config, model, d=None, *, seed: int = 0, baseline=None,
                device=None) -> dict:
     """The suite for (``cfg.ood.in_dataset``, ``cfg.ood.ood_dataset``).
 
-    ``d`` is the latent D (None for a plain-prior model). ``baseline`` is
-    ``(cfg_b, model_b, d_b)``, required by ``score='model_ratio'``.
-    Returns per-direction AUROCs, FPR@95 and summary statistics.
+    ``d`` is the checkpoint's D (None for a plain-prior model; the pair
+    under the biadversarial variant). ``baseline`` is ``(cfg_b, model_b,
+    d_b)``, required by ``score='model_ratio'``. Returns per-direction
+    AUROCs, FPR@95 and summary statistics.
     """
     score = cfg.ood.score
     k = cfg.ood.iwae_k if score != "elbo" else 1
+    d_full, d = d, latent_d_params(cfg.adversarial.variant, d)
 
     def score_dataset(name: str) -> np.ndarray:
         if score == "pixel_d":
-            raise NotImplementedError(
-                "the pixel_d score needs the biadversarial pixel "
-                "discriminator, which is not ported yet (ROADMAP queue A "
-                "item 12)")
+            if (not cfg.adversarial.enabled
+                    or cfg.adversarial.variant != "biadversarial"
+                    or not (isinstance(d_full, torch.nn.ModuleDict)
+                            and "pixel" in d_full)):
+                raise ValueError(
+                    "pixel_d score needs a biadversarial checkpoint "
+                    "(adversarial.variant=biadversarial trains the "
+                    "pixel-space discriminator it scores with)")
+            images = eval_arrays(cfg, name,
+                                 max_examples=cfg.ood.max_examples)["image"]
+            return pixel_d_scores(cfg, d_full["pixel"], images,
+                                  device=device)
         if score == "prior_ratio":
             if d is None or not cfg.adversarial.enabled:
                 raise ValueError(
@@ -129,7 +146,9 @@ def ood_scores(cfg: Config, model, d=None, *, seed: int = 0, baseline=None,
             a = _per_sample(cfg, model, d, name,
                             use_adv=cfg.adversarial.enabled, k=k, seed=seed,
                             device=device)
-            b = _per_sample(cfg_b, model_b, d_b, name,
+            b = _per_sample(cfg_b, model_b,
+                            latent_d_params(cfg_b.adversarial.variant, d_b),
+                            name,
                             use_adv=cfg_b.adversarial.enabled, k=k,
                             seed=seed, device=device)
             return a - b

@@ -1,6 +1,8 @@
 """``evaluate_nll``: test-set NLL via IWAE-k and bits/dim on one device,
-and ``eval_arrays``, the test split as eval sees it (counterpart of
-``apv_tpu/eval/run.py:26-53,218-399``).
+under the model's own prior or an ex-post prior; ``posterior_activity``,
+the active-units diagnostic; ``pixel_d_scores``, the biadversarial pixel
+D's logits; and ``eval_arrays``, the test split as eval sees it
+(counterpart of ``apv_tpu/eval/run.py``).
 
 Deterministic input convention at eval: no dequantization noise — the
 encoder sees centered bin centers, the likelihood scores the discrete
@@ -14,7 +16,7 @@ import warnings
 import numpy as np
 import torch
 
-from apv_tpu_torch.core.metrics import nats_to_bits_per_dim
+from apv_tpu_torch.core.metrics import active_units, nats_to_bits_per_dim
 from apv_tpu_torch.data.datasets import load_dataset
 from apv_tpu_torch.data.preprocess import (normalize_center, static_binarize,
                                            to_unit_interval)
@@ -63,14 +65,70 @@ def _divisor_chunk(k: int, chunk: int) -> int:
     return eff
 
 
+def _batches(cfg: Config, images: np.ndarray, batch_size: int):
+    """(x_in, x_target) numpy batches of ``batch_size`` rows, the last
+    partial batch dropped, as the reference's eval Batcher does."""
+    n_batches = len(images) // batch_size
+    if n_batches == 0:
+        raise ValueError("no images to score")
+    for i in range(n_batches):
+        yield _prep_eval_batch(cfg, images[i * batch_size:
+                                          (i + 1) * batch_size])
+
+
+def posterior_activity(cfg: Config, model, images_u8: np.ndarray, *,
+                       threshold: float = 1e-2,
+                       batch_size: int | None = None, device=None) -> dict:
+    """Active latent units over ``images_u8`` (IWAE paper §5.1: unit u is
+    active if Cov_x(E_q[z_u]) > ``threshold``), a posterior-collapse
+    report beside the NLL: one encoder pass, batch by batch
+    (``cfg.eval.batch_size``, the last partial batch dropped)."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+    bs = min(batch_size if batch_size is not None else cfg.eval.batch_size,
+             len(images_u8))
+
+    def means():
+        with torch.inference_mode():
+            for x_in, _ in _batches(cfg, images_u8, bs):
+                yield model.encode(torch.from_numpy(x_in).to(dev))[0] \
+                    .float().cpu().numpy()
+
+    count, var = active_units(means(), threshold=threshold)
+    return {"active_units": count, "z_dim": int(cfg.model.z_dim),
+            "threshold": threshold,
+            "max_unit_variance": float(var.max()),
+            "median_unit_variance": float(np.median(var))}
+
+
+def pixel_d_scores(cfg: Config, pixel_d, images_u8: np.ndarray, *,
+                   batch_size: int | None = None,
+                   device=None) -> np.ndarray:
+    """Per-image logits D_x(x) [N] of the biadversarial pixel D, the
+    ``ood.score='pixel_d'`` score: one D_x forward per image, on the
+    target-space batch the training D saw as real (binary pixels or [0, 1]
+    levels), batch by batch (``cfg.ood.batch_size``, the last partial
+    batch dropped)."""
+    dev = resolve_device(device)
+    pixel_d = pixel_d.to(dev)
+    bs = min(batch_size if batch_size is not None else cfg.ood.batch_size,
+             len(images_u8))
+    with torch.inference_mode():
+        scores = [pixel_d(torch.from_numpy(x_target).to(dev)).float().cpu()
+                  for _, x_target in _batches(cfg, images_u8, bs)]
+    return torch.cat(scores).double().numpy()
+
+
 def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
                  k: int | None = None, chunk: int | None = None,
                  batch_size: int | None = None, seed: int = 0,
                  use_adversarial_prior: bool | None = None,
-                 per_sample: bool = False, device=None) -> dict:
+                 per_sample: bool = False, prior_moments=None,
+                 device=None) -> dict:
     """Mean NLL (nats) and bits/dim of ``images_u8`` [N, H, W, C] under the
     IWAE-k estimator, batch by batch (the last partial batch is dropped, as
-    the reference's eval Batcher does), under the checkpoint's own prior.
+    the reference's eval Batcher does), under the checkpoint's own prior or,
+    given ``prior_moments``, an ex-post prior.
 
     A trained prior (``model.prior``) is scored exactly: the flow (with
     log Z = 0: it excludes the adversarial D) and the Gaussian base, which
@@ -79,7 +137,19 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
     is MC-estimated first (n=100k draws from the base the weights use, the
     current N(μ, σ) for the Gaussian base; jackknife SE). Batch ``i`` draws
     its noise from a CPU generator seeded ``seed + i``.
+
+    ``prior_moments`` (a fitted ex-post prior on ``device``: ``(mean,
+    var)``, ``(log_w, means, vars)`` or a flow dict, as ``sampling.run``
+    fits them) scores
+    under that exact prior instead: the adversarial correction is off and
+    log Z stays 0; ``use_adversarial_prior=True`` beside it raises. The
+    result's ``"prior"`` says which: ``model``, ``expost``, ``expost_gmm``
+    or ``expost_flow``.
     """
+    if prior_moments is not None and use_adversarial_prior:
+        raise ValueError("prior_moments (ex-post prior) and "
+                         "use_adversarial_prior are mutually exclusive: "
+                         "each is a complete reading of log p(z)")
     dev = resolve_device(device)
     model = model.to(dev)
     k = k if k is not None else cfg.eval.iwae_k
@@ -87,18 +157,21 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
                            else min(cfg.eval.iwae_chunk, k))
     use_adv = (cfg.adversarial.enabled if use_adversarial_prior is None
                else use_adversarial_prior)
+    prior_logpdf = None
+    if prior_moments is not None:
+        use_adv = False
+        from apv_tpu_torch.sampling.run import expost_prior_logpdf
+        prior_logpdf = expost_prior_logpdf(prior_moments)
     if use_adv and d is None:
         raise ValueError("the adversarial prior needs the latent D")
     batch_size = min(batch_size if batch_size is not None
                      else cfg.eval.batch_size, len(images_u8))
-    n_batches = len(images_u8) // batch_size
-    if n_batches == 0:
-        raise ValueError("evaluate_nll: no images to score")
 
     d_apply = None
     model_prior = cfg.model.prior
     prior_logpdf_p = None
-    if (model_prior == "flow" and not use_adv) or model_prior == "gaussian":
+    if prior_logpdf is None and ((model_prior == "flow" and not use_adv)
+                                 or model_prior == "gaussian"):
         prior_logpdf_p = model.prior_logpdf
     log_z = torch.zeros((), device=dev)
     log_z_se = torch.zeros((), device=dev)
@@ -111,11 +184,11 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
                 d_apply, cfg.model.z_dim, seed=seed + 17, with_se=True,
                 device=dev, base_from=base_from)
         iwae_fn = make_iwae_fn(model, cfg.model.likelihood, k, chunk,
-                               d_apply, prior_logpdf_p=prior_logpdf_p)
+                               d_apply, prior_logpdf_p=prior_logpdf_p,
+                               prior_logpdf=prior_logpdf)
         scores = []
-        for i in range(n_batches):
-            x_in, x_target = _prep_eval_batch(
-                cfg, images_u8[i * batch_size:(i + 1) * batch_size])
+        for i, (x_in, x_target) in enumerate(_batches(cfg, images_u8,
+                                                      batch_size)):
             gen = torch.Generator().manual_seed(seed + i)
             ll = iwae_fn(torch.from_numpy(x_in).to(dev),
                          torch.from_numpy(x_target).to(dev), log_z,
@@ -137,7 +210,10 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
         "log_partition": float(log_z),
         "log_partition_se": float(log_z_se),
         "adversarial_prior": bool(use_adv),
-        "prior": "model",
+        "prior": ("model" if prior_moments is None
+                  else "expost_flow" if isinstance(prior_moments, dict)
+                  else "expost" if len(prior_moments) == 2
+                  else "expost_gmm"),
     }
     if per_sample:
         result["per_sample"] = scores

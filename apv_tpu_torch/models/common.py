@@ -211,9 +211,10 @@ class PriorMixin:
 _TRUNC_STD = 0.87962566103423978      # std of N(0,1) truncated to [-2, 2]
 
 
-def lecun_normal_init_(module: nn.Module, seed: int) -> nn.Module:
-    """flax's default init, from numpy so a seed gives the same weights on
-    any machine: kernels lecun-normal (truncated normal, variance 1/fan_in),
+def lecun_normal_init_(module: nn.Module, seed: int | list[int]) -> nn.Module:
+    """flax's default init, from numpy (``default_rng(seed)``) so a seed
+    gives the same weights on any machine: kernels lecun-normal (truncated
+    normal, variance 1/fan_in),
     biases zero, norm scales one. ``Linear``-style weights are (out, in),
     conv (out, in, kh, kw), conv-transpose (in, out, kh, kw)."""
     rng = np.random.default_rng(seed)

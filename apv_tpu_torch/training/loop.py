@@ -22,7 +22,18 @@ appending to ``metrics.jsonl``; a resumed run keeps the best valid ELBO of
 ``best.json``. A fresh run into a results dir that holds checkpoints or
 metrics is refused unless ``overwrite``, which clears the dir.
 
-Not ported: the profiler window and multi-card runs.
+``trace_dir`` traces steps 10-15 of this invocation with torch.profiler
+(``utils/logging.py``). Ctrl-C saves a checkpoint and re-raises, so
+``resume=True`` continues there. The port's state updates in place, so
+while the loop runs in the main thread SIGINT only raises a flag, read
+once after each call of k steps (after its logging, validation and
+periodic save): the checkpoint is at the end of that call, a step count
+that the k-step calls, ``eval_every`` and ``checkpoint_every`` of a
+resumed run line up with, as the reference's is. A second Ctrl-C stops at
+once and saves nothing, as does a KeyboardInterrupt that comes from
+inside a call's steps: either may leave a step half-applied.
+
+Not ported: multi-card runs.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import shutil
+import signal
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -76,6 +89,32 @@ def make_resident_step(base_fn):
     return _resident_step
 
 
+class _CallBoundaryInterrupt:
+    """While active in the main thread, the first SIGINT only sets
+    ``requested``; a second sets ``forced`` and raises at once. Elsewhere
+    it does nothing."""
+
+    def __init__(self):
+        self.requested = self.forced = False
+        self._old = None
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            self._old = signal.signal(signal.SIGINT, self._handle)
+        return self
+
+    def _handle(self, signum, frame):
+        if self.requested:
+            self.forced = True
+            raise KeyboardInterrupt
+        self.requested = True
+
+    def __exit__(self, *exc):
+        if self._old is not None:
+            signal.signal(signal.SIGINT, self._old)
+        return False
+
+
 def _to_device(arrays: dict[str, np.ndarray], dev) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in arrays.items()}
@@ -94,14 +133,15 @@ def _valid_batches(cfg: Config, valid_arrays, dev) -> list[dict] | None:
 def train_loop(cfg: Config, *, max_steps: int | None = None,
                arrays: dict[str, np.ndarray] | None = None,
                resume: bool = False, overwrite: bool = False,
-               device=None) -> TrainState:
+               trace_dir: str | None = None, device=None) -> TrainState:
     """Run (or resume) training of ``cfg`` and return the final state.
 
     ``arrays`` overrides the dataset loaders with a train set as they
     would give it (``image_packed`` rows for the bit-packed binarized
     configs, ``image`` otherwise); it has no valid split. ``max_steps``
     caps this invocation; the schedules still use ``cfg.train.steps``.
-    ``device=None`` means the CUDA card.
+    ``trace_dir`` writes the profiler window's trace there. ``device=None``
+    means the CUDA card.
     """
     fns = make_train_fns(cfg, device=device)
     dev = fns.device
@@ -161,7 +201,9 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
     valid_batches = _valid_batches(cfg, valid_arrays, dev)
 
     logger = MetricLogger(results_dir, log_every=cfg.train.log_every,
-                          batch_size=cfg.train.batch_size)
+                          batch_size=cfg.train.batch_size,
+                          trace_dir=trace_dir, trace_offset=start,
+                          trace_cuda=dev.type == "cuda")
     logger.write_json("config.json", dataclasses.asdict(cfg))
     best_path = results_dir / "best.json"
     best_valid_elbo = (json.loads(best_path.read_text())["valid_elbo"]
@@ -174,24 +216,50 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
                 sums[name] = sums.get(name, 0.0) + float(v)
         return {name: v / len(valid_batches) for name, v in sums.items()}
 
-    for base in range(start, stop, k):
-        stacked = {kk: torch.from_numpy(v).to(dev)
-                   for kk, v in next(calls).items()}
-        step_metrics = []
-        for i in range(k):
-            state, m = step_fn(state, {kk: v[i] for kk, v in stacked.items()})
-            step_metrics.append(m)
-        for i, m in enumerate(step_metrics):
-            logger.log(base + i, m)
-        done = base + k                       # steps taken so far
-        if valid_batches and cfg.train.eval_every > 0 \
-                and done % cfg.train.eval_every == 0:
-            vm = run_validation()
-            logger.log_now(done, vm)
-            if vm["valid_elbo"] > best_valid_elbo:
-                best_valid_elbo = vm["valid_elbo"]
-                ckpt.save_checkpoint(results_dir / "best", state, done)
-                logger.write_json("best.json", {"step": done, **vm})
-        if done % cfg.train.checkpoint_every == 0 or done == stop:
-            ckpt.save_checkpoint(ckpt_dir, state, done)
+    interrupt = _CallBoundaryInterrupt()
+    in_call = False                       # inside a call's k steps
+    saved = None                          # the step last checkpointed
+    try:
+        with interrupt:
+            for base in range(start, stop, k):
+                logger.maybe_trace(base, stride=k)
+                stacked = {kk: torch.from_numpy(v).to(dev)
+                           for kk, v in next(calls).items()}
+                step_metrics = []
+                in_call = True
+                for i in range(k):
+                    state, m = step_fn(state, {kk: v[i]
+                                               for kk, v in stacked.items()})
+                    step_metrics.append(m)
+                in_call = False
+                for i, m in enumerate(step_metrics):
+                    logger.log(base + i, m)
+                done = base + k                   # steps taken so far
+                if valid_batches and cfg.train.eval_every > 0 \
+                        and done % cfg.train.eval_every == 0:
+                    vm = run_validation()
+                    logger.log_now(done, vm)
+                    if vm["valid_elbo"] > best_valid_elbo:
+                        best_valid_elbo = vm["valid_elbo"]
+                        ckpt.save_checkpoint(results_dir / "best", state,
+                                             done)
+                        logger.write_json("best.json", {"step": done, **vm})
+                if done % cfg.train.checkpoint_every == 0 or done == stop:
+                    ckpt.save_checkpoint(ckpt_dir, state, done)
+                    saved = done
+                if interrupt.requested:
+                    raise KeyboardInterrupt
+    except KeyboardInterrupt:
+        if interrupt.forced or in_call:
+            print("interrupted with a step possibly half-applied; nothing "
+                  "saved, --resume continues from step "
+                  f"{ckpt.latest_step(ckpt_dir) or 0}", flush=True)
+        else:
+            if saved != state.step:
+                ckpt.save_checkpoint(ckpt_dir, state, state.step)
+            print(f"interrupted at step {state.step}; checkpoint saved, "
+                  "resume with --resume", flush=True)
+        raise
+    finally:
+        logger.close()
     return state

@@ -1,7 +1,7 @@
 """Loss terms (counterpart of ``apv_tpu/training/losses.py``): the
-likelihood params and reconstruction term, the ELBO terms, the
-adversarial-prior terms of the G and D phases, the free-bits KL floors
-and the IWAE-k training objective.
+likelihood params, reconstruction term and pixel mean, the ELBO terms,
+the adversarial terms of the G and D phases (latent, pixel and the R1
+penalty), the free-bits KL floors and the IWAE-k training objective.
 
 Discriminator convention: ``D(z)`` is the logit that z came from the
 aggregate posterior q(z) (class 1) rather than the prior p0(z) (class 0).
@@ -58,6 +58,19 @@ def recon_log_likelihood(x_target: torch.Tensor, out: torch.Tensor,
     return ops.disc_logistic_recon_ll(x_target, *params, samples=samples)
 
 
+def likelihood_pixel_mean(out: torch.Tensor, likelihood: str,
+                          image_channels: int) -> torch.Tensor:
+    """The likelihood's mean image in [0, 1], differentiable: σ(logits)
+    for the Bernoulli, the mean clipped to [0, 1] for the discretized
+    logistic. The x̂ the biadversarial pixel D judges; the generator's
+    pixel-space gradient reaches the decoder through it."""
+    params = decoder_output_to_likelihood_params(out, likelihood,
+                                                 image_channels)
+    if likelihood == "bernoulli":
+        return torch.sigmoid(params[0])
+    return torch.clamp(params[0], 0.0, 1.0)
+
+
 def elbo_terms(encode: Callable, decode: Callable, x_in: torch.Tensor,
                x_target: torch.Tensor, likelihood: str, *,
                generator: torch.Generator | None = None,
@@ -81,6 +94,25 @@ def generator_adv_term(d_logits_q: torch.Tensor, variant: str) -> torch.Tensor:
     if variant == "aae":
         return -F.softplus(d_logits_q)
     raise ValueError(f"unknown adversarial variant {variant!r}")
+
+
+def pixel_g_term(dx_logits: torch.Tensor) -> torch.Tensor:
+    """Per-sample pixel-space generator term (biadversarial, higher is
+    better for G): the non-saturating log σ(D_x(x̂))."""
+    return -F.softplus(-dx_logits)
+
+
+def r1_penalty(d_fn: Callable, x_real: torch.Tensor) -> torch.Tensor:
+    """R1 penalty ½·E[‖∇_x D(x)‖²] on real samples (Mescheder et al. 2018,
+    eq. 9), x [B, Z] or [B, H, W, C], the norm over all non-batch axes.
+    The input gradient is taken with ``create_graph=True``, so the penalty
+    is differentiable in D's parameters (a second backward through D).
+    ∇_x Σ_b D(x_b) is the stack of per-sample gradients: neither D couples
+    samples across the batch."""
+    x = x_real.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad(d_fn(x).sum(), x, create_graph=True)
+    sq = g.reshape(g.shape[0], -1).to(torch.float32).square().sum(dim=-1)
+    return 0.5 * sq.mean()
 
 
 def d_loss_floor(label_smoothing: float) -> float:
@@ -155,6 +187,7 @@ def iwae_objective(model, x_in: torch.Tensor, x_target: torch.Tensor,
                    d: Callable | None = None,
                    adv_variant: str | None = None,
                    adv_weight: float = 0.0,
+                   px: Callable | None = None, px_weight: float = 0.0,
                    generator: torch.Generator | None = None,
                    eps: torch.Tensor | None = None):
     """IWAE-k training objective (arXiv 1509.00519), the bound the k=1000
@@ -172,6 +205,11 @@ def iwae_objective(model, x_in: torch.Tensor, x_target: torch.Tensor,
     Gaussian base) instead of N(0, I); its parameters are θ-side. ``d``
     (the latent D, a constant here): 'learned_prior' puts β·w·D(z_i)
     inside log w_i, 'aae' adds w·mean(−softplus(D)) outside the bound.
+    ``px`` (the biadversarial pixel D, a constant here) adds
+    ``px_weight``·mean(log σ(D_x(x̂))) over the k decoded means outside the
+    bound; under DReG on a second decode of z detached, so its gradient
+    reaches the decoder and not the encoder. aux then holds ``g_px`` and
+    ``x_hat``, the first sample's x̂ [B, ...], detached, for D's reuse.
 
     ``grad_estimator``: 'reparam' differentiates the bound; 'dreg'
     (Tucker et al. 2018) gives the same value with the
@@ -236,5 +274,12 @@ def iwae_objective(model, x_in: torch.Tensor, x_target: torch.Tensor,
         aux["g_adv"] = adv_term.detach().mean()
         if adv_variant == "aae":
             objective = objective + adv_weight * adv_term.mean()
+    if px is not None and px_weight > 0.0:
+        out_px = model.decode(z.detach().reshape(k * b, -1)) if dreg else out
+        x_hat = likelihood_pixel_mean(out_px, likelihood, x_target.shape[-1])
+        px_term = pixel_g_term(px(x_hat))
+        aux["g_px"] = px_term.detach().mean()
+        aux["x_hat"] = x_hat.detach().reshape(k, b, *x_hat.shape[1:])[0]
+        objective = objective + px_weight * px_term.mean()
     return objective, aux, z[0].detach()
 

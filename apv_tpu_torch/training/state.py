@@ -1,7 +1,9 @@
 """Training state (counterpart of ``apv_tpu/training/state.py``).
 
-One object carries what a run needs: the VAE and its optimizer, the latent
-D and its optimizer (None for a non-adversarial run), the step count, and
+One object carries what a run needs: the VAE and its optimizer, the D and
+its optimizer (None for a non-adversarial run; under the biadversarial
+variant the D is the ``ModuleDict`` of the latent and the pixel D, one
+optimizer over both), the step count, and
 the seed that every step's noise derives from together with the step
 (the reference's base key with ``fold_in(rng, step)``). Unlike the
 reference's immutable pytree, the modules and optimizer moments are
@@ -23,7 +25,7 @@ class TrainState:
     step: int
     model: nn.Module                   # VAE (encoder + decoder)
     opt: ClippedAdam
-    d: nn.Module | None                # latent discriminator (None if unused)
+    d: nn.Module | None                # latent D, or {latent, pixel}; or None
     d_opt: ClippedAdam | None
     seed: int                          # per-step noise = f(seed, step)
 

@@ -31,6 +31,16 @@ standard prior the KL kernel. The prior's parameters are part of
 VAE's, as optax does with one param tree. With the Gaussian base the D
 phase draws z_p from the (detached) base.
 
+The discriminators: the latent D may be spectrally normalized
+(``adversarial.d_spectral_norm``). Under ``variant='biadversarial'`` the
+state's D is the pair ``{"latent", "pixel"}`` with one ``ClippedAdam`` over
+both, as the reference shares one optimizer and one n_critic schedule. The
+G phase adds ``pixel_weight``·log σ(D_x(x̂)), β-free, its gradient reaching
+the decoder through the decoded mean x̂; the D phase adds the pixel BCE on
+{x_target real, x̂ fake}, x̂ reused from the G phase (or decoded from the
+D phase's own z_q). ``adversarial.r1_gamma`` γ adds γ·R1 on z_q for the
+latent D and on x_target for the pixel D: a second backward through D.
+
 Knobs outside this slice raise ``NotImplementedError`` naming the knob;
 the combinations the reference refuses raise ``ValueError``.
 """
@@ -46,7 +56,8 @@ from apv_tpu_torch import ops
 from apv_tpu_torch.core import distributions as D
 from apv_tpu_torch.data.preprocess import (normalize_center,
                                            uniform_dequantize, unpack_bits)
-from apv_tpu_torch.models import build_model, make_latent_d
+from apv_tpu_torch.models import (build_model, latent_d_params,
+                                  make_discriminators)
 from apv_tpu_torch.training import losses as L
 from apv_tpu_torch.training.optim import (ClippedAdam, constant,
                                           warmup_cosine_decay)
@@ -155,10 +166,6 @@ def _check_knobs(cfg: Config) -> None:
                          "only: the IWAE bound has no per-dimension KL term "
                          "to floor")
     unported = [
-        ("adversarial.variant='biadversarial'",
-         a.enabled and a.variant == "biadversarial"),
-        ("adversarial.r1_gamma>0", a.enabled and a.r1_gamma > 0.0),
-        ("adversarial.d_spectral_norm", a.enabled and a.d_spectral_norm),
         (f"adversarial.d_lr_schedule={a.d_lr_schedule!r}",
          a.enabled and a.d_lr_schedule != "constant"),
         ("train.ema_decay>0", t.ema_decay > 0.0),
@@ -174,14 +181,17 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
                 x_target: torch.Tensor, beta: float, *,
                 generator: torch.Generator | None = None,
                 eps: torch.Tensor | None = None,
-                draw_u: Callable | None = None):
+                draw_u: Callable | None = None, px: Callable | None = None):
     """The G phase's ELBO loss -> (loss, aux, z).
 
     loss = −(mean(recon + w·adv(D(z))) − β·KL_obj − penalty)·scale: the
     KL against the model's prior (module docstring), KL_obj its batch
     mean or, with ``train.free_bits``, the prior's floor (per dimension
     for N(0, I) and the Gaussian base, on the total for the flow); the
-    learned-prior term carries β (D(z) is part of log p*(z)). With
+    learned-prior term carries β (D(z) is part of log p*(z)), for the
+    biadversarial variant too. ``px`` (the pixel D) adds the β-free
+    ``pixel_weight``·log σ(D_x(x̂)) and puts ``g_px`` and x̂ (``x_hat``,
+    detached, for the D phase) in aux. With
     ``train.flow_dispersion_penalty`` λ the penalty is
     λ·max(0, m_s/m_q − 1)², m_s the mean ‖z‖² of the flow's inverse on a
     fresh base draw u (``draw_u(shape)``) and m_q the batch posterior's,
@@ -207,9 +217,18 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
     if d is not None:
         a = cfg.adversarial
         adv_term = L.generator_adv_term(d(z), a.variant)
-        adv_w = a.weight * beta if a.variant == "learned_prior" else a.weight
+        adv_w = (a.weight * beta
+                 if a.variant in ("learned_prior", "biadversarial")
+                 else a.weight)
         per_sample = per_sample + adv_w * adv_term
         aux["g_adv"] = adv_term.mean()
+    if px is not None:
+        x_hat = L.likelihood_pixel_mean(out, cfg.model.likelihood,
+                                        x_target.shape[-1])
+        px_term = L.pixel_g_term(px(x_hat))
+        per_sample = per_sample + cfg.adversarial.pixel_weight * px_term
+        aux["g_px"] = px_term.mean()
+        aux["x_hat"] = x_hat.detach()
     if t.free_bits > 0.0:
         if prior == "gaussian":
             kl_obj = L.free_bits_kl_gaussian_base(mean, logvar, mu_p,
@@ -235,18 +254,50 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
 def g_objective_iwae(cfg: Config, model, d, x_in: torch.Tensor,
                      x_target: torch.Tensor, beta: float, *,
                      generator: torch.Generator | None = None,
-                     eps: torch.Tensor | None = None):
+                     eps: torch.Tensor | None = None,
+                     px: Callable | None = None):
     """The G phase's loss on the IWAE-k bound (``train.objective='iwae'``,
-    ``losses.iwae_objective``) -> (loss, aux, z_q): aux adds the MC ELBO
+    ``losses.iwae_objective``, with the pixel D ``px`` under the
+    biadversarial variant) -> (loss, aux, z_q): aux adds the MC ELBO
     recon − kl for reporting, z_q is sample 0 [B, Z], detached."""
     a = cfg.adversarial
     objective, aux, z_q = L.iwae_objective(
         model, x_in, x_target, cfg.model.likelihood, cfg.train.iwae_k, beta,
         cfg.train.iwae_grad, trained_prior=cfg.model.prior != "standard",
         d=d, adv_variant=a.variant if d is not None else None,
-        adv_weight=a.weight, generator=generator, eps=eps)
+        adv_weight=a.weight, px=px, px_weight=a.pixel_weight,
+        generator=generator, eps=eps)
     aux["elbo"] = aux["recon"] - aux["kl"]
     return -objective * _loss_scale(cfg), aux, z_q
+
+
+def d_objective(cfg: Config, d, z_q: torch.Tensor, z_p: torch.Tensor,
+                x_target: torch.Tensor, x_hat: torch.Tensor | None):
+    """The D phase's loss -> (total, metrics): the latent BCE on {z_q real,
+    z_p fake} (``d_loss``, ``d_acc``); with ``adversarial.r1_gamma`` γ,
+    γ·R1 on z_q (``d_r1``); under the biadversarial variant (``d`` the
+    pair) the pixel BCE on {x_target real, x̂ fake} (``px_d_loss``,
+    ``px_d_acc``) and γ·R1 on x_target (``px_d_r1``). The metrics keep
+    their graphs; ``total`` is differentiable in D's parameters."""
+    a = cfg.adversarial
+    lat = latent_d_params(a.variant, d)
+    d_loss, d_acc = L.discriminator_loss(lat(z_q), lat(z_p),
+                                         a.label_smoothing)
+    metrics = {"d_loss": d_loss, "d_acc": d_acc}
+    total = d_loss
+    if a.r1_gamma > 0.0:
+        metrics["d_r1"] = r1 = L.r1_penalty(lat, z_q)
+        total = total + a.r1_gamma * r1
+    if a.variant == "biadversarial":
+        px = d["pixel"]
+        px_loss, px_acc = L.discriminator_loss(px(x_target), px(x_hat),
+                                               a.label_smoothing)
+        metrics.update(px_d_loss=px_loss, px_d_acc=px_acc)
+        total = total + px_loss
+        if a.r1_gamma > 0.0:
+            metrics["px_d_r1"] = px_r1 = L.r1_penalty(px, x_target)
+            total = total + a.r1_gamma * px_r1
+    return total, metrics
 
 
 def make_train_fns(cfg: Config, *, device=None,
@@ -258,13 +309,15 @@ def make_train_fns(cfg: Config, *, device=None,
     dev = resolve_device(device)
     adv = cfg.adversarial.enabled
     a = cfg.adversarial
+    biadv = adv and a.variant == "biadversarial"
     gauss_prior = cfg.model.prior == "gaussian"
     trainable_prior = cfg.model.prior in ("gaussian", "flow")
     noise_gen = torch.Generator(device=dev)
 
     def init_fn(seed: int) -> TrainState:
         model = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
-        d = (make_latent_d(a, cfg.model.z_dim, device=dev, seed=seed + 1)
+        d = (make_discriminators(a, cfg.model.z_dim, cfg.model.image_shape,
+                                 device=dev, seed=seed + 1, dtype=dtype)
              if adv else None)
         return TrainState(
             step=0, model=model, opt=_make_optimizer(cfg, model.parameters()),
@@ -287,23 +340,26 @@ def make_train_fns(cfg: Config, *, device=None,
                                         device=dev)
 
     def g_phase(state, x_in, x_target, beta, gen, eps, u_disp):
+        lat = latent_d_params(a.variant, state.d)
+        px = state.d["pixel"] if biadv else None
         if cfg.train.objective == "iwae":
-            loss, aux, z = g_objective_iwae(cfg, state.model, state.d, x_in,
+            loss, aux, z = g_objective_iwae(cfg, state.model, lat, x_in,
                                             x_target, beta, generator=gen,
-                                            eps=eps)
+                                            eps=eps, px=px)
         else:
             loss, aux, z = g_objective(
-                cfg, state.model, state.d, x_in, x_target, beta,
+                cfg, state.model, lat, x_in, x_target, beta,
                 generator=gen, eps=eps,
                 draw_u=lambda shape: (u_disp if u_disp is not None
-                                      else normal(shape, gen)))
+                                      else normal(shape, gen)), px=px)
+        x_hat = aux.pop("x_hat", None)
         grads = torch.autograd.grad(loss, state.opt.params)
         grad_norm = state.opt.step(grads)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
-        return metrics, z.detach()
+        return metrics, z.detach(), x_hat
 
-    def d_phase(state, x_in, z_q, gen, d_eps, z_p):
+    def d_phase(state, x_in, x_target, z_q, x_hat, gen, d_eps, z_p):
         if z_q is None:
             # posterior samples with no gradient into the VAE
             with torch.no_grad():
@@ -317,10 +373,15 @@ def make_train_fns(cfg: Config, *, device=None,
             # prior is p*(z) ∝ N(μ, σ)·e^{D(z)}; the base trains in G only
             with torch.no_grad():
                 z_p = state.model.prior_sample_from(z_p)
-        d_loss, d_acc = L.discriminator_loss(state.d(z_q), state.d(z_p),
-                                             a.label_smoothing)
-        state.d_opt.step(torch.autograd.grad(d_loss, state.d_opt.params))
-        return {"d_loss": d_loss.detach(), "d_acc": d_acc}
+        if biadv and x_hat is None:
+            with torch.no_grad():
+                x_hat = L.likelihood_pixel_mean(
+                    state.model.decode(z_q), cfg.model.likelihood,
+                    x_target.shape[-1])
+        total, metrics = d_objective(cfg, state.d, z_q, z_p, x_target,
+                                     x_hat)
+        state.d_opt.step(torch.autograd.grad(total, state.d_opt.params))
+        return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: dict, *,
                    noise: dict | None = None):
@@ -341,11 +402,11 @@ def make_train_fns(cfg: Config, *, device=None,
         beta = _beta(cfg, state.step)
         metrics: dict = {}
 
-        def run_d_phases(z_q):
+        def run_d_phases(z_q, x_hat):
             d_ms = []
             for i in range(a.n_critic):
                 d_ms.append(d_phase(
-                    state, x_in, z_q, gen,
+                    state, x_in, x_target, z_q, x_hat, gen,
                     noise["d_eps"][i] if "d_eps" in noise else None,
                     noise["z_p"][i] if "z_p" in noise else None))
             if d_ms:
@@ -353,13 +414,13 @@ def make_train_fns(cfg: Config, *, device=None,
                                 for k in d_ms[0]})
 
         if adv and not a.d_reuse_posterior:
-            run_d_phases(None)          # reference order: D, then G
-        g_metrics, z_q = g_phase(state, x_in, x_target, beta, gen,
-                                 noise.get("eps"), noise.get("u_disp"))
+            run_d_phases(None, None)    # reference order: D, then G
+        g_metrics, z_q, x_hat = g_phase(state, x_in, x_target, beta, gen,
+                                        noise.get("eps"), noise.get("u_disp"))
         metrics.update(g_metrics)
         if adv and a.d_reuse_posterior:
-            # G then D: D sees z_q drawn under the pre-update params
-            run_d_phases(z_q)
+            # G then D: D sees z_q (and x̂) made under the pre-update params
+            run_d_phases(z_q, x_hat)
         metrics["beta"] = beta
         state.step += 1
         return state, metrics

@@ -1,10 +1,19 @@
-"""Metrics logging (counterpart of ``apv_tpu/utils/logging.py``).
+"""Metrics logging and the profiler window (counterpart of
+``apv_tpu/utils/logging.py``).
 
 Structured stdout and ``metrics.jsonl`` in the results dir, with the step
 time and images/s between logged steps, and unconditional records
 (validation) through ``log_now``. A metric is read back from the device
-only at a logged step. The reference's profiler window
-(``trace_dir``) is not ported.
+only at a logged step.
+
+With ``trace_dir``, ``maybe_trace`` runs one ``torch.profiler`` window over
+``trace_steps`` (default steps 10 to 15), counted from this run's first
+step (``trace_offset``: a resumed run traces its own steps 10-15): it
+starts at the call that holds the window's first step and stops at the
+first call boundary past its last, then writes a Chrome trace
+``trace_steps_<a>-<b>.json`` (absolute steps) into ``trace_dir``. A run
+that ends inside the window writes it in ``close()``. The CUDA activity is
+traced when ``trace_cuda``.
 """
 
 from __future__ import annotations
@@ -16,7 +25,9 @@ from pathlib import Path
 
 class MetricLogger:
     def __init__(self, results_dir: str | Path, *, log_every: int = 100,
-                 batch_size: int = 0):
+                 batch_size: int = 0, trace_dir: str | Path | None = None,
+                 trace_steps: tuple[int, int] = (10, 15),
+                 trace_offset: int = 0, trace_cuda: bool = False):
         self.dir = Path(results_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.path = self.dir / "metrics.jsonl"
@@ -24,6 +35,42 @@ class MetricLogger:
         self.batch_size = batch_size
         self._last_time = time.perf_counter()
         self._last_step = None
+        self.trace_dir = None if trace_dir is None else Path(trace_dir)
+        self.trace_steps = (trace_steps[0] + trace_offset,
+                            trace_steps[1] + trace_offset)
+        self.trace_cuda = trace_cuda
+        self._prof = None
+
+    def maybe_trace(self, step: int, stride: int = 1) -> None:
+        """Start or stop the window before the call of ``stride`` steps
+        that begins at ``step``."""
+        if self.trace_dir is None:
+            return
+        if self._prof is None and step <= self.trace_steps[0] < step + stride:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.trace_cuda:
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+        elif self._prof is not None and step + stride > self.trace_steps[1]:
+            self._stop_trace()
+
+    def _stop_trace(self) -> None:
+        import torch
+        if self.trace_cuda:
+            torch.cuda.synchronize()
+        self._prof.stop()
+        self.trace_dir.mkdir(parents=True, exist_ok=True)
+        a, b = self.trace_steps
+        self._prof.export_chrome_trace(
+            str(self.trace_dir / f"trace_steps_{a}-{b}.json"))
+        self._prof, self.trace_dir = None, None          # one window
+
+    def close(self) -> None:
+        """Write the window's trace if the run ended inside it."""
+        if self._prof is not None:
+            self._stop_trace()
 
     def log(self, step: int, metrics: dict) -> None:
         if step % self.log_every != 0:

@@ -83,6 +83,31 @@ Phases, one JSON line each:
      as in 14; one step's G gradients and loss through the kernels held
      to the objective written out with the kernels' plain versions on the
      same Philox draws.
+ 17. front_door: the port's CLI, each command a child process running
+     apv_tpu_torch.cli as `python -m` does (the launch counts read back
+     from the child): `train` of cifar_advprior_resnet at full width for 16
+     steps with --trace-dir (the Chrome trace of steps 10-15 must hold
+     the kernels), `train --resume --max-steps 8` (to step 24), `evaluate
+     --preset iwae_eval --checkpoint-dir ...` at k=1000 on 64 test images
+     under --prior model and --prior expost (finite bits/dim, active
+     units, eval.json and eval_expost.json), then `info`, `info <name>`
+     and `presets` in one child with no visible CUDA device (CUDA left
+     uninitialized), beside a child running `train` of mnist_advprior
+     for 16 steps (the bernoulli pair through the CLI); exact launches per
+     command. The CLI runs' synthetic sets are cut to 4,096 images a split
+     (data.synthetic_size) to keep the wall short.
+ 18. biadv_train: cifar_advprior_resnet with adversarial.variant=
+     biadversarial, r1_gamma=1 and d_spectral_norm=true through train_loop
+     on the arrays of phases 14-16, 24 steps; exact launches, finite
+     d_loss/px_d_loss/d_r1/px_d_r1/g_px, a falling loss, ms a step as in
+     14, peak memory; the checkpoint restored bit for bit; one G step's
+     gradients through the kernels held to the step written out with
+     their plain versions (f32, the pixel D in f32), the D step's inputs
+     (z_q, x̂) to the plain path's and its gradients to the D loss
+     written out, and the D gradients across the two paths' inputs to a
+     bar set by a witness of D's own sensitivity (biadv_grad_check); then
+     api.ood_score with ood.score=pixel_d (both directions, 2,000
+     examples) and api.sample (256 SIR draws through the SN latent D).
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
 The likelihood forwards' launches on the paths by (rows, x rows, E) are a
@@ -91,6 +116,7 @@ wrappers).
 With --quality-gate, the reference's short gate follows: 3,000 steps of
 cifar_advprior_resnet on the synthetic set, then IWAE k=100 on 512 test
 images to bits/dim, with the active units and the wall time.
+Every phase line carries t_s, the seconds since the script started.
 Then a {"kernels": [...]} line, the nvidia-smi line and, last, the
 {"ok": true, ...} line. Any failed check exits nonzero without that line.
 """
@@ -104,6 +130,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -115,6 +142,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 SEED = 0
 BATCH = 64
 DEVICE = "cuda"
@@ -183,6 +211,11 @@ IWAE_STEPS = 8             # the IWAE objective: one call of 8
 IWAE_K = 5                 # its samples a row (the preset's iwae_k)
 FLOW_FIT_STEPS = 2_000     # the ex-post flow's fit, api.sample's default
 TIMED_STEPS = 48           # a timed rerun: five logged calls of 8 steps
+FRONT_STEPS = (16, 8)      # the CLI's train, then its resume
+FRONT_SYNTHETIC = 4_096    # the CLI runs' synthetic images a split
+BIADV_STEPS = 24           # the biadversarial flagship: three calls of 8
+BIADV = ("adversarial.variant=biadversarial", "adversarial.r1_gamma=1.0",
+         "adversarial.d_spectral_norm=true")
 
 
 class CheckFailed(RuntimeError):
@@ -195,7 +228,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1469,10 +1504,10 @@ def check_flagship_width(phase: str, cfg) -> None:
           "resident data in calls of 8")
 
 
-def sample_png(phase: str, preset: str, tmp: str, dev, **kw):
+def sample_png(phase: str, preset: str, tmp: str, dev, name=None, **kw):
     """api.sample with the counters zeroed around it -> (images, launches,
     the JSON lines it printed, wall_s); 256 draws in [0, 1] whose PNG grid
-    decodes to them."""
+    decodes to them. ``name``: the run to sample (default the preset's)."""
     from apv_tpu_torch import sample
     from apv_tpu_torch.ops import kernels as K
     from apv_tpu_torch.sampling.run import image_grid
@@ -1482,8 +1517,9 @@ def sample_png(phase: str, preset: str, tmp: str, dev, **kw):
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        images = sample(preset, overrides=[f"results_dir={tmp}"],
-                        n=SAMPLE_N, seed=SEED, device=dev, **kw)
+        images = sample(preset, overrides=[f"results_dir={tmp}"] + (
+            [] if name is None else [f"name={name}"]), n=SAMPLE_N, seed=SEED,
+                        device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = path_counts(K)
@@ -1494,7 +1530,7 @@ def sample_png(phase: str, preset: str, tmp: str, dev, **kw):
     prior, temp = kw.get("prior", "auto"), kw.get("temperature", 1.0)
     suffix = ("" if prior == "auto" else f"_{prior}") + (
         "" if temp == 1.0 else f"_T{temp:g}")
-    png = Path(tmp) / preset / f"samples{suffix}.png"
+    png = Path(tmp) / (name or preset) / f"samples{suffix}.png"
     check(np.array_equal(decode_png(png.read_bytes()), image_grid(images)),
           f"{phase}: {png.name} does not decode to the pixels written")
     lines = [json.loads(line) for line in out.getvalue().splitlines()
@@ -1719,6 +1755,409 @@ def iwae_train_phase(arrays, tmp: str, dev):
          images_per_s=cfg.train.batch_size / step_s,
          max_memory_allocated_bytes=peak,
          max_memory_allocated_gib=peak / 2 ** 30,
+         card=torch.cuda.get_device_name(0), **grads)
+    return launches, cfg
+
+
+# ---------------------------------------------------------------------------
+# phases 17-18: the CLI, then the biadversarial flagship
+# ---------------------------------------------------------------------------
+
+# A child running apv_tpu_torch.cli as `python -m` does, its launch counts
+# (zeroed at its start) written to the file named by APV_LAUNCHES_OUT.
+CLI_CHILD = """\
+import json, os, runpy
+from apv_tpu_torch.ops import kernels as K
+K.reset_launches()
+try:
+    runpy.run_module("apv_tpu_torch.cli", run_name="__main__", alter_sys=True)
+finally:
+    with open(os.environ["APV_LAUNCHES_OUT"], "w") as f:
+        json.dump(dict(K.launches), f)
+"""
+
+
+# A child running the CLI's main() on each argv of the JSON list in argv[1]
+# in turn, each command's output closed by a NO_CUDA_END line; last, whether
+# CUDA was initialized.
+NO_CUDA_CHILD = """\
+import json, sys
+import torch
+from apv_tpu_torch.cli import main
+for argv in json.loads(sys.argv[1]):
+    code = main(argv)
+    print("\\n" + json.dumps({"no_cuda_end": argv, "code": code}),
+          flush=True)
+    if code:
+        sys.exit(code)
+print(json.dumps({"cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def start_cli(args: list[str], tmp: str, *, tag: str,
+              child: str = CLI_CHILD, no_cuda: bool = False) -> dict:
+    """Start ``child`` (CLI_CHILD: the CLI, with its launch counts) with
+    ``args`` in a process from this checkout, its output into files under
+    ``tmp`` named by ``tag``; ``no_cuda`` hides every CUDA device from
+    it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    if no_cuda:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    count = child is CLI_CHILD
+    counts = Path(tmp) / f"launches_{tag}.json"
+    env["APV_LAUNCHES_OUT"] = str(counts)
+    cmd = [sys.executable, "-c", child, *args]
+    out, err = Path(tmp) / f"{tag}.out", Path(tmp) / f"{tag}.err"
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=fo,
+                                stderr=fe, text=True)
+    return {"proc": proc, "args": args, "counts": counts if count else None,
+            "out": out, "err": err, "t0": time.perf_counter()}
+
+
+def finish_cli(h: dict, timeout: int = 600):
+    """Wait for a child of ``start_cli`` -> (stdout, its launch counts or
+    None, wall_s). A child past ``timeout`` is killed."""
+    try:
+        rc = h["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        h["proc"].kill()
+        h["proc"].wait()
+        rc = "killed at its timeout"
+    wall = time.perf_counter() - h["t0"]
+    out, err = h["out"].read_text(), h["err"].read_text()
+    check(rc == 0, f"apv-torch {' '.join(h['args'])}: exit {rc}\n"
+          f"{out[-1500:]}\n{err[-3000:]}")
+    launches = (json.loads(h["counts"].read_text()) if h["counts"]
+                else None)
+    return out, launches, wall
+
+
+def run_cli(args: list[str], tmp: str, **kw):
+    """The CLI with ``args`` in a child process, waited for (start_cli)."""
+    return finish_cli(start_cli(args, tmp, **kw))
+
+
+def cli_json(out: str) -> dict:
+    """The JSON object the CLI printed last (evaluate, info)."""
+    return json.loads(out[out.index("\n{") + 1 if "\n{" in out
+                          else out.index("{"):])
+
+
+def front_door_phase(dev) -> dict:
+    """Phase 17: the port's CLI as a user runs it (module docstring)."""
+    from apv_tpu_torch import latest_step
+    from apv_tpu_torch.ops import kernels as K
+    per_cifar = {"reparam": 1, "kl": 1, "disc_logistic": 1,
+                 "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
+    per_mnist = {"reparam": 1, "kl": 1, "bernoulli": 1, "reparam_bwd": 1,
+                 "kl_bwd": 1, "bernoulli_bwd": 1}
+    total = expected(K)
+    walls, results = {}, {}
+
+    def add(name, got, want):
+        check(got == want, f"front_door {name} launches {got}, want {want}")
+        for n in total:
+            total[n] += got[n]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        over = ["--set", f"results_dir={tmp}", "--set", "train.log_every=8",
+                "--set", f"data.synthetic_size={FRONT_SYNTHETIC}"]
+        run = Path(tmp) / "cifar_advprior_resnet"
+        trace_dir = Path(tmp) / "trace"
+        first, more = FRONT_STEPS
+        out, launches, walls["train"] = run_cli(
+            ["train", "--preset", "cifar_advprior_resnet", "--max-steps",
+             str(first), "--trace-dir", str(trace_dir), *over], tmp,
+            tag="train")
+        check(f"trained to step {first}" in out, f"front_door train: {out}")
+        add("train", launches, expected(K, **{n: first * c
+                                               for n, c in per_cifar.items()}))
+        trace = trace_dir / "trace_steps_10-15.json"
+        check(trace.exists(), f"front_door: no trace at {trace}")
+        blob = trace.read_bytes()
+        traced = {name: any(f"{fn}(".encode() in blob
+                            or f"{fn}<".encode() in blob for fn in fns)
+                  for name, fns in KERNEL_FNS.items() if name in per_cifar}
+        check(all(traced.values()), f"front_door: the trace of steps 10-15 "
+              f"misses kernels {traced}")
+        out, launches, walls["resume"] = run_cli(
+            ["train", "--preset", "cifar_advprior_resnet", "--resume",
+             "--max-steps", str(more), *over], tmp, tag="resume")
+        check(f"trained to step {first + more}" in out
+              and latest_step(run / "checkpoints") == first + more,
+              f"front_door resume: {out}")
+        add("resume", launches, expected(K, **{n: more * c for n, c in
+                                                per_cifar.items()}))
+        for prior in ("model", "expost"):
+            out, launches, walls[f"evaluate_{prior}"] = run_cli(
+                ["evaluate", "--preset", "iwae_eval", "--checkpoint-dir",
+                 str(run / "checkpoints"), "--prior", prior,
+                 "--set", f"results_dir={tmp}", "--set",
+                 f"eval.max_examples={BATCH}", "--set",
+                 f"eval.batch_size={BATCH}"], tmp, tag=f"evaluate_{prior}")
+            res = cli_json(out)
+            check(res["prior"] == prior and res["iwae_k"] == 1000
+                  and res["num_examples"] == BATCH
+                  and math.isfinite(res["bits_per_dim"])
+                  and 0 <= res["active_units"] <= res["z_dim"] == 128,
+                  f"front_door evaluate {prior}: {res}")
+            name = "eval.json" if prior == "model" else "eval_expost.json"
+            saved = json.loads((Path(tmp) / "iwae_eval" / name).read_text())
+            check(saved == res, f"front_door: {name} differs from the "
+                  "printed result")
+            chunks = 1000 // 25
+            add(f"evaluate {prior}", launches,
+                expected(K, reparam=chunks, disc_logistic=chunks))
+            results[prior] = {k: res[k] for k in (
+                "bits_per_dim", "nll_nats", "nll_nats_se", "log_partition",
+                "log_partition_se", "adversarial_prior", "active_units")}
+        # MNIST's run (its own results dir) beside the device-free child
+        mnist = start_cli(["train", "--preset", "mnist_advprior",
+                           "--max-steps", str(first), *over, "--set",
+                           f"results_dir={tmp}/mnist"], tmp, tag="mnist")
+        try:
+            out, _, walls["info_info_run_presets"] = run_cli(
+                [json.dumps([["info", "--results-dir", tmp],
+                             ["info", "cifar_advprior_resnet",
+                              "--results-dir", tmp], ["presets"]])],
+                tmp, tag="no_cuda", child=NO_CUDA_CHILD, no_cuda=True)
+        finally:
+            out_m, launches, walls["mnist_train"] = finish_cli(mnist)
+        parts = out.split('\n{"no_cuda_end"')
+        check(len(parts) == 4 and json.loads(parts[-1].split("\n", 1)[1])
+              == {"cuda_initialized": False},
+              f"front_door info/presets without CUDA: {out[-2000:]}")
+        listing, one = cli_json(parts[0]), cli_json(parts[1])
+        check([r["name"] for r in listing["runs"]]
+              == ["cifar_advprior_resnet"]
+              and listing["runs"][0]["latest_checkpoint"] == first + more,
+              f"front_door info: {listing}")
+        check(one["checkpoint_steps"] == [first, first + more]
+              and one["last_metrics"]["step"] == first
+              and one["adversarial"] == "learned_prior",
+              f"front_door info <name>: {one}")
+        check("iwae_eval" in parts[2] and "cifar_flow" in parts[2],
+              f"front_door presets: {parts[2]}")
+        check(f"trained to step {first}" in out_m,
+              f"front_door mnist: {out_m}")
+        add("mnist train", launches, expected(K, **{
+            n: first * c for n, c in per_mnist.items()}))
+        emit("front_door", launches=total, wall_s=walls,
+             trace_bytes=len(blob), traced_kernels=traced,
+             evaluate=results, synthetic_size=FRONT_SYNTHETIC)
+    return total
+
+
+def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
+    """One biadversarial G step's gradients through the kernels against
+    the step written out with the kernels' plain versions on the same
+    Philox draws (f32 compute, the pixel D too, and deterministic cuDNN,
+    as ``grad_check``). The D step runs no kernel: the kernels reach it
+    through z_q and x̂ alone, so those are held to the plain path's
+    (z at reparam's bar in phase 2, 1e-5; x̂ in [0, 1] at 1e-4), and its
+    gradients (latent and pixel BCE, both R1 penalties, ``d_objective``)
+    to the D loss written out on the same z_q and x̂ at 1e-3. Across the
+    two paths' inputs the D gradients are held to max(1e-3, twice the
+    witness): the witness is how far the same D gradients move, on the
+    plain path alone, when its inputs are mirrored about themselves by
+    the kernels' difference (z_p − (z_k − z_p), x̂ likewise, clipped to
+    [0, 1]) or moved by N(0, 1e-6²) noise, so it measures D's own
+    sensitivity to inputs that close, which no kernel enters; the plain
+    inputs' gradients computed twice give the run-to-run floor."""
+    from apv_tpu_torch import build_model
+    from apv_tpu_torch.models import PixelDiscriminator
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.training.losses import \
+        decoder_output_to_likelihood_params
+    from apv_tpu_torch.training.step import (_loss_scale, d_objective,
+                                             g_objective)
+    a = cfg.adversarial
+    torch.backends.cudnn.deterministic = True
+    try:
+        m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
+        m32.load_state_dict(state.model.state_dict())
+        px = PixelDiscriminator(cfg.model.image_shape, a.pixel_d_widths,
+                                dtype=torch.float32).to(dev)
+        px.load_state_dict(state.d["pixel"].state_dict())
+        lat = state.d["latent"]
+        d32 = torch.nn.ModuleDict({"latent": lat, "pixel": px})
+        params = list(m32.parameters())
+        loss_k, aux, z_k = g_objective(cfg, m32, lat, x_in, x_target, 1.0,
+                                       generator=gen(SEED + 5), px=px)
+        grads_k = torch.autograd.grad(loss_k, params)
+
+        mean, logvar = m32.encode(x_in)
+        z = K.reparam_plain(mean, logvar, 1, *K.draw_key(gen(SEED + 5)))[0]
+        lik = decoder_output_to_likelihood_params(
+            m32.decode(z), cfg.model.likelihood, x_target.shape[-1])
+        x_hat = torch.clamp(lik[0], 0.0, 1.0)
+        per = (K.disc_logistic_plain(x_target, *lik) + a.weight * lat(z)
+               - a.pixel_weight * F.softplus(-px(x_hat)))
+        loss_p = -(per.mean() - K.kl_plain(mean, logvar).mean()) \
+            * _loss_scale(cfg)
+        grads_p = torch.autograd.grad(loss_p, params)
+
+        zq, xh = z_k.detach(), aux["x_hat"]
+        z_err = float((zq - z.detach()).abs().max()
+                      / z.detach().abs().max())
+        x_hat_err = float((xh - x_hat.detach()).abs().max())
+        z_p = torch.randn(z.shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(SEED + 9))
+        d_params = list(d32.parameters())
+        total_k, _ = d_objective(cfg, d32, zq, z_p, x_target, xh)
+        gd_k = torch.autograd.grad(total_k, d_params, allow_unused=True)
+        s = a.label_smoothing
+
+        def bce(real, fake):
+            return (((1 - s) * F.softplus(-real) + s * F.softplus(real))
+                    .mean() + ((1 - s) * F.softplus(fake)
+                               + s * F.softplus(-fake)).mean())
+
+        def r1(fn, x):
+            x = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(fn(x).sum(), x, create_graph=True)
+            return 0.5 * g.flatten(1).square().sum(1).mean()
+
+        total_p = (bce(lat(zq), lat(z_p)) + a.r1_gamma * r1(lat, zq)
+                   + bce(px(x_target), px(xh))
+                   + a.r1_gamma * r1(px, x_target))
+        gd_p = torch.autograd.grad(total_p, d_params, allow_unused=True)
+
+        def d_grads(z_in, x_in_d):
+            total, _ = d_objective(cfg, d32, z_in, z_p, x_target, x_in_d)
+            return torch.autograd.grad(total, d_params, allow_unused=True)
+
+        z0, x0 = z.detach(), x_hat.detach()
+        noise = torch.Generator(dev).manual_seed(SEED + 10)
+        gd_plain = d_grads(z0, x0)
+        gd_again = d_grads(z0, x0)
+        gd_mirror = d_grads(2 * z0 - zq, (2 * x0 - xh).clamp(0.0, 1.0))
+        gd_noise = d_grads(
+            z0 + 1e-6 * z0.abs().max() * torch.randn(
+                z0.shape, device=dev, generator=noise),
+            (x0 + 1e-6 * torch.randn(x0.shape, device=dev,
+                                     generator=noise)).clamp(0.0, 1.0))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def rel(gs_a, gs_b, names=None, part=""):
+        names = names or [""] * len(gs_b)
+        return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for nm, x, y in zip(names, gs_a, gs_b)
+                   if y is not None and nm.startswith(part))
+
+    rel_g, rel_d = rel(grads_k, grads_p), rel(gd_k, gd_p)
+    d_names = [nm for nm, _ in d32.named_parameters()]
+    cross = {part: rel(gd_k, gd_plain, d_names, part)
+             for part in ("latent", "pixel")}
+    witness = {f"{how}_{part}": rel(g, gd_plain, d_names, part)
+               for how, g in (("mirror", gd_mirror), ("noise", gd_noise),
+                              ("repeat", gd_again))
+               for part in ("latent", "pixel")}
+    d_bar = max(1e-3, 2 * max(v for k_, v in witness.items()
+                              if not k_.startswith("repeat")))
+    check(rel_g <= 1e-3, f"biadv_train: G gradients kernels vs plain, "
+          f"scale-relative {rel_g} > 1e-3")
+    check(z_err <= 1e-5 and x_hat_err <= 1e-4, f"biadv_train: the D step's "
+          f"inputs, kernels vs plain: z_q {z_err} (bar 1e-5 of max|z|), "
+          f"x̂ {x_hat_err} (bar 1e-4)")
+    check(rel_d <= 1e-3, f"biadv_train: D gradients vs the D loss written "
+          f"out, scale-relative {rel_d} > 1e-3")
+    check(max(cross.values()) <= d_bar, f"biadv_train: D gradients at the "
+          f"kernels' inputs vs the plain path's, scale-relative {cross} > "
+          f"{d_bar} (witness {witness})")
+    return {"grad_max_scale_rel_err": rel_g, "d_grad_max_scale_rel_err":
+            rel_d, "d_grad_cross_path": cross, "d_grad_witness": witness,
+            "d_grad_cross_bar": d_bar,
+            "d_input_z_rel_err": z_err, "d_input_x_hat_err":
+            x_hat_err, "loss_kernels": float(loss_k.detach()),
+            "loss_plain": float(loss_p.detach()),
+            "d_total": float(total_k.detach())}
+
+
+def biadv_train_phase(arrays, tmp: str, dev):
+    """Phase 18 (module docstring). Returns (launches, cfg)."""
+    from apv_tpu_torch import make_train_fns, ood_score, restore_checkpoint
+    from apv_tpu_torch.data.preprocess import (normalize_center,
+                                               uniform_dequantize)
+    from apv_tpu_torch.ops import kernels as K
+    cfg = prior_config("cifar_advprior_resnet", tmp, BIADV_STEPS,
+                       "name=cifar_biadv", *BIADV)
+    a = cfg.adversarial
+    check_flagship_width("biadv_train", cfg)
+    check(a.enabled and a.variant == "biadversarial" and a.r1_gamma == 1.0
+          and a.d_spectral_norm and a.d_reuse_posterior
+          and tuple(a.pixel_d_widths) == (32, 64, 128),
+          f"biadv_train: adversarial section {a}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1,
+                "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
+    state, launches, records, wall, (first, last) = checked_train(
+        "biadv_train", cfg, arrays, dev, per_step)
+    peak = torch.cuda.max_memory_allocated()
+    keys = ("d_loss", "px_d_loss", "d_r1", "px_d_r1", "g_px", "px_d_acc")
+    check(all(k in r for r in records for k in keys),
+          f"biadv_train: metrics {sorted(records[-1])}")
+    fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+    restore_checkpoint(Path(tmp) / cfg.name / "checkpoints", fresh)
+    check(states_equal(fresh, state), "biadv_train: the restored state "
+          "differs from the trained one")
+    image = torch.from_numpy(arrays["image"][:cfg.train.batch_size]).to(dev)
+    u = torch.rand(image.shape, generator=torch.Generator(dev).manual_seed(
+        SEED + 7), device=dev)
+    grads = biadv_grad_check(cfg, state, normalize_center(
+        uniform_dequantize(image, u=u)), image.to(torch.float32) / 255.0, dev)
+    del state, fresh
+    step_s = loop_step_s(prior_config(
+        "cifar_advprior_resnet", tmp, TIMED_STEPS, "name=cifar_biadv_timed",
+        "train.log_every=8", *BIADV), arrays, dev)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = ood_score("ood_suite", overrides=[
+        f"results_dir={tmp}", "ood.score=pixel_d"], checkpoint_dir=str(
+            Path(tmp) / cfg.name / "checkpoints"), both=True, seed=SEED,
+        device=dev)
+    torch.cuda.synchronize()
+    ood_wall = time.perf_counter() - t0
+    ood_launches = path_counts(K)
+    check(ood_launches == expected(K), f"biadv_train pixel_d launches "
+          f"{ood_launches} (one conv D forward a batch: no port kernel)")
+    o = cfg.ood
+    n_rows = (o.max_examples // o.batch_size) * o.batch_size
+    for r in (res["forward"], res["reverse"]):
+        check(r["score"] == "pixel_d" and r["n_in"] == r["n_ood"] == n_rows
+              and all(0.0 <= r[k] <= 1.0 for k in (
+                  "auroc_in_vs_ood", "auroc_ood_vs_in", "fpr_at_95_tpr"))
+              and math.isfinite(r["in_mean"]) and math.isfinite(
+                  r["ood_mean"]), f"biadv_train pixel_d: {r}")
+    imgs, s_launches, lines, s_wall = sample_png(
+        "biadv_train", "cifar_advprior_resnet", tmp, dev, name=cfg.name)
+    check(s_launches == expected(K), f"biadv_train sample launches "
+          f"{s_launches}")
+    diag = next(ln["sampler_diagnostics"] for ln in lines
+                if "sampler_diagnostics" in ln)
+    check(diag["sir_pool"] == SAMPLE_N * 16
+          and 1.0 <= diag["sir_ess"] <= SAMPLE_N * 16,
+          f"biadv_train: SIR through the SN latent D {diag}")
+    last_rec = records[-1]
+    emit("biadv_train", preset="cifar_advprior_resnet", variant=a.variant,
+         r1_gamma=a.r1_gamma, d_spectral_norm=a.d_spectral_norm, batch=256,
+         steps=BIADV_STEPS, launches=launches, loss_first8=first,
+         loss_last8=last, last_step={k: v for k, v in last_rec.items()
+                                     if k != "step"},
+         wall_s_checked_run=wall, ms_per_step=step_s * 1e3,
+         images_per_s=cfg.train.batch_size / step_s,
+         max_memory_allocated_bytes=peak,
+         max_memory_allocated_gib=peak / 2 ** 30,
+         ood_pixel_d=res, ood_wall_s=ood_wall, sample_wall_s=s_wall,
+         sample_diagnostics=diag, sample_images_mean=float(imgs.mean()),
          card=torch.cuda.get_device_name(0), **grads)
     return launches, cfg
 
@@ -2151,10 +2590,15 @@ def main(argv: list[str]) -> int:
             "flow_train", "cifar_flow", arrays, tmp, dev)
         path_launches["iwae_train"], cfg5 = iwae_train_phase(arrays, tmp,
                                                              dev)
+        # 17-18. the CLI as a user runs it, then the biadversarial flagship
+        path_launches["front_door"] = front_door_phase(dev)
+        path_launches["biadv_train"], cfg6 = biadv_train_phase(arrays, tmp,
+                                                               dev)
         if args.profile is not None:
             profile_train(args.profile, cfg_gb, dev, tag="gb_train")
             profile_train(args.profile, cfg_flow, dev, tag="flow_train")
             profile_train(args.profile, cfg5, dev, tag="iwae_train")
+            profile_train(args.profile, cfg6, dev, tag="biadv_train")
 
     total = {n: sum(pl[n] for pl in path_launches.values())
              for n in K.launches}

@@ -149,8 +149,33 @@ def test_latent_discriminator_matches_flax():
 
 
 def test_spectral_norm_d_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="SNDense"):
-        LatentDiscriminator(8, (32, 32), spectral_norm=True)
+    """The name predates the port of SNDense: the spectrally normalized
+    latent D now builds through make_latent_d, every layer an SNDense
+    whose σ is five power iterations from the reference's start vector
+    (float64 numpy here: 1e-5 relative), a lower bound of the largest
+    singular value."""
+    from apv_tpu_torch.models import SNDense, make_latent_d
+    from apv_tpu_torch.utils import jax_prng
+    from apv_tpu_torch.utils.config import AdversarialConfig
+    d = make_latent_d(AdversarialConfig(enabled=True, d_widths=(32, 32),
+                                        d_spectral_norm=True), 8,
+                      device="cpu")
+    assert isinstance(d, LatentDiscriminator)
+    assert [type(layer) for layer in d.layers] == [SNDense] * 3
+    for layer in d.layers:
+        w = layer.weight.detach().double().numpy().T          # [in, out]
+        v = jax_prng.normal(w.shape[0] * 31 + w.shape[1], w.shape[0])
+        v = v / (np.linalg.norm(v) + 1e-12)
+        u = w.T @ v
+        for _ in range(5):
+            u = u / (np.linalg.norm(u) + 1e-12)
+            v = w @ u
+            v = v / (np.linalg.norm(v) + 1e-12)
+            u = w.T @ v
+        u = u / (np.linalg.norm(u) + 1e-12)
+        np.testing.assert_allclose(float(layer.sigma()), v @ w @ u,
+                                   rtol=1e-5)
+        assert float(layer.sigma()) <= np.linalg.norm(w, 2) * (1 + 1e-6)
 
 
 @pytest.mark.parametrize("name", ["gelu", "gelu_sigmoid", "silu", "relu",

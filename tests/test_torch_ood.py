@@ -153,7 +153,7 @@ def test_ood_refusals(stubbed):
     with pytest.raises(ValueError, match="unknown ood.score"):
         tood.ood_scores(tc, "m", "d")
     _, tc = _cfgs("ood_suite", "ood.score=pixel_d")
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(ValueError, match="biadversarial checkpoint"):
         tood.ood_scores(tc, "m", "d")
     _, tc = _cfgs("ood_suite", "ood.score=model_ratio")
     with pytest.raises(ValueError, match="baseline"):

@@ -266,19 +266,24 @@ def test_step_noise_depends_only_on_seed_and_step():
     "train.free_bits=0.5", "train.ema_decay=0.99", "train.grad_accum=2"])
 def test_knobs_outside_the_slice_raise(knob):
     """Knobs the port does not run raise NotImplementedError naming the
-    knob. The trained priors, the IWAE objective and free bits are ported:
-    they build, and raise only where the reference refuses them (a
+    knob. The trained priors, the IWAE objective, free bits and the
+    discriminator knobs (the biadversarial variant, R1, spectral norm) are
+    ported: they build, and raise only where the reference refuses them (a
     ValueError)."""
     from apv_tpu_torch.utils.config import apply_overrides
     cfg = apply_overrides(_port_cfg(tiny_config("mnist_advprior")), [knob])
+    adv_only = ("model.prior=flow", "mutually exclusive")
     refused_with = {
         "train.objective=iwae": ("train.free_bits=0.5", "free_bits"),
         "model.prior=gaussian": ("train.flow_dispersion_penalty=1.0",
                                  "flow_dispersion_penalty"),
-        "train.free_bits=0.5": ("train.objective=iwae", "free_bits")}
+        "train.free_bits=0.5": ("train.objective=iwae", "free_bits"),
+        "adversarial.variant=biadversarial": adv_only,
+        "adversarial.r1_gamma=1.0": adv_only,
+        "adversarial.d_spectral_norm=true": adv_only}
     if knob in refused_with:
         other, match = refused_with[knob]
-        tstep.make_train_fns(cfg, device="cpu")
+        tstep.make_train_fns(cfg, device="cpu").init_fn(0)
         with pytest.raises(ValueError, match=match):
             tstep.make_train_fns(apply_overrides(cfg, [other]), device="cpu")
         return
