@@ -9,10 +9,14 @@ and config 5 on a trained checkpoint: SIR/MALA and ex-post sampling with
 sample-quality distances (``sample``) and OOD scoring (``ood_score``).
 The front door is ``train``, ``evaluate`` (config 4, under the model's
 prior or an ex-post prior, with the active units of
-``posterior_activity``), ``sample``, ``ood_score`` and ``info``, and the
-``apv-torch`` CLI (``python -m apv_tpu_torch.cli``). The discriminators
-include the spectrally normalized latent D, the R1 penalty and the
-biadversarial pixel D with its ``pixel_d`` OOD score.
+``posterior_activity``), ``sample``, ``visualize`` (reconstruction and
+interpolation grids, the latent scatter), ``ood_score`` and ``info``, and
+the ``apv-torch`` CLI (``python -m apv_tpu_torch.cli``). The
+discriminators include the spectrally normalized latent D, the R1 penalty
+and the biadversarial pixel D with its ``pixel_d`` OOD score. The training
+knobs include the cosine and floor-adaptive D learning rates, gradient
+accumulation and the EMA shadow that the eval-side entry points read;
+the likelihoods include the mixture of discretized logistics.
 Reparameterized sampling, KL and the Bernoulli and discretized-logistic
 likelihoods run in hand-written CUDA kernels on the card
 (``apv_tpu_torch.ops``), each with a backward kernel, and in plain
@@ -24,7 +28,8 @@ Entry points take ``device=None``, meaning the CUDA card; they raise when
 there is none. Pass ``device="cpu"`` for the plain path.
 """
 
-from apv_tpu_torch.api import evaluate, info, ood_score, sample, train
+from apv_tpu_torch.api import (evaluate, info, ood_score, sample, train,
+                               visualize)
 from apv_tpu_torch.data.datasets import load_dataset
 from apv_tpu_torch.eval.ood import ood_both, ood_scores
 from apv_tpu_torch.eval.run import evaluate_nll, posterior_activity
@@ -45,4 +50,4 @@ __all__ = ["apply_overrides", "build_model", "evaluate", "evaluate_nll",
            "make_scorer", "make_train_fns", "ood_both", "ood_score",
            "ood_scores", "posterior_activity", "restore_checkpoint",
            "sample", "sample_quality", "save_checkpoint", "train",
-           "train_loop"]
+           "train_loop", "visualize"]

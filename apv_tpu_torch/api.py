@@ -1,5 +1,5 @@
-"""Public entry points: ``train``, ``evaluate`` (config 4), ``sample``
-and ``ood_score`` (config 5), and ``info`` (counterpart of
+"""Public entry points: ``train``, ``evaluate`` (config 4), ``sample``,
+``visualize`` and ``ood_score`` (config 5), and ``info`` (counterpart of
 ``apv_tpu/api.py``).
 
 Each is config-driven (a preset name or Config, plus dot-path overrides),
@@ -21,7 +21,11 @@ A biadversarial checkpoint's D is the ``{"latent", "pixel"}`` pair:
 sampling and the likelihood scores read its latent D (``_d``), the OOD
 suite gets the pair (``ood.score='pixel_d'`` reads the pixel D).
 
-Not ported: ``visualize`` and ``export_artifact``.
+A checkpoint trained with ``train.ema_decay > 0`` is evaluated, sampled,
+visualized and OOD-scored through its EMA shadow (``_p``); training's own
+validation reads the raw parameters.
+
+Not ported: ``export_artifact``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import json
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from apv_tpu_torch.utils.config import (Config, apply_overrides,
@@ -103,6 +108,15 @@ def _write_json(cfg: Config, name: str, data: dict) -> None:
     MetricLogger(Path(cfg.results_dir) / cfg.name).write_json(name, data)
 
 
+def _p(state, cfg: Config):
+    """The VAE eval-side entry points consume: the Polyak average when
+    ``train.ema_decay`` is on and the state holds one, else the raw
+    parameters (the reference's ``training/state.eval_params``)."""
+    if cfg.train.ema_decay > 0.0 and state.ema_model is not None:
+        return state.ema_model
+    return state.model
+
+
 def _d(state, cfg: Config, *, whole: bool = False):
     """The D eval-side entry points consume: None when the run is not
     adversarial, else the latent D (the pair's latent D under the
@@ -172,17 +186,17 @@ def evaluate(config: str | Config = "iwae_eval", *,
     cfg = _adopt_checkpoint_arch(_resolve(config, overrides), overrides,
                                  checkpoint_dir)
     state = _restore_state(cfg, checkpoint_dir, device=dev)
-    prior_moments = _expost_prior(cfg, state.model, prior, gmm_k=gmm_k,
+    model = _p(state, cfg)
+    prior_moments = _expost_prior(cfg, model, prior, gmm_k=gmm_k,
                                   flow_steps=flow_steps, split="train",
                                   device=dev)
     images = eval_arrays(cfg, dataset,
                          max_examples=cfg.eval.max_examples)["image"]
-    result = evaluate_nll(cfg, state.model, _d(state, cfg), images, k=k,
+    result = evaluate_nll(cfg, model, _d(state, cfg), images, k=k,
                           per_sample=per_sample,
                           prior_moments=prior_moments, device=dev)
     if activity:
-        result.update(posterior_activity(cfg, state.model, images,
-                                         device=dev))
+        result.update(posterior_activity(cfg, model, images, device=dev))
     out = {k_: v for k_, v in result.items() if k_ != "per_sample"}
     # an ex-post prior's file never overwrites the model prior's eval.json
     suffix = "" if prior == "model" else f"_{prior}"
@@ -340,7 +354,7 @@ def sample(config: str | Config = "mnist_vae", *,
     cfg = _adopt_checkpoint_arch(_resolve(config, overrides), overrides,
                                  checkpoint_dir)
     state = _restore_state(cfg, checkpoint_dir, device=dev)
-    model = state.model
+    model = _p(state, cfg)
     d = _d(state, cfg) if prior == "auto" else None
     prior_moments = _expost_prior(cfg, model, prior, gmm_k=gmm_k,
                                   flow_steps=flow_steps, seed=seed,
@@ -379,6 +393,79 @@ def sample(config: str | Config = "mnist_vae", *,
     return images
 
 
+_VISUALS = ("reconstruct", "interpolate", "latent")
+
+
+def visualize(config: str | Config = "mnist_vae", *,
+              overrides: list[str] | None = None,
+              checkpoint_dir: str | None = None, what: str = "reconstruct",
+              n: int = 8, steps: int = 8, seed: int = 0, mode: str = "mean",
+              out_path: str | None = None, refine: int = 0, device=None):
+    """Reconstruction and interpolation grids and the latent scatter of a
+    trained checkpoint, written as PNGs next to the run.
+
+    ``what='reconstruct'``: the first n test images over their q(z|x)
+    sample's decodings (``reconstructions.png``; returns the decodings).
+    ``'interpolate'``: n pairs of test images, slerp between their
+    posterior means, a row of ``steps`` images a pair
+    (``interpolation.png``; returns [n, steps, H, W, C]). ``'latent'``:
+    the aggregate posterior against the priors on its top-2 PCs
+    (``latent_scatter.png``, at least 256 points; ``refine`` MALA steps on
+    the shaped-prior draws, refused without a latent D; returns the
+    projected clouds)."""
+    from apv_tpu_torch.eval.run import _prep_eval_batch, eval_arrays
+    from apv_tpu_torch.sampling.run import (latent_interpolate,
+                                            reconstruct_images,
+                                            save_image_grid)
+
+    if what not in _VISUALS:
+        raise ValueError(f"unknown visualization {what!r} "
+                         "(reconstruct|interpolate|latent)")
+    dev = resolve_device(device)
+    cfg = _adopt_checkpoint_arch(_resolve(config, overrides), overrides,
+                                 checkpoint_dir)
+    if what == "latent" and not cfg.adversarial.enabled and refine > 0:
+        raise ValueError("refine applies to the adversarially-shaped "
+                         "prior; this model has no latent discriminator — "
+                         "drop --refine")
+    state = _restore_state(cfg, checkpoint_dir, device=dev)
+    model = _p(state, cfg)
+    need = {"latent": max(n, 256), "reconstruct": n}.get(what, 2 * n)
+    images = eval_arrays(cfg, None, max_examples=need)["image"][:need]
+    x_np, levels = _prep_eval_batch(cfg, images)
+    x_in = torch.from_numpy(x_np).to(dev)
+    run_dir = Path(cfg.results_dir) / cfg.name
+    lik, chans = cfg.model.likelihood, cfg.model.image_shape[2]
+
+    if what == "latent":
+        from apv_tpu_torch.sampling.latent_viz import (latent_scatter_data,
+                                                       save_latent_scatter)
+        data = latent_scatter_data(model, x_in, cfg.model.z_dim,
+                                   d=_d(state, cfg),
+                                   refine_steps=refine,
+                                   model_prior=cfg.model.prior, seed=seed)
+        save_latent_scatter(data, out_path or run_dir / "latent_scatter.png")
+        return data
+    if what == "reconstruct":
+        recon = reconstruct_images(model, x_in, lik, chans, seed=seed,
+                                   mode=mode)
+        grid = np.concatenate([np.asarray(levels, np.float32),
+                               recon.cpu().numpy()])
+        save_image_grid(grid, out_path or run_dir / "reconstructions.png",
+                        cols=n)
+        return recon
+    if len(x_in) < 2 * n:
+        raise ValueError(
+            f"interpolate needs 2*n={2 * n} test images for n={n} pairs; "
+            f"the test split has {len(x_in)} — lower n or raise "
+            "data.synthetic_size / eval.max_examples")
+    frames = latent_interpolate(model, x_in[:n], x_in[n:2 * n], steps, lik,
+                                chans)
+    save_image_grid(frames.reshape((-1,) + tuple(frames.shape[2:])),
+                    out_path or run_dir / "interpolation.png", cols=steps)
+    return frames
+
+
 def _load_named_model(cfg: Config, name: str, *, device=None):
     """(cfg_b, model_b, d_b) for a results-dir run name: the architecture
     from its saved config.json (else the preset of that name), the weights
@@ -387,7 +474,7 @@ def _load_named_model(cfg: Config, name: str, *, device=None):
     if cfg_b is None:
         cfg_b = get_preset(name)
     state_b = _restore_state(cfg_b, device=device)
-    return cfg_b, state_b.model, _d(state_b, cfg_b, whole=True)
+    return cfg_b, _p(state_b, cfg_b), _d(state_b, cfg_b, whole=True)
 
 
 def ood_score(config: str | Config = "ood_suite", *,
@@ -412,10 +499,10 @@ def ood_score(config: str | Config = "ood_suite", *,
         reverse = (None if cfg.ood.reverse_of is None
                    else _load_named_model(cfg, cfg.ood.reverse_of,
                                           device=dev))
-        result = ood_both(cfg, state.model, d, seed=seed, baseline=baseline,
-                          reverse=reverse, device=dev)
+        result = ood_both(cfg, _p(state, cfg), d, seed=seed,
+                          baseline=baseline, reverse=reverse, device=dev)
     else:
-        result = ood_scores(cfg, state.model, d, seed=seed,
+        result = ood_scores(cfg, _p(state, cfg), d, seed=seed,
                             baseline=baseline, device=dev)
     _write_json(cfg, "ood.json", result)
     return result

@@ -4,9 +4,11 @@
 
 Commands run on the CUDA card unless ``--device cpu``. ``presets`` and
 ``info`` read only the config registry and the results dir: they touch no
-device. What the port lacks exits nonzero naming the ROADMAP item:
-``sample --visualize`` (items 12.6 and 14b), ``export`` (14b) and
-``train --distributed`` (13).
+device. ``sample --visualize reconstruct|interpolate|latent`` writes the
+reconstruction, interpolation or latent-scatter PNG instead of prior
+samples; the flags of prior sampling that it would ignore are refused.
+What the port lacks exits nonzero naming the ROADMAP item: ``export``
+(14b) and ``train --distributed`` (13).
 """
 
 from __future__ import annotations
@@ -79,9 +81,13 @@ def _parser() -> argparse.ArgumentParser:
     p_sample.add_argument("--visualize", choices=("reconstruct",
                                                   "interpolate", "latent"),
                           default=None,
-                          help="reconstruction, slerp or latent-scatter "
-                               "grids (not ported: ROADMAP queue A items "
-                               "12.6 and 14b)")
+                          help="instead of prior samples: reconstructions "
+                               "(-n test images), latent slerps (-n rows, "
+                               "--steps columns), or a latent-space scatter "
+                               "of the aggregate posterior vs the priors")
+    p_sample.add_argument("--steps", type=int, default=8,
+                          help="interpolation steps (with --visualize "
+                               "interpolate)")
     p_sample.add_argument("--prior", choices=("auto", "standard", "expost",
                                               "expost_gmm", "expost_flow"),
                           default="auto",
@@ -125,8 +131,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="run name (omit to list all runs)")
     p_info.add_argument("--results-dir", default="results")
 
-    # the reference's export flags (and sample --visualize's --steps) are
-    # left to parse_known_args, so that the refusal is what shows
+    # the reference's export flags are left to parse_known_args, so that
+    # the refusal is what shows
     sub.add_parser("export", help="export a serving artifact (not ported: "
                                   "ROADMAP queue A item 14b)")
     return parser
@@ -138,9 +144,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "export":
         raise SystemExit("export is not ported to apv_tpu_torch yet "
                          "(ROADMAP queue A item 14b)")
-    if args.command == "sample" and args.visualize:
-        raise SystemExit("sample --visualize is not ported to apv_tpu_torch "
-                         "yet (ROADMAP queue A items 12.6 and 14b)")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.command == "info":
@@ -164,6 +167,16 @@ def main(argv: list[str] | None = None) -> int:
                 "--checkpoint-dir is eval-side only (evaluate/sample/ood); "
                 "train resumes from <results_dir>/<name>/checkpoints — use "
                 "--set name=... / --set results_dir=...")
+    if args.command == "sample" and args.visualize:
+        # prior sampling's flags do nothing here: refuse rather than ignore
+        default = vars(parser.parse_known_args(["sample"])[0])
+        moved = ["--" + dest.replace("_", "-") for dest in (
+            "prior", "temperature", "gmm_k", "flow_steps", "quality")
+            if getattr(args, dest) != default[dest]]
+        if moved:
+            raise SystemExit(f"{', '.join(moved)} apply to prior sampling; "
+                             "they have no effect with --visualize — run "
+                             "`apv-torch sample` without it")
     if args.debug_nans:
         import torch
         torch.autograd.set_detect_anomaly(True)
@@ -183,6 +196,13 @@ def main(argv: list[str] | None = None) -> int:
                               prior=args.prior, gmm_k=args.gmm_k,
                               flow_steps=args.flow_steps, device=dev)
         print(json.dumps(result, indent=2))
+    elif args.command == "sample" and args.visualize:
+        api.visualize(args.preset, overrides=args.overrides,
+                      checkpoint_dir=args.checkpoint_dir,
+                      what=args.visualize, n=args.n, steps=args.steps,
+                      seed=args.seed, mode=args.mode, out_path=args.out,
+                      refine=args.refine, device=dev)
+        print(f"wrote {args.visualize} grid")
     elif args.command == "sample":
         api.sample(args.preset, overrides=args.overrides,
                    checkpoint_dir=args.checkpoint_dir, n=args.n,

@@ -131,6 +131,71 @@ def discretized_logistic_sample(mean: torch.Tensor, log_scale: torch.Tensor,
     return torch.clamp(y, low, high)
 
 
+def categorical(logits: torch.Tensor, n: int | None = None, *,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Indices drawn with probabilities softmax(logits) over the last axis:
+    ``n`` of them from 1-D logits [K], or with ``n=None`` one for each row
+    of logits [..., K] -> [...]."""
+    probs = torch.softmax(_f32(logits), dim=-1)
+    if n is not None:
+        return torch.multinomial(probs, n, replacement=True,
+                                 generator=generator)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        probs.shape[:-1])
+
+
+# Mixture of discretized logistics (``model.likelihood=disc_logistic_mix``):
+# K components per pixel channel, independent across channels, on the same
+# 256-level grid as the single logistic.
+
+def discretized_logistic_mixture_logpmf(
+        x: torch.Tensor, means: torch.Tensor, log_scales: torch.Tensor,
+        mix_logits: torch.Tensor, *, bin_size: float = 1.0 / 255.0,
+        low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+    """Elementwise log P(pixel bin) under a K-component mixture: ``x``
+    [...], the parameters [..., K] (mixture axis last) -> [...],
+    logsumexp_k(log_softmax(mix_logits)_k + log P_k(bin)), each log P_k the
+    single logistic's. x broadcasts against the parameters' leading axes."""
+    comp = discretized_logistic_logpmf(x[..., None], means, log_scales,
+                                       bin_size=bin_size, low=low, high=high)
+    log_w = torch.log_softmax(_f32(mix_logits), dim=-1)
+    return torch.logsumexp(log_w + comp, dim=-1)
+
+
+def discretized_logistic_mixture_mean(means: torch.Tensor,
+                                      mix_logits: torch.Tensor
+                                      ) -> torch.Tensor:
+    """Mixture mean Σ_k softmax(mix_logits)_k · mean_k over the last axis."""
+    w = torch.softmax(_f32(mix_logits), dim=-1)
+    return torch.sum(w * _f32(means), dim=-1)
+
+
+def discretized_logistic_mixture_sample(
+        means: torch.Tensor, log_scales: torch.Tensor,
+        mix_logits: torch.Tensor, *,
+        generator: torch.Generator | None = None,
+        pick: torch.Tensor | None = None, u: torch.Tensor | None = None,
+        bin_size: float = 1.0 / 255.0, low: float = 0.0,
+        high: float = 1.0) -> torch.Tensor:
+    """A pixel draw: a component per element (``categorical`` on
+    ``generator``), then the logistic draw from it. ``pick`` [...] (the
+    components) and ``u`` [...] (``discretized_logistic_sample``'s
+    uniforms) may be injected."""
+    if pick is None:
+        pick = categorical(mix_logits, generator=generator)
+    elif tuple(pick.shape) != tuple(mix_logits.shape[:-1]):
+        raise ValueError(f"discretized_logistic_mixture_sample: pick has "
+                         f"shape {tuple(pick.shape)}, expected "
+                         f"{tuple(mix_logits.shape[:-1])}")
+    idx = pick.to(device=means.device, dtype=torch.int64)[..., None]
+    mean = torch.take_along_dim(means, idx, dim=-1)[..., 0]
+    log_scale = torch.take_along_dim(log_scales, idx, dim=-1)[..., 0]
+    return discretized_logistic_sample(mean, log_scale, generator=generator,
+                                       u=u, bin_size=bin_size, low=low,
+                                       high=high)
+
+
 def diag_gmm_logpdf(z: torch.Tensor, log_w: torch.Tensor, means: torch.Tensor,
                     variances: torch.Tensor) -> torch.Tensor:
     """log density of a diagonal-covariance Gaussian mixture over the last

@@ -13,12 +13,17 @@ divergence ops reduce every other axis to one value per sample. The
 likelihood ops also take x with B rows beside parameters with S·B rows
 (one image scored under S samples) where the caller names S
 (``samples=S``): the kernels read each image once.
+
+The mixture of discretized logistics (``disc_logistic_mix_recon_ll``) is
+plain PyTorch on every device: the reference runs it as jnp on every
+backend, so it has no TPU kernel to port.
 """
 
 from __future__ import annotations
 
 import torch
 
+from apv_tpu_torch.core import distributions as D
 from apv_tpu_torch.ops import kernels as K
 
 
@@ -200,3 +205,25 @@ def disc_logistic_recon_ll(x: torch.Tensor, mean: torch.Tensor,
                                  _rows(mean.to(torch.float32)),
                                  _rows(log_scale.to(torch.float32)),
                                  float(bin_size))
+
+
+def disc_logistic_mix_recon_ll(x: torch.Tensor, means: torch.Tensor,
+                               log_scales: torch.Tensor,
+                               mix_logits: torch.Tensor, *,
+                               bin_size: float = 1.0 / 255.0,
+                               samples: int = 1) -> torch.Tensor:
+    """Per-sample mixture-of-discretized-logistics log-likelihood -> [R];
+    x [B, H, W, C] holds the bin centres, the parameters [R, H, W, C, K].
+
+    Plain PyTorch on every device, autograd its backward (the reference's
+    jnp tier by design: no TPU kernel). With ``samples=S`` the parameters
+    hold R = S·B rows, sample-major, and x is broadcast as a view
+    [1, B, ...] against them [S, B, ...]: never copied."""
+    _check_samples("disc_logistic_mix_recon_ll", x, means, samples)
+    lead = (samples, x.shape[0])
+    ll = D.discretized_logistic_mixture_logpmf(
+        x.unsqueeze(0), means.reshape(lead + tuple(means.shape[1:])),
+        log_scales.reshape(lead + tuple(log_scales.shape[1:])),
+        mix_logits.reshape(lead + tuple(mix_logits.shape[1:])),
+        bin_size=bin_size)
+    return ll.reshape(means.shape[0], -1).sum(dim=-1)

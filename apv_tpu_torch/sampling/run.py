@@ -74,8 +74,7 @@ def _categorical(logits: torch.Tensor, n: int, generator,
     if injected is not None:
         return _check_draw(name, injected, (n,)).to(logits.device,
                                                      torch.int64)
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    return torch.multinomial(probs, n, replacement=True, generator=generator)
+    return D.categorical(logits, n, generator=generator)
 
 
 def shaped_prior_logp(z: torch.Tensor, d: Callable,
@@ -209,11 +208,13 @@ def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
 def decoder_pixels(out: torch.Tensor, likelihood: str, image_channels: int,
                    mode: str = "mean", *,
                    generator: torch.Generator | None = None,
-                   u: torch.Tensor | None = None) -> torch.Tensor:
+                   u: torch.Tensor | None = None,
+                   pick: torch.Tensor | None = None) -> torch.Tensor:
     """Decoder output -> images in [0, 1]: the ``mean`` of the pixel
-    likelihood, or a ``sample`` from it (Bernoulli: u < p; discretized
-    logistic: the logistic draw at u). ``u`` (the uniforms) may be
-    injected."""
+    likelihood (the mixture's clipped to [0, 1]), or a ``sample`` from it
+    (Bernoulli: u < p; discretized logistic: the logistic draw at u; the
+    mixture: a component per element, then its logistic draw). ``u`` (the
+    uniforms) and ``pick`` (the mixture's components) may be injected."""
     if mode not in ("mean", "sample"):
         raise ValueError(f"unknown pixel mode {mode!r} (mean|sample)")
     lik = decoder_output_to_likelihood_params(out, likelihood,
@@ -224,6 +225,13 @@ def decoder_pixels(out: torch.Tensor, likelihood: str, image_channels: int,
             return probs
         return (_uniform(probs.shape, generator, probs.device, u, "u")
                 < probs).to(torch.float32)
+    if likelihood == "disc_logistic_mix":
+        means, log_scales, logits = lik
+        if mode == "mean":
+            return torch.clamp(D.discretized_logistic_mixture_mean(
+                means, logits), 0.0, 1.0)
+        return D.discretized_logistic_mixture_sample(
+            means, log_scales, logits, generator=generator, pick=pick, u=u)
     mean, log_scale = lik
     if mode == "mean":
         return torch.clamp(mean.to(torch.float32), 0.0, 1.0)

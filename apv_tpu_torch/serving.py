@@ -4,7 +4,7 @@ and ``:116-159``, ``_scorer_fn``), each under the checkpoint's own prior:
 N(0, I), the trained flow or Gaussian base, and the adversarial D.
 
 Exporting them (``torch.export``) and int8 weights come later (ROADMAP
-queue A item 14).
+queue A item 14b).
 """
 
 from __future__ import annotations

@@ -25,20 +25,31 @@ from apv_tpu_torch.core import distributions as D
 def decoder_output_to_likelihood_params(out: torch.Tensor, likelihood: str,
                                         image_channels: int):
     """Split the decoder's channel-stacked NHWC output into likelihood
-    params, each contiguous, ready for the kernels' [B, H·W·C] rows.
+    params.
 
     Bernoulli: out [B,H,W,C] are the logits. Discretized logistic:
-    [B,H,W,2C] -> (mean, log_scale), log_scale floored at -7 (PixelCNN++
-    convention)."""
+    [B,H,W,2C] -> (mean, log_scale), each contiguous for the kernels'
+    [B, H·W·C] rows, log_scale floored at -7 (PixelCNN++ convention).
+    Mixture ('disc_logistic_mix'): [B,H,W,3·K·C] -> [B,H,W,C,3K], split on
+    the last axis into (means, log_scales floored at -7, mix logits), each
+    [B,H,W,C,K], the reference's layout (flax weights convert to it); K is
+    read off the channel count."""
     if likelihood == "bernoulli":
         if out.shape[-1] != image_channels:
             raise ValueError(f"decoder output has {out.shape[-1]} channels, "
                              f"expected {image_channels} logits")
         return (out.contiguous(),)
+    if likelihood == "disc_logistic_mix":
+        k3 = out.shape[-1] // image_channels
+        if out.shape[-1] != image_channels * k3 or k3 % 3 != 0:
+            raise ValueError(f"disc_logistic_mix head must be 3·K·C "
+                             f"channels; got {out.shape[-1]} for "
+                             f"C={image_channels}")
+        p = out.reshape(tuple(out.shape[:-1]) + (image_channels, k3))
+        means, log_scales, logits = p.split(k3 // 3, dim=-1)
+        return means, torch.clamp_min(log_scales, -7.0), logits
     if likelihood != "discretized_logistic":
-        raise NotImplementedError(f"likelihood {likelihood!r} is not ported "
-                                  "yet; bernoulli and discretized_logistic "
-                                  "are")
+        raise ValueError(f"unknown likelihood {likelihood!r}")
     if out.shape[-1] != 2 * image_channels:
         raise ValueError(f"decoder output has {out.shape[-1]} channels, "
                          f"expected {2 * image_channels}")
@@ -55,6 +66,9 @@ def recon_log_likelihood(x_target: torch.Tensor, out: torch.Tensor,
                                                  x_target.shape[-1])
     if likelihood == "bernoulli":
         return ops.bernoulli_recon_ll(x_target, params[0], samples=samples)
+    if likelihood == "disc_logistic_mix":
+        return ops.disc_logistic_mix_recon_ll(x_target, *params,
+                                              samples=samples)
     return ops.disc_logistic_recon_ll(x_target, *params, samples=samples)
 
 
@@ -62,12 +76,16 @@ def likelihood_pixel_mean(out: torch.Tensor, likelihood: str,
                           image_channels: int) -> torch.Tensor:
     """The likelihood's mean image in [0, 1], differentiable: σ(logits)
     for the Bernoulli, the mean clipped to [0, 1] for the discretized
-    logistic. The x̂ the biadversarial pixel D judges; the generator's
-    pixel-space gradient reaches the decoder through it."""
+    logistic, the mixture mean clipped to [0, 1] for the mixture. The x̂
+    the biadversarial pixel D judges; the generator's pixel-space gradient
+    reaches the decoder through it."""
     params = decoder_output_to_likelihood_params(out, likelihood,
                                                  image_channels)
     if likelihood == "bernoulli":
         return torch.sigmoid(params[0])
+    if likelihood == "disc_logistic_mix":
+        return torch.clamp(D.discretized_logistic_mixture_mean(
+            params[0], params[2]), 0.0, 1.0)
     return torch.clamp(params[0], 0.0, 1.0)
 
 

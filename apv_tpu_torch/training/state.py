@@ -5,10 +5,19 @@ its optimizer (None for a non-adversarial run; under the biadversarial
 variant the D is the ``ModuleDict`` of the latent and the pixel D, one
 optimizer over both), the step count, and
 the seed that every step's noise derives from together with the step
-(the reference's base key with ``fold_in(rng, step)``). Unlike the
+(the reference's base key with ``fold_in(rng, step)``), and with
+``train.ema_decay > 0`` the VAE's Polyak average, a second module
+(``ema_model``) that the eval-side entry points read (``api._p``).
+Unlike the
 reference's immutable pytree, the modules and optimizer moments are
 updated in place by ``train_step``; ``state_dict`` and ``load_state_dict``
 are what a checkpoint saves and restores (``utils/checkpoint.py``).
+
+Restoring across EMA configs follows the reference
+(``apv_tpu/utils/checkpoint.py``): a saved shadow is dropped by a state
+without one (the raw parameters are then used), and a state with a shadow
+seeds it from the restored parameters when the checkpoint has none (one
+saved under ``ema_decay=0``, or before the shadow existed).
 """
 
 from __future__ import annotations
@@ -28,15 +37,19 @@ class TrainState:
     d: nn.Module | None                # latent D, or {latent, pixel}; or None
     d_opt: ClippedAdam | None
     seed: int                          # per-step noise = f(seed, step)
+    ema_model: nn.Module | None = None  # Polyak average of model, or None
 
     def state_dict(self) -> dict:
         """Everything a run resumes from: the step, the seed, the VAE's and
-        D's parameters and both optimizers' moments and counts."""
+        D's parameters, both optimizers' moments, counts and accumulators,
+        and the EMA shadow."""
         out = {"step": self.step, "seed": self.seed,
                "model": self.model.state_dict(),
                "opt": self.opt.state_dict()}
         if self.d is not None:
             out.update(d=self.d.state_dict(), d_opt=self.d_opt.state_dict())
+        if self.ema_model is not None:
+            out["ema_model"] = self.ema_model.state_dict()
         return out
 
     def load_state_dict(self, saved: dict) -> None:
@@ -49,4 +62,8 @@ class TrainState:
         if self.d is not None:
             self.d.load_state_dict(saved["d"])
             self.d_opt.load_state_dict(saved["d_opt"])
+        if self.ema_model is not None:
+            self.ema_model.load_state_dict(saved.get("ema_model",
+                                                     saved["model"]))
         self.step, self.seed = int(saved["step"]), int(saved["seed"])
+

@@ -41,8 +41,20 @@ the decoder through the decoded mean x̂; the D phase adds the pixel BCE on
 D phase's own z_q). ``adversarial.r1_gamma`` γ adds γ·R1 on z_q for the
 latent D and on x_target for the pixel D: a second backward through D.
 
-Knobs outside this slice raise ``NotImplementedError`` naming the knob;
-the combinations the reference refuses raise ``ValueError``.
+The training knobs: ``adversarial.d_lr_schedule`` 'cosine' decays D's
+learning rate over its updates (``max(1, steps // grad_accum)`` ×
+``max(1, n_critic)`` of them); 'floor_adaptive' multiplies each applied D
+update by clip((d_loss − floor)/(2 ln 2 − floor), 0, 1), floor the BCE's
+analytic minimum under label smoothing, a 0-dim device tensor (each D its
+own factor from its own loss under the biadversarial pair; Adam's moments
+still take the full gradient). ``train.grad_accum`` k averages both
+optimizers' gradients over k micro-steps and applies them on the k-th
+(``ClippedAdam``'s ``every_k``; D's micro-steps are its critic
+iterations). ``train.ema_decay`` d keeps the VAE's Polyak average in
+``state.ema_model``, e ← d·e + (1 − d)·θ once per micro-step after the D
+phases; validation reads the raw parameters.
+
+The combinations the reference refuses raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ from apv_tpu_torch.models import (build_model, latent_d_params,
                                   make_discriminators)
 from apv_tpu_torch.training import losses as L
 from apv_tpu_torch.training.optim import (ClippedAdam, constant,
-                                          warmup_cosine_decay)
+                                          cosine_decay, warmup_cosine_decay)
 from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
@@ -84,13 +96,32 @@ def _make_optimizer(cfg: Config, params) -> ClippedAdam:
                         updates_total // 2))
     lr = warmup_cosine_decay(0.0, t.lr, warmup,
                              max(updates_total, warmup + 1), t.lr_end_value)
-    return ClippedAdam(params, lr, clip_norm=t.grad_clip_norm)
+    return ClippedAdam(params, lr, clip_norm=t.grad_clip_norm,
+                       every_k=t.grad_accum)
+
+
+D_LR_SCHEDULES = ("constant", "cosine", "floor_adaptive")
 
 
 def _make_d_optimizer(cfg: Config, params) -> ClippedAdam:
-    """D's Adam: constant d_lr, b1 = 0.5 (GAN convention), own clip."""
-    return ClippedAdam(params, constant(cfg.adversarial.d_lr),
-                       clip_norm=cfg.train.grad_clip_norm, b1=0.5)
+    """D's Adam: b1 = 0.5 (GAN convention), own clip, d_lr constant or
+    cosine-decayed to d_lr_end over D's updates ('floor_adaptive' keeps
+    it constant and throttles the update in the D phase)."""
+    a, t = cfg.adversarial, cfg.train
+    lr = constant(a.d_lr)
+    if a.d_lr_schedule == "cosine":
+        d_updates = max(1, t.steps // t.grad_accum) * max(1, a.n_critic)
+        lr = cosine_decay(a.d_lr, d_updates, alpha=a.d_lr_end / a.d_lr)
+    return ClippedAdam(params, lr, clip_norm=t.grad_clip_norm, b1=0.5,
+                       every_k=t.grad_accum)
+
+
+def d_lr_factor(cfg: Config, loss: torch.Tensor) -> torch.Tensor:
+    """The floor-adaptive throttle of a D update, from that D's loss:
+    clip((loss − floor)/(2 ln 2 − floor), 0, 1) on the loss's device."""
+    floor = L.d_loss_floor(cfg.adversarial.label_smoothing)
+    return torch.clamp((loss.detach() - floor) / (2.0 * np.log(2.0) - floor),
+                       0.0, 1.0)
 
 
 def prepare_batch(cfg: Config, batch: dict, draw_u: Callable | None = None,
@@ -141,8 +172,7 @@ def _loss_scale(cfg: Config) -> float:
 
 
 def _check_knobs(cfg: Config) -> None:
-    """Raise on the combinations the reference refuses, and on every knob
-    this slice does not run."""
+    """Raise on the combinations the reference refuses."""
     t, a = cfg.train, cfg.adversarial
     prior = cfg.model.prior
     if t.objective not in ("elbo", "iwae"):
@@ -165,16 +195,13 @@ def _check_knobs(cfg: Config) -> None:
         raise ValueError("train.free_bits applies to the elbo objective "
                          "only: the IWAE bound has no per-dimension KL term "
                          "to floor")
-    unported = [
-        (f"adversarial.d_lr_schedule={a.d_lr_schedule!r}",
-         a.enabled and a.d_lr_schedule != "constant"),
-        ("train.ema_decay>0", t.ema_decay > 0.0),
-        ("train.grad_accum>1", t.grad_accum > 1),
-    ]
-    for knob, on in unported:
-        if on:
-            raise NotImplementedError(f"{knob} is not ported to the PyTorch "
-                                      "train step yet")
+    if a.enabled and a.d_lr_schedule not in D_LR_SCHEDULES:
+        raise ValueError(f"adversarial.d_lr_schedule must be 'constant', "
+                         f"'cosine', or 'floor_adaptive', got "
+                         f"{a.d_lr_schedule!r}")
+    if t.grad_accum < 1:
+        raise ValueError(f"train.grad_accum must be >= 1, got "
+                         f"{t.grad_accum}")
 
 
 def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
@@ -314,15 +341,23 @@ def make_train_fns(cfg: Config, *, device=None,
     trainable_prior = cfg.model.prior in ("gaussian", "flow")
     noise_gen = torch.Generator(device=dev)
 
+    ema_decay = cfg.train.ema_decay
+    throttle = adv and a.d_lr_schedule == "floor_adaptive"
+
     def init_fn(seed: int) -> TrainState:
         model = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
         d = (make_discriminators(a, cfg.model.z_dim, cfg.model.image_shape,
                                  device=dev, seed=seed + 1, dtype=dtype)
              if adv else None)
+        ema = None
+        if ema_decay > 0.0:
+            ema = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
+            ema.load_state_dict(model.state_dict())
+            ema.requires_grad_(False)
         return TrainState(
             step=0, model=model, opt=_make_optimizer(cfg, model.parameters()),
             d=d, d_opt=_make_d_optimizer(cfg, d.parameters()) if adv else None,
-            seed=seed)
+            seed=seed, ema_model=ema)
 
     def device_gen(gen: torch.Generator) -> torch.Generator:
         """The device generator, reseeded from the step's generator."""
@@ -380,7 +415,19 @@ def make_train_fns(cfg: Config, *, device=None,
                     x_target.shape[-1])
         total, metrics = d_objective(cfg, state.d, z_q, z_p, x_target,
                                      x_hat)
-        state.d_opt.step(torch.autograd.grad(total, state.d_opt.params))
+        grads = torch.autograd.grad(total, state.d_opt.params)
+        scales = None
+        if throttle:
+            # one factor a D, each from its own loss, on the device
+            metrics["d_lr_factor"] = f = d_lr_factor(cfg, metrics["d_loss"])
+            if biadv:
+                metrics["px_d_lr_factor"] = pf = d_lr_factor(
+                    cfg, metrics["px_d_loss"])
+                scales = ([f for _ in state.d["latent"].parameters()]
+                          + [pf for _ in state.d["pixel"].parameters()])
+            else:
+                scales = [f] * len(grads)
+        state.d_opt.step(grads, scales)
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: dict, *,
@@ -421,6 +468,12 @@ def make_train_fns(cfg: Config, *, device=None,
         if adv and a.d_reuse_posterior:
             # G then D: D sees z_q (and x̂) made under the pre-update params
             run_d_phases(z_q, x_hat)
+        if state.ema_model is not None:
+            with torch.no_grad():
+                ema = list(state.ema_model.parameters())
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, state.opt.params,
+                                    alpha=1.0 - ema_decay)
         metrics["beta"] = beta
         state.step += 1
         return state, metrics

@@ -2,11 +2,15 @@
 
 The port's own format: one ``torch.save`` file per step,
 ``<dir>/step_<step>.pt``, holding ``TrainState.state_dict()`` (the VAE and
-D, both optimizers' moments and counts, the step and the seed). A save
+D, both optimizers' moments, counts and, under ``train.grad_accum``, their
+running means and micro-steps, the EMA shadow, the step and the seed). A
+save
 writes a temporary file and renames it, so a reader never sees half a
 checkpoint; the last ``max_to_keep`` steps are kept, as the reference's
 orbax manager keeps 3. Restoring reads the file onto the CPU and copies
-its tensors into a state built by ``init_fn``, bit for bit.
+its tensors into a state built by ``init_fn``, bit for bit; a
+checkpoint and a state that disagree on the EMA shadow restore as the
+reference's do (``TrainState.load_state_dict``).
 
 The reference's orbax checkpoints are not read here.
 """

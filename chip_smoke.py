@@ -108,6 +108,32 @@ Phases, one JSON line each:
      bar set by a witness of D's own sensitivity (biadv_grad_check); then
      api.ood_score with ood.score=pixel_d (both directions, 2,000
      examples) and api.sample (256 SIR draws through the SN latent D).
+ 19. knobs_train: the flagship with adversarial.d_lr_schedule=
+     floor_adaptive, train.ema_decay=0.999 and train.grad_accum=2 through
+     train_loop on the arrays of 14-16, 24 micro-steps in calls of 1,
+     cuDNN's deterministic algorithms on; exact launches, factors in
+     [0, 1], a falling loss; the same run cut at micro-step 13 (inside a
+     window) and resumed to 24 equals it bit for bit, shadow and
+     accumulators included; api.evaluate (iwae_eval,
+     k=1000, 64 images) on its checkpoint scores the shadow: its bits/dim
+     equal evaluate_nll of the shadow's weights and differ from the raw
+     parameters'; the synchronizing calls torch.cuda.set_sync_debug_mode(
+     "warn") reports over 8 steps, the flagship's and the knobs' (the
+     knobs may add none); ms a step as in 14 beside phase 8's.
+ 20. mix_train: the flagship with model.likelihood=disc_logistic_mix
+     (K=5, a 45-channel head), 24 steps; exact launches (no likelihood
+     kernel: the mixture is plain torch on every device, as in apv_tpu);
+     one G step's gradients through the kernels held to the plain ops;
+     IWAE k=1000 on 64 images, finite; api.sample in both pixel modes,
+     each PNG read back; ms a step beside phase 8's, and the mixture
+     op's forward and backward alone (CUDA events; with --profile, its
+     share of a step's device time).
+ 21. visualize: api.visualize with reconstruct, interpolate and latent
+     (SIR + 20 MALA steps) on knobs_train's EMA checkpoint, beside one
+     `apv-torch sample --visualize latent` child (started as phase 20
+     begins); each PNG decodes to its shape and is not constant;
+     reconstruct equals the shadow's own reconstruction of the same
+     draw.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
 The likelihood forwards' launches on the paths by (rows, x rows, E) are a
@@ -135,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -348,6 +375,8 @@ def kernel_checks(K, card: str, dev) -> dict:
         if e_ == event:
             at[tag]["ms"] = cuda_ms(lambda: K.disc_logistic_cuda(xc, mc, sc),
                                     200)
+            at[tag]["plain_ms"] = cuda_ms(
+                lambda: K.disc_logistic_plain(xc, mc, sc), 20)
     results["disc_logistic"] = {
         **at["iwae_chunk"],
         "max_abs_err_odd_length": at["odd_length"]["max_abs_err"],
@@ -434,6 +463,8 @@ def kernel_checks(K, card: str, dev) -> dict:
             "shape": [s_, *mi.shape],
             "ms": cuda_ms(lambda: K.reparam_cuda(mi, li, s_, seed, offset),
                           500),
+            "plain_ms": cuda_ms(lambda: K.reparam_plain(mi, li, s_, seed,
+                                                        offset), 20),
             **bound("reparam", card, 4 * (2 * mi.numel() + s_ * mi.numel()),
                     s_ * mi.numel())}
     results["reparam"] = {
@@ -506,6 +537,8 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
                            r_ * e_)}
         if e_ == event:
             at[tag]["ms"] = cuda_ms(lambda: K.bernoulli_cuda(x, logits), 500)
+            at[tag]["plain_ms"] = cuda_ms(
+                lambda: K.bernoulli_plain(x, logits), 50)
     xi, li = cases["iwae_chunk"]
     results["bernoulli"] = {
         **at["iwae_chunk"], "max_abs_err_train": at["train"]["max_abs_err"],
@@ -593,6 +626,7 @@ def mnist_kernel_checks(K, card: str, rng, cuda) -> dict:
     at = {"iwae_train": {
         "shape": [IWAE_K, tb, 128], "max_rel_err": err_i,
         "ms": cuda_ms(lambda: K.reparam_bwd_cuda(gi, zi, mi), 500),
+        "plain_ms": cuda_ms(lambda: K.reparam_bwd_plain(gi, zi, mi), 50),
         **bound("reparam_bwd", card, 4 * (2 * IWAE_K * ni + ni + 2 * ni),
                 IWAE_K * ni)}}
     gz, z, mean = res[1][2]
@@ -671,6 +705,8 @@ def cifar_kernel_checks(K, card: str, rng, cuda) -> dict:
         "shape": [IWAE_K * rows, event], "max_err_over_bar": err_i,
         "ms": cuda_ms(lambda: K.disc_logistic_bwd_cuda(
             gi, xi, mi, si, want_dx=False), 200),
+        "plain_ms": cuda_ms(lambda: K.disc_logistic_bwd_plain(
+            gi, xi, mi, si), 20),
         **bound("disc_logistic_bwd", card,
                 4 * (IWAE_K * rows + 2 * ni + rows * event + 2 * ni), ni)}}
     n = rows * event
@@ -1172,19 +1208,30 @@ def loop_step_s(cfg, arrays, dev) -> float:
                           if "step_time_s" in r]))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block: two runs of the
+    same steps then give the same bits (the default backward algorithms
+    may sum in another order from run to run)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 def grad_check(cfg, state, x_in, x_target, dev, phase="train") -> dict:
     """One G step's gradients through the kernels against the same step
     through the plain ops, on the same noise: the plain Philox stream
     reproduces the kernel's ε. f32 compute and deterministic cuDNN, so the
     two differ only by the kernels' rounding (in bf16 a z one ulp apart
     can round to another bf16 value and move every later layer)."""
-    from apv_tpu_torch import build_model
+    from apv_tpu_torch import build_model, ops
     from apv_tpu_torch.ops import kernels as K
     from apv_tpu_torch.training.losses import \
         decoder_output_to_likelihood_params
     from apv_tpu_torch.training.step import _loss_scale, g_objective
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
         m32.load_state_dict(state.model.state_dict())
         params = list(m32.parameters())
@@ -1197,16 +1244,17 @@ def grad_check(cfg, state, x_in, x_target, dev, phase="train") -> dict:
         z = K.reparam_plain(mean, logvar, 1, *K.draw_key(gen(SEED + 5)))[0]
         lik = decoder_output_to_likelihood_params(
             m32.decode(z), cfg.model.likelihood, x_target.shape[-1])
-        recon = (K.bernoulli_plain(x_target, *lik)
-                 if cfg.model.likelihood == "bernoulli"
-                 else K.disc_logistic_plain(x_target, *lik))
+        if cfg.model.likelihood == "bernoulli":
+            recon = K.bernoulli_plain(x_target, *lik)
+        elif cfg.model.likelihood == "disc_logistic_mix":
+            recon = ops.disc_logistic_mix_recon_ll(x_target, *lik)
+        else:
+            recon = K.disc_logistic_plain(x_target, *lik)
         adv = cfg.adversarial.weight * beta * state.d(z)
         loss_p = -((recon + adv).mean() - beta * K.kl_plain(
             mean, logvar).mean()) * _loss_scale(cfg)
         grads_p = torch.autograd.grad(loss_p, params)
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = False
     rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
               for a, b in zip(grads_k, grads_p))
     check(rel <= 1e-3, f"{phase}: G gradients kernels vs plain, "
@@ -1291,17 +1339,21 @@ def cifar_config(results_dir: str, *extra: str):
 
 
 def states_equal(a, b) -> bool:
-    """Bit equality of two TrainStates: step, seed, parameters, buffers and
-    both optimizers' counts and moments."""
+    """Bit equality of two TrainStates: step, seed, parameters, buffers,
+    both optimizers' counts and moments, and where a state has them the
+    EMA shadow and the accumulators' running means and micro-steps."""
     def flat(st):
         sd = st.state_dict()
-        out = [sd["step"], sd["seed"], sd["opt"]["count"]]
-        tensors = [*sd["model"].values(), *sd["opt"]["mu"],
-                   *sd["opt"]["nu"]]
+        out = [sd["step"], sd["seed"], sorted(sd)]
+        tensors = [*sd["model"].values(),
+                   *sd.get("ema_model", {}).values()]
+        for o in ("opt", "d_opt"):
+            if o in sd:
+                out += [sd[o]["count"], sd[o].get("mini_step")]
+                tensors += [*sd[o]["mu"], *sd[o]["nu"],
+                            *sd[o].get("acc", [])]
         if "d" in sd:
-            out.append(sd["d_opt"]["count"])
-            tensors += [*sd["d"].values(), *sd["d_opt"]["mu"],
-                        *sd["d_opt"]["nu"]]
+            tensors += [*sd["d"].values()]
         return out, tensors
     (ha, ta), (hb, tb) = flat(a), flat(b)
     return ha == hb and len(ta) == len(tb) and all(
@@ -1310,7 +1362,8 @@ def states_equal(a, b) -> bool:
 
 
 def cifar_train_phase(dev, tmp: str):
-    """Returns (launches of the checked runs, trained state, cfg)."""
+    """Returns (launches of the checked runs, trained state, cfg, s a step
+    of the timed run)."""
     from apv_tpu_torch import latest_step, train_loop
     from apv_tpu_torch.data.preprocess import (normalize_center,
                                                uniform_dequantize)
@@ -1404,7 +1457,7 @@ def cifar_train_phase(dev, tmp: str):
          wall_s_resumed_24=wall_second, step_time_s=step_s,
          steps_per_s=1.0 / step_s,
          images_per_s=cfg.train.batch_size / step_s, **grads)
-    return launches, state, cfg
+    return launches, state, cfg, step_s
 
 
 def cifar_ckpt_phase(cfg, state, tmp: str, dev):
@@ -1495,13 +1548,13 @@ def checked_train(phase: str, cfg, arrays, dev, per_step: dict):
     return state, launches, records, wall, (first, last)
 
 
-def check_flagship_width(phase: str, cfg) -> None:
+def check_flagship_width(phase: str, cfg, steps_per_call: int = 8) -> None:
     m, t = cfg.model, cfg.train
     check((m.z_dim, tuple(m.widths), m.blocks_per_stage, t.batch_size,
            t.steps_per_call, cfg.data.device_resident)
-          == (128, (64, 128, 256), 2, 256, 8, True),
+          == (128, (64, 128, 256), 2, 256, steps_per_call, True),
           f"{phase}: {cfg.name} is not the flagship's width, batch 256, "
-          "resident data in calls of 8")
+          f"resident data in calls of {steps_per_call}")
 
 
 def sample_png(phase: str, preset: str, tmp: str, dev, name=None, **kw):
@@ -1683,8 +1736,7 @@ def iwae_grad_check(cfg, state, x_in, x_target, dev) -> dict:
     from apv_tpu_torch import build_model
     from apv_tpu_torch.ops import kernels as K
     from apv_tpu_torch.training.step import g_objective_iwae
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
         m32.load_state_dict(state.model.state_dict())
         params = list(m32.parameters())
@@ -1695,8 +1747,6 @@ def iwae_grad_check(cfg, state, x_in, x_target, dev) -> dict:
             cfg, m32, state.d, x_in, x_target, K.draw_key(gen(SEED + 5)))
         grads_p = torch.autograd.grad(surrogate, params)
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = False
     rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
               for a, b in zip(grads_k, grads_p))
     check(rel <= 1e-3, f"iwae_train: G gradients kernels vs plain, "
@@ -1975,8 +2025,7 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
     from apv_tpu_torch.training.step import (_loss_scale, d_objective,
                                              g_objective)
     a = cfg.adversarial
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
         m32.load_state_dict(state.model.state_dict())
         px = PixelDiscriminator(cfg.model.image_shape, a.pixel_d_widths,
@@ -2041,8 +2090,6 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
             (x0 + 1e-6 * torch.randn(x0.shape, device=dev,
                                      generator=noise)).clamp(0.0, 1.0))
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = False
 
     def rel(gs_a, gs_b, names=None, part=""):
         names = names or [""] * len(gs_b)
@@ -2160,6 +2207,311 @@ def biadv_train_phase(arrays, tmp: str, dev):
          sample_diagnostics=diag, sample_images_mean=float(imgs.mean()),
          card=torch.cuda.get_device_name(0), **grads)
     return launches, cfg
+
+
+# ---------------------------------------------------------------------------
+# phases 19-21: the training knobs, the mixture head, the visualizer
+# ---------------------------------------------------------------------------
+
+KNOBS = ("adversarial.d_lr_schedule=floor_adaptive", "train.ema_decay=0.999",
+         "train.grad_accum=2")
+KNOBS_STEPS, KNOBS_SPLIT = 24, 13   # a resume inside an accumulation window
+SYNC_STEPS = 8                      # steps counted under the sync debug mode
+MIX = ("model.likelihood=disc_logistic_mix", "model.mix_components=5")
+
+
+def sync_calls(cfg, arrays, dev) -> list[str]:
+    """Where ``torch.cuda.set_sync_debug_mode("warn")`` reports a
+    synchronizing CUDA call (file:line of the Python caller) over
+    SYNC_STEPS calls of ``train_step`` of ``cfg``, after one warm-up
+    step."""
+    from apv_tpu_torch import make_train_fns
+    fns = make_train_fns(cfg, device=dev)
+    state = fns.init_fn(cfg.train.seed)
+    b = cfg.train.batch_size
+    data = torch.from_numpy(arrays["image"][:(SYNC_STEPS + 1) * b]).to(dev)
+    fns.train_step(state, {"image": data[:b]})
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(1, SYNC_STEPS + 1):
+                fns.train_step(state, {"image": data[i * b:(i + 1) * b]})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return ["/".join(Path(w.filename).parts[-3:]) + f":{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def knobs_train_phase(arrays, tmp: str, dev, flagship_s: float):
+    """Phase 19 (module docstring); ``flagship_s``: phase 8's s a step.
+    Returns (launches, cfg)."""
+    from apv_tpu_torch import (evaluate, evaluate_nll, make_train_fns,
+                               restore_checkpoint, train_loop)
+    from apv_tpu_torch.api import _adopt_checkpoint_arch, _resolve
+    from apv_tpu_torch.eval.run import eval_arrays
+    from apv_tpu_torch.ops import kernels as K
+    cfg = prior_config("cifar_advprior_resnet", tmp, KNOBS_STEPS,
+                       "name=cifar_knobs", "train.steps_per_call=1", *KNOBS)
+    check_flagship_width("knobs_train", cfg, steps_per_call=1)
+    check((cfg.adversarial.d_lr_schedule, cfg.train.ema_decay,
+           cfg.train.grad_accum) == ("floor_adaptive", 0.999, 2),
+          f"knobs_train: the knobs are not on: {cfg.train}")
+    per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1,
+                "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
+    with deterministic_cudnn():
+        state, launches, records, wall, (first, last) = checked_train(
+            "knobs_train", cfg, arrays, dev, per_step)
+    check(state.opt.count == state.d_opt.count == KNOBS_STEPS // 2
+          and state.opt.mini_step == state.d_opt.mini_step == 0,
+          f"knobs_train: updates {state.opt.count}/{state.d_opt.count}")
+    factors = [r["d_lr_factor"] for r in records]
+    check(all(0.0 <= f <= 1.0 for f in factors),
+          f"knobs_train: d_lr_factor outside [0, 1]: {factors}")
+
+    # the same run cut at micro-step 13, mid-window, and resumed to 24
+    split = dataclasses.replace(cfg, name="cifar_knobs_split")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()), deterministic_cudnn():
+        cut = train_loop(split, max_steps=KNOBS_SPLIT, arrays=arrays,
+                         device=dev)
+        check(cut.opt.mini_step == cut.d_opt.mini_step == 1,
+              "knobs_train: the cut is not inside an accumulation window")
+        del cut
+        resumed = train_loop(split, resume=True, arrays=arrays, device=dev)
+    torch.cuda.synchronize()
+    split_launches = path_counts(K)
+    check(split_launches == expected(K, **{n: KNOBS_STEPS * c
+                                           for n, c in per_step.items()}),
+          f"knobs_train split run launches {split_launches}")
+    check(states_equal(resumed, state), "knobs_train: the run resumed at "
+          f"micro-step {KNOBS_SPLIT} differs from the straight run "
+          "(shadow and accumulators included)")
+    del resumed
+
+    # api.evaluate reads the shadow: its bits/dim is the shadow's
+    over = [f"results_dir={tmp}", f"eval.max_examples={BATCH}",
+            f"eval.batch_size={BATCH}"]
+    ckpt_dir = str(Path(tmp) / cfg.name / "checkpoints")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate("iwae_eval", overrides=over, checkpoint_dir=ckpt_dir,
+                   device=dev)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    eval_launches = path_counts(K)
+    cfg_e = _adopt_checkpoint_arch(_resolve("iwae_eval", over), over,
+                                   ckpt_dir)
+    fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+    restore_checkpoint(ckpt_dir, fresh)
+    check(states_equal(fresh, state), "knobs_train: the restored state "
+          "differs from the trained one")
+    images = eval_arrays(cfg_e, None,
+                         max_examples=cfg_e.eval.max_examples)["image"]
+    bpd = {}
+    for which, model in (("shadow", fresh.ema_model),
+                         ("raw", fresh.model)):
+        bpd[which] = evaluate_nll(cfg_e, model, fresh.d, images,
+                                  device=dev)["bits_per_dim"]
+    chunks = 1000 // 25
+    check(eval_launches == expected(K, reparam=chunks, disc_logistic=chunks),
+          f"knobs_train evaluate launches {eval_launches}")
+    check(math.isfinite(res["bits_per_dim"]) and res["iwae_k"] == 1000
+          and res["num_examples"] == BATCH
+          and abs(res["bits_per_dim"] - bpd["shadow"]) <= 1e-6
+          and abs(res["bits_per_dim"] - bpd["raw"]) > 1e-4,
+          f"knobs_train: api.evaluate's bits/dim {res['bits_per_dim']} is "
+          f"not the shadow's {bpd['shadow']} (raw {bpd['raw']})")
+    del fresh
+
+    syncs = {"flagship": sync_calls(prior_config(
+        "cifar_advprior_resnet", tmp, KNOBS_STEPS, "name=cifar_sync"),
+        arrays, dev), "knobs": sync_calls(cfg, arrays, dev)}
+    check(len(syncs["knobs"]) <= len(syncs["flagship"]), f"knobs_train: "
+          f"the throttle, the EMA and the accumulation add synchronizing "
+          f"calls {syncs}")
+    step_s = loop_step_s(prior_config(
+        "cifar_advprior_resnet", tmp, TIMED_STEPS, "name=cifar_knobs_timed",
+        "train.log_every=8", *KNOBS), arrays, dev)
+    emit("knobs_train", preset="cifar_advprior_resnet", knobs=list(KNOBS),
+         batch=256, steps=KNOBS_STEPS, resumed_at=KNOBS_SPLIT,
+         launches=launches, loss_first8=first, loss_last8=last,
+         d_lr_factor_range=[min(factors), max(factors)],
+         last_step={k: v for k, v in records[-1].items() if k != "step"},
+         resume_bit_exact=True, wall_s_checked_run=wall,
+         ms_per_step=step_s * 1e3,
+         flagship_ms_per_step=flagship_s * 1e3,
+         images_per_s=cfg.train.batch_size / step_s,
+         evaluate=res, evaluate_wall_s=eval_wall, bits_per_dim_shadow=
+         bpd["shadow"], bits_per_dim_raw=bpd["raw"],
+         sync_calls_per_8_steps={k: len(v) for k, v in syncs.items()},
+         sync_call_sites=syncs, card=torch.cuda.get_device_name(0))
+    return {n: launches[n] + split_launches[n] + eval_launches[n]
+            for n in K.launches}, cfg
+
+
+def mix_op_ms(cfg, dev) -> float:
+    """CUDA-event ms of the mixture likelihood's forward and backward at
+    the train step's shape (batch 256, 32x32x3, K components)."""
+    from apv_tpu_torch import ops
+    from apv_tpu_torch.training.losses import \
+        decoder_output_to_likelihood_params
+    g = torch.Generator(dev).manual_seed(SEED + 50)
+    kk = cfg.model.mix_components
+    out = torch.randn((cfg.train.batch_size, 32, 32, 9 * kk), device=dev,
+                      generator=g).requires_grad_(True)
+    x = torch.randint(0, 256, (cfg.train.batch_size, 32, 32, 3), device=dev,
+                      generator=g).to(torch.float32) / 255.0
+
+    def fwd_bwd():
+        lik = decoder_output_to_likelihood_params(out, "disc_logistic_mix", 3)
+        torch.autograd.grad(ops.disc_logistic_mix_recon_ll(x, *lik).sum(),
+                            out)
+
+    return cuda_ms(fwd_bwd, 20)
+
+
+def mix_train_phase(arrays, tmp: str, dev, flagship_s: float):
+    """Phase 20 (module docstring); ``flagship_s``: phase 8's s a step.
+    Returns (launches, cfg, the mixture op's forward and backward in
+    ms)."""
+    from apv_tpu_torch import evaluate_nll, get_preset
+    from apv_tpu_torch.data.preprocess import (normalize_center,
+                                               uniform_dequantize)
+    from apv_tpu_torch.ops import kernels as K
+    cfg = prior_config("cifar_advprior_resnet", tmp, PRIOR_STEPS,
+                       "name=cifar_mix", *MIX)
+    check_flagship_width("mix_train", cfg)
+    check(cfg.model.likelihood == "disc_logistic_mix"
+          and cfg.model.mix_components == 5, f"mix_train: {cfg.model}")
+    per_step = {"reparam": 1, "kl": 1, "reparam_bwd": 1, "kl_bwd": 1}
+    state, launches, records, wall, (first, last) = checked_train(
+        "mix_train", cfg, arrays, dev, per_step)
+    check(state.model.decoder.head.weight.shape[0] == 45,
+          "mix_train: the decoder head is not 3·K·C = 45 channels")
+    image = torch.from_numpy(arrays["image"][:cfg.train.batch_size]).to(dev)
+    u = torch.rand(image.shape, generator=torch.Generator(dev).manual_seed(
+        SEED + 7), device=dev)
+    grads = grad_check(cfg, state, normalize_center(uniform_dequantize(
+        image, u=u)), image.to(torch.float32) / 255.0, dev, phase="mix_train")
+
+    cfg_k = dataclasses.replace(get_preset("iwae_eval"), model=cfg.model)
+    images = arrays["image"][-BATCH:]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate_nll(cfg_k, state.model, state.d, images, k=1000,
+                       chunk=25, batch_size=BATCH, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    iwae_wall = time.perf_counter() - t0
+    iwae_launches = path_counts(K)
+    check(iwae_launches == expected(K, reparam=40)
+          and math.isfinite(res["bits_per_dim"]),
+          f"mix_train IWAE k=1000: {res}, launches {iwae_launches}")
+    samples = {}
+    for mode in ("mean", "sample"):
+        imgs, s_launches, _, s_wall = sample_png(
+            "mix_train", "cifar_advprior_resnet", tmp, dev, name=cfg.name,
+            mode=mode)
+        check(s_launches == expected(K), f"mix_train sample launches "
+              f"{s_launches}")
+        samples[mode] = {"wall_s": s_wall, "mean": float(imgs.mean()),
+                         "levels": int(torch.unique(imgs).numel())}
+    step_s = loop_step_s(prior_config(
+        "cifar_advprior_resnet", tmp, TIMED_STEPS, "name=cifar_mix_timed",
+        "train.log_every=8", *MIX), arrays, dev)
+    op_ms = mix_op_ms(cfg, dev)
+    emit("mix_train", preset="cifar_advprior_resnet", likelihood=
+         cfg.model.likelihood, mix_components=cfg.model.mix_components,
+         batch=256, steps=PRIOR_STEPS, launches=launches, loss_first8=first,
+         loss_last8=last, last_step={k: v for k, v in records[-1].items()
+                                     if k != "step"},
+         wall_s_checked_run=wall, ms_per_step=step_s * 1e3,
+         flagship_ms_per_step=flagship_s * 1e3,
+         mix_fwd_bwd_ms=op_ms, iwae_k1000=res, iwae_wall_s=iwae_wall,
+         samples=samples, card=torch.cuda.get_device_name(0), **grads)
+    return ({n: launches[n] + iwae_launches[n] for n in K.launches}, cfg,
+            op_ms)
+
+
+def start_visualize_cli(cfg, tmp: str) -> dict:
+    """Phase 21's `apv-torch sample --visualize latent` child on
+    knobs_train's checkpoint (``start_cli``), started as phase 20 begins:
+    its start-up (~8 s of torch import and CUDA) runs beside phase 20 on
+    other host cores."""
+    png = Path(tmp) / "cli_latent_scatter.png"
+    child = start_cli(["sample", "--visualize", "latent", "--preset",
+                       "cifar_advprior_resnet", "--checkpoint-dir",
+                       str(Path(tmp) / cfg.name / "checkpoints"), "--set",
+                       f"results_dir={tmp}", "--refine", str(SAMPLE_REFINE),
+                       "--out", str(png)], tmp, tag="visualize")
+    return {**child, "png": png}
+
+
+def visualize_phase(cfg, tmp: str, dev, child: dict) -> dict:
+    """Phase 21 (module docstring): on knobs_train's checkpoint, beside
+    ``child`` (``start_visualize_cli``), which it waits for."""
+    from apv_tpu_torch import make_train_fns, restore_checkpoint, visualize
+    from apv_tpu_torch.eval.run import _prep_eval_batch, eval_arrays
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.sampling.run import reconstruct_images
+    from apv_tpu_torch.utils.png import decode_png
+    ckpt_dir = str(Path(tmp) / cfg.name / "checkpoints")
+    cli_png = child["png"]
+    over = [f"results_dir={tmp}"]
+    n, steps = 8, 8
+    shapes = {"reconstruct": (2 * 34 - 2, n * 34 - 2, 3),
+              "interpolate": (n * 34 - 2, steps * 34 - 2, 3),
+              "latent": (512, 512, 3)}
+    outs, walls, stds = {}, {}, {}
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        for what in shapes:
+            path = Path(tmp) / f"viz_{what}.png"
+            t0 = time.perf_counter()
+            outs[what] = visualize("cifar_advprior_resnet", overrides=over,
+                                   checkpoint_dir=ckpt_dir, what=what, n=n,
+                                   steps=steps, seed=SEED, out_path=str(path),
+                                   refine=SAMPLE_REFINE if what == "latent"
+                                   else 0, device=dev)
+            torch.cuda.synchronize()
+            walls[what] = time.perf_counter() - t0
+            img = decode_png(path.read_bytes())
+            stds[what] = float(img.std())
+            check(img.shape == shapes[what] and stds[what] > 1.0,
+                  f"visualize {what}: PNG {img.shape}, std {stds[what]}")
+        launches = path_counts(K)
+    finally:
+        out, cli_launches, walls["cli_latent"] = finish_cli(child)
+    check(launches == expected(K, reparam=1), f"visualize launches "
+          f"{launches} (reparam once, in reconstruct)")
+    check(cli_launches == expected(K) and "wrote latent grid" in out
+          and decode_png(cli_png.read_bytes()).shape == (512, 512, 3),
+          f"visualize CLI: {out[-500:]}, launches {cli_launches}")
+    lat = outs["latent"]
+    check(lat["posterior"].shape == (256, 2) and 0.0 < lat["explained"] <= 1
+          and {"shaped_prior", "prior", "expost_prior"} <= set(lat),
+          f"visualize latent: {sorted(lat)}")
+    # reconstruct read the shadow: the same draw through the shadow
+    fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+    restore_checkpoint(ckpt_dir, fresh)
+    x_np, _ = _prep_eval_batch(cfg, eval_arrays(cfg, None,
+                                                max_examples=n)["image"][:n])
+    want = reconstruct_images(fresh.ema_model, torch.from_numpy(x_np).to(dev),
+                              cfg.model.likelihood, 3, seed=SEED)
+    check(torch.equal(outs["reconstruct"], want), "visualize: reconstruct "
+          "did not read the EMA shadow")
+    emit("visualize", checkpoint=cfg.name, wall_s=walls, png_std=stds,
+         launches=launches, cli_launches=cli_launches,
+         latent_explained=lat["explained"],
+         latent_clouds=sorted(k for k in lat if k != "explained"),
+         interpolate_shape=list(outs["interpolate"].shape))
+    return {n_: launches[n_] + cli_launches[n_] for n_ in K.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2473,8 +2825,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one IWAE batch of each family, 16 "
                          "train steps of each family, of both trained "
-                         "priors and of the IWAE objective; write tables "
-                         "here")
+                         "priors, of the IWAE objective, the knobs and "
+                         "the mixture head; write tables here")
     ap.add_argument("--quality-gate", action="store_true",
                     help="also run the 3k-step CIFAR gate and IWAE k=100 "
                          "on 512 test images (a few minutes)")
@@ -2558,8 +2910,8 @@ def main(argv: list[str]) -> int:
 
     # 8-9. training cifar_advprior_resnet, then its checkpoint
     with tempfile.TemporaryDirectory() as tmp:
-        path_launches["cifar_train"], state, cfg3 = cifar_train_phase(dev,
-                                                                      tmp)
+        path_launches["cifar_train"], state, cfg3, flagship_s = \
+            cifar_train_phase(dev, tmp)
         path_launches["cifar_ckpt"] = cifar_ckpt_phase(cfg3, state, tmp, dev)
         del state
         # 10-13. the fused op, the conv probe, then config 5 on the
@@ -2594,11 +2946,32 @@ def main(argv: list[str]) -> int:
         path_launches["front_door"] = front_door_phase(dev)
         path_launches["biadv_train"], cfg6 = biadv_train_phase(arrays, tmp,
                                                                dev)
+        # 19-21. the training knobs, the mixture head, the visualizer on
+        # the knobs' EMA checkpoint
+        path_launches["knobs_train"], cfg7 = knobs_train_phase(
+            arrays, tmp, dev, flagship_s)
+        child = start_visualize_cli(cfg7, tmp)
+        try:
+            path_launches["mix_train"], cfg8, mix_ms = mix_train_phase(
+                arrays, tmp, dev, flagship_s)
+            path_launches["visualize"] = visualize_phase(cfg7, tmp, dev,
+                                                         child)
+        finally:
+            if child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait()
         if args.profile is not None:
             profile_train(args.profile, cfg_gb, dev, tag="gb_train")
             profile_train(args.profile, cfg_flow, dev, tag="flow_train")
             profile_train(args.profile, cfg5, dev, tag="iwae_train")
             profile_train(args.profile, cfg6, dev, tag="biadv_train")
+            profile_train(args.profile, cfg7, dev, tag="knobs_train")
+            busy_us = profile_train(args.profile, cfg8, dev, tag="mix_train")
+            # the op timed in phase 20, outside the profiler (which slows
+            # back-to-back launches), over a step's device time
+            emit("mix_share", steps=16, mix_fwd_bwd_ms=mix_ms,
+                 step_device_ms=busy_us / 1e3 / 16,
+                 share_of_step_device_time=16 * mix_ms / (busy_us / 1e3))
 
     total = {n: sum(pl[n] for pl in path_launches.values())
              for n in K.launches}
@@ -2635,10 +3008,11 @@ def evaluate_iwae(cfg, model, d, images, dev):
 
 
 def profile_train(out_dir: Path, cfg, dev, steps: int = 16,
-                  tag: str = "train") -> None:
+                  tag: str = "train") -> float:
     """16 steady train steps of ``cfg`` on resident data (packed digits, or
     uint8 CIFAR-shaped levels for the dequantized configs), as the loop
-    runs them (without its logger), after 8 warm-up steps."""
+    runs them (without its logger), after 8 warm-up steps. Returns their
+    device µs (``profile_window``)."""
     from apv_tpu_torch.data.preprocess import pack_bits, static_binarize
     from apv_tpu_torch.training.step import make_train_fns
     fns = make_train_fns(cfg, device=dev)
@@ -2659,7 +3033,8 @@ def profile_train(out_dir: Path, cfg, dev, steps: int = 16,
         torch.cuda.synchronize()
 
     run(0, 8)
-    profile_window(out_dir, tag, lambda: run(8, 8 + steps), steps=steps)
+    return profile_window(out_dir, tag, lambda: run(8, 8 + steps),
+                          steps=steps)
 
 
 def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
@@ -2727,11 +3102,11 @@ def profile_new_paths(out_dir: Path, tmp: str, dev) -> None:
 
 
 def profile_window(out_dir: Path, tag: str, fn, with_floor: bool = False,
-                   **extra) -> None:
+                   **extra) -> float:
     """Device time by kernel over ``fn()`` (torch.profiler), its wall time
     and the device's idle share; with ``with_floor``, also the device time
     a launch of the one-element ``neg_`` that ``fn`` interleaves with its
-    kernels (``floor_us``)."""
+    kernels (``floor_us``). Returns the window's device µs."""
     from torch.profiler import ProfilerActivity, profile
     out_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2774,6 +3149,7 @@ def profile_window(out_dir: Path, tag: str, fn, with_floor: bool = False,
          top=[{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
                "calls": e.count} for e in top], kernels=ours,
          floor_us=floor_us, **extra)
+    return total_us
 
 
 if __name__ == "__main__":

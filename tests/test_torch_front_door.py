@@ -512,16 +512,17 @@ def test_cli_parses_the_reference_flags():
 
 
 def test_cli_refuses_unknown_flags():
-    """Only export (and sample --visualize) leave their flags unparsed."""
+    """Only export leaves its flags unparsed."""
     with pytest.raises(SystemExit) as e:
         cli.main(["train", "--steps", "4"])
     assert e.value.code == 2
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["sample", "--visualize", "latent"], "12.6 and 14b"),
-    (["sample", "--visualize", "interpolate", "--steps", "4"],
-     "12.6 and 14b"),
+    (["sample", "--visualize", "latent", "--prior", "expost"],
+     "--prior apply to prior sampling"),
+    (["sample", "--visualize", "latent", "--temperature", "0.8"],
+     "--temperature apply to prior sampling"),
     (["export", "--what", "scorer"], "14b"),
     (["train", "--distributed"], "item 13"),
     (["train", "--checkpoint-dir", "x"], "eval-side only")])

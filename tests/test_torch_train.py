@@ -265,11 +265,10 @@ def test_step_noise_depends_only_on_seed_and_step():
     "adversarial.d_spectral_norm=true", "adversarial.d_lr_schedule=cosine",
     "train.free_bits=0.5", "train.ema_decay=0.99", "train.grad_accum=2"])
 def test_knobs_outside_the_slice_raise(knob):
-    """Knobs the port does not run raise NotImplementedError naming the
-    knob. The trained priors, the IWAE objective, free bits and the
-    discriminator knobs (the biadversarial variant, R1, spectral norm) are
-    ported: they build, and raise only where the reference refuses them (a
-    ValueError)."""
+    """Every knob of the reference's train step is ported: each builds and
+    takes a finite step (the D learning-rate schedules, the EMA shadow and
+    gradient accumulation included), and raises only where the reference
+    refuses it, with a ValueError."""
     from apv_tpu_torch.utils.config import apply_overrides
     cfg = apply_overrides(_port_cfg(tiny_config("mnist_advprior")), [knob])
     adv_only = ("model.prior=flow", "mutually exclusive")
@@ -287,8 +286,12 @@ def test_knobs_outside_the_slice_raise(knob):
         with pytest.raises(ValueError, match=match):
             tstep.make_train_fns(apply_overrides(cfg, [other]), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
-        tstep.make_train_fns(cfg, device="cpu")
+    fns = tstep.make_train_fns(cfg, device="cpu", dtype=torch.float32)
+    state, metrics = fns.train_step(
+        fns.init_fn(0),
+        {"image_packed": torch.from_numpy(_batches(cfg, 1)[0])})
+    assert state.step == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
 @pytest.mark.parametrize("resident,packed", [(True, True), (False, False)])
