@@ -1,15 +1,16 @@
 """Public entry points: ``train``, ``evaluate`` (config 4), ``sample``,
-``visualize`` and ``ood_score`` (config 5), and ``info`` (counterpart of
-``apv_tpu/api.py``).
+``visualize`` and ``ood_score`` (config 5), ``export_artifact`` and
+``info`` (counterpart of ``apv_tpu/api.py``).
 
 Each is config-driven (a preset name or Config, plus dot-path overrides),
-reads and writes the port's own checkpoints (``utils/checkpoint.py``) and
-writes its result next to the run. Eval-side entry points adopt the
+reads the port's own checkpoints and the reference's orbax ones, writes
+the port's own (``utils/checkpoint.py``), and writes its result next to
+the run. Eval-side entry points adopt the
 checkpoint's saved ``config.json``: its model, adversarial and data
 sections (preprocessing must match training), then re-apply the caller's
 overrides; ``train(resume=True)`` does the same when a checkpoint exists.
-``info`` reads the results dir only: it loads no checkpoint and touches no
-device.
+``info`` reads the results dir only: it loads no checkpoint, touches no
+device and lists the steps of both checkpoint formats.
 
 A checkpoint with a trained prior (``model.prior='flow'`` or
 ``'gaussian'``) samples and scores under it: ``sample``'s 'auto' prior is
@@ -22,10 +23,11 @@ sampling and the likelihood scores read its latent D (``_d``), the OOD
 suite gets the pair (``ood.score='pixel_d'`` reads the pixel D).
 
 A checkpoint trained with ``train.ema_decay > 0`` is evaluated, sampled,
-visualized and OOD-scored through its EMA shadow (``_p``); training's own
-validation reads the raw parameters.
+visualized, OOD-scored and exported through its EMA shadow (``_p``);
+training's own validation reads the raw parameters.
 
-Not ported: ``export_artifact``.
+``export_artifact`` writes a ``torch.export`` serving artifact
+(``serving.py``), traced on the device that will serve it.
 """
 
 from __future__ import annotations
@@ -506,3 +508,67 @@ def ood_score(config: str | Config = "ood_suite", *,
                             baseline=baseline, device=dev)
     _write_json(cfg, "ood.json", result)
     return result
+
+
+_WHATS = ("sampler", "scorer")
+
+
+def export_artifact(config: str | Config = "mnist_vae", *,
+                    overrides: list[str] | None = None,
+                    checkpoint_dir: str | None = None,
+                    what: str = "sampler", out_path: str | None = None,
+                    quantize: str | None = None, refine: int = 0,
+                    prior: str = "auto", gmm_k: int = 10,
+                    flow_steps: int = 2000, temperature: float = 1.0,
+                    device=None) -> Path:
+    """Export a serving artifact of a trained checkpoint, weights baked in
+    (``serving.export_sampler`` or ``export_scorer``), to ``out_path``
+    (default ``<results_dir>/<name>/<what>.pt2``); returns its path. The
+    artifact runs on ``device``, where it is traced (default: the card).
+
+    The sampler: ``prior='auto'`` keeps the model's own (shaped or
+    trained) prior, with ``refine`` MALA steps on the shaped one;
+    'standard' forces N(0, I); 'expost', 'expost_gmm' (``gmm_k``
+    components) and 'expost_flow' (``flow_steps`` fit steps) bake in a
+    prior fitted to the test split at export time. ``temperature`` tempers
+    a trained prior's base draw; ``quantize='int8'`` stores int8 kernels.
+    The scorer takes none of these and refuses each (``temperature`` too,
+    which the reference ignores without a word)."""
+    from apv_tpu_torch import serving
+
+    if what not in _WHATS:
+        raise ValueError(f"unknown artifact {what!r} (sampler|scorer)")
+    if prior not in _PRIORS:
+        raise ValueError(f"unknown prior {prior!r} "
+                         "(auto|standard|expost|expost_gmm|expost_flow)")
+    if what == "scorer":
+        if refine:
+            raise ValueError("refine is sampler-only (MALA on the shaped "
+                             "prior); the scorer draws no prior samples")
+        if prior != "auto":
+            raise ValueError("prior is sampler-only: the scorer evaluates "
+                             "the model's own (learned) prior density")
+        if quantize is not None:
+            raise ValueError("quantize is sampler-only: a silently "
+                             "full-precision scorer artifact would "
+                             "masquerade as quantized")
+        if temperature != 1.0:
+            raise ValueError("temperature is sampler-only: the scorer "
+                             "evaluates the model's own prior density at "
+                             "its fitted scale")
+    dev = resolve_device(device)
+    cfg = _adopt_checkpoint_arch(_resolve(config, overrides), overrides,
+                                 checkpoint_dir)
+    state = _restore_state(cfg, checkpoint_dir, device=dev)
+    model = _p(state, cfg)
+    out = out_path or Path(cfg.results_dir) / cfg.name / f"{what}.pt2"
+    if what == "scorer":
+        return serving.export_scorer(cfg, model, out, d=_d(state, cfg),
+                                     device=dev)
+    prior_moments = _expost_prior(cfg, model, prior, gmm_k=gmm_k,
+                                  flow_steps=flow_steps, device=dev)
+    return serving.export_sampler(
+        cfg, model, _d(state, cfg) if prior == "auto" else None, out,
+        quantize=quantize, refine_steps=refine, prior_moments=prior_moments,
+        force_standard=prior == "standard", temperature=temperature,
+        device=dev)

@@ -1,14 +1,15 @@
-"""The port's CLI: ``apv-torch {train,evaluate,sample,ood,presets,info}
---preset <name> [--set k=v ...]`` (counterpart of ``apv_tpu/cli.py``), also
-``python -m apv_tpu_torch.cli``.
+"""The port's CLI: ``apv-torch {train,evaluate,sample,ood,export,presets,
+info} --preset <name> [--set k=v ...]`` (counterpart of
+``apv_tpu/cli.py``), also ``python -m apv_tpu_torch.cli``.
 
 Commands run on the CUDA card unless ``--device cpu``. ``presets`` and
 ``info`` read only the config registry and the results dir: they touch no
 device. ``sample --visualize reconstruct|interpolate|latent`` writes the
 reconstruction, interpolation or latent-scatter PNG instead of prior
 samples; the flags of prior sampling that it would ignore are refused.
-What the port lacks exits nonzero naming the ROADMAP item: ``export``
-(14b) and ``train --distributed`` (13).
+``export`` writes a ``torch.export`` serving artifact (``.pt2``) for the
+device it runs on, ``--temperature`` included. What the port lacks exits
+nonzero naming the ROADMAP item: ``train --distributed`` (13).
 """
 
 from __future__ import annotations
@@ -131,21 +132,44 @@ def _parser() -> argparse.ArgumentParser:
                         help="run name (omit to list all runs)")
     p_info.add_argument("--results-dir", default="results")
 
-    # the reference's export flags are left to parse_known_args, so that
-    # the refusal is what shows
-    sub.add_parser("export", help="export a serving artifact (not ported: "
-                                  "ROADMAP queue A item 14b)")
+    p_exp = sub.add_parser("export",
+                           help="export a serving artifact (torch.export, "
+                                "for the device it runs on)")
+    _add_common(p_exp, "mnist_vae")
+    p_exp.add_argument("--what", choices=("sampler", "scorer"),
+                       default="sampler")
+    p_exp.add_argument("--out", default=None,
+                       help="artifact path (default "
+                            "<results_dir>/<name>/<what>.pt2)")
+    p_exp.add_argument("--refine", type=int, default=0, metavar="STEPS",
+                       help="bake STEPS MALA refinement steps on the "
+                            "shaped prior into the sampler artifact")
+    p_exp.add_argument("--prior", choices=("auto", "standard", "expost",
+                                           "expost_gmm", "expost_flow"),
+                       default="auto",
+                       help="sampler artifact's latent draw; 'expost' "
+                            "bakes an aggregate-posterior Gaussian fit "
+                            "(computed at export time) in as constants; "
+                            "'expost_gmm' a --gmm-k-component GMM fit; "
+                            "'expost_flow' a RealNVP flow fit")
+    p_exp.add_argument("--gmm-k", type=int, default=10, metavar="K",
+                       help="components for --prior expost_gmm")
+    p_exp.add_argument("--flow-steps", type=int, default=2000, metavar="N",
+                       help="MLE fit steps for --prior expost_flow")
+    p_exp.add_argument("--temperature", type=float, default=1.0,
+                       metavar="T",
+                       help="bake a base-draw temperature into trained-"
+                            "prior samplers (model.prior=flow/gaussian: "
+                            "u ~ N(0, T²I) before the inverse/base pass)")
+    p_exp.add_argument("--quantize", choices=("int8",), default=None,
+                       help="weight-only post-training quantization of the "
+                            "baked params (sampler only; ~4x smaller)")
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = _parser()
-    args, unknown = parser.parse_known_args(argv)
-    if args.command == "export":
-        raise SystemExit("export is not ported to apv_tpu_torch yet "
-                         "(ROADMAP queue A item 14b)")
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     if args.command == "info":
         from apv_tpu_torch.api import info
         print(json.dumps(info(args.name, results_dir=args.results_dir),
@@ -217,6 +241,18 @@ def main(argv: list[str] | None = None) -> int:
                                checkpoint_dir=args.checkpoint_dir,
                                seed=args.seed, both=args.both, device=dev)
         print(json.dumps(result, indent=2))
+    elif args.command == "export":
+        try:
+            path = api.export_artifact(
+                args.preset, overrides=args.overrides,
+                checkpoint_dir=args.checkpoint_dir, what=args.what,
+                out_path=args.out, quantize=args.quantize,
+                refine=args.refine, prior=args.prior, gmm_k=args.gmm_k,
+                flow_steps=args.flow_steps, temperature=args.temperature,
+                device=dev)
+        except ValueError as e:
+            raise SystemExit(f"export: {e}") from e
+        print(f"exported {args.what} to {path}")
     return 0
 
 

@@ -19,6 +19,13 @@ not, and the biadversarial pair). Layouts:
 ``flow_from_flax`` carries an ex-post flow dict (``apv_tpu.core.flow``'s
 tree) into the tensor dict that ``apv_tpu_torch.core.flow`` takes.
 
+``train_state_from_flax`` carries a whole flax ``TrainState`` (the object,
+or the orbax reader's tree of it, ``utils/checkpoint.py``) into
+``TrainState.state_dict()``'s format: the parameters, the D, the EMA
+shadow, and each optax ``chain(clip_by_global_norm, adam)`` state (under
+``optax.MultiSteps`` its accumulator too) as ``ClippedAdam``'s, the
+moments through the same maps as the parameters.
+
 Flax names submodules by class and creation order (``Conv_0``,
 ``ResBlock_3``, ...); the stage structure is recovered from those counts.
 """
@@ -26,6 +33,7 @@ Flax names submodules by class and creation order (``Conv_0``,
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -206,3 +214,85 @@ def d_params_from_flax(flax_d_params) -> dict[str, torch.Tensor]:
         _put(sd, "pixel", _pixel_d(flax_d_params["pixel"]))
         return sd
     return _latent_d(flax_d_params)
+
+
+# ---------------------------------------------------------------------------
+# a whole TrainState
+# ---------------------------------------------------------------------------
+
+def _get(node, key):
+    """A child of a flax/optax state node: a dict key or list index (the
+    orbax reader's trees), a NamedTuple or dataclass field, a tuple
+    index."""
+    if isinstance(node, dict) or isinstance(key, int):
+        return node[key]
+    return getattr(node, key)
+
+
+def _has(node, key) -> bool:
+    return key in node if isinstance(node, dict) else hasattr(node, key)
+
+
+def _filled(tree) -> bool:
+    """A params tree that holds parameters ({} and () hold none)."""
+    return isinstance(tree, Mapping) and len(tree) > 0
+
+
+def _ordered(sd: dict, module) -> list[torch.Tensor]:
+    """A converted state dict as the list ``ClippedAdam`` keeps: the
+    module's ``named_parameters()`` order."""
+    names = [n for n, _ in module.named_parameters()]
+    if set(names) != set(sd):
+        raise ValueError("optimizer tree does not match the module's "
+                         f"parameters: {sorted(set(names) ^ set(sd))[:6]}")
+    return [sd[n] for n in names]
+
+
+def adam_from_optax(opt_state, module, convert) -> dict:
+    """An optax ``chain(clip_by_global_norm, adam)`` state, or its
+    ``MultiSteps`` wrapper, -> ``ClippedAdam.state_dict()``'s format:
+    adam's count, mu and nu (each moment tree through ``convert``, the
+    parameters' own map, so ConvTranspose moments are flipped as the
+    kernels are), and under ``MultiSteps`` ``mini_step`` and
+    ``acc_grads`` as ``mini_step`` and ``acc``."""
+    multi = _has(opt_state, "inner_opt_state")
+    chain = _get(opt_state, "inner_opt_state") if multi else opt_state
+    adam = _get(_get(chain, 1), 0)
+    out = {"count": int(np.asarray(_get(adam, "count"))),
+           "mu": _ordered(convert(_get(adam, "mu")), module),
+           "nu": _ordered(convert(_get(adam, "nu")), module)}
+    if multi:
+        out.update(acc=_ordered(convert(_get(opt_state, "acc_grads")), module),
+                   mini_step=int(np.asarray(_get(opt_state, "mini_step"))))
+    return out
+
+
+def train_state_from_flax(tree, state) -> dict:
+    """A flax ``TrainState`` (the object, or the orbax reader's tree of its
+    fields) -> ``TrainState.state_dict()``'s format for ``state``, the
+    port's state of the same config, which gives the optimizers'
+    parameter order and the seed (the run's ``train.seed``; the
+    reference's threefry key is not carried: a resumed run draws Philox
+    noise).
+
+    ``params`` -> ``model``, ``d_params`` -> ``d`` (absent when empty),
+    ``opt_state``/``d_opt_state`` -> ``opt``/``d_opt``; a non-empty
+    ``ema_params`` -> ``ema_model``, so that a tree without a shadow, or
+    with an empty one, seeds a wanted shadow from the parameters
+    (``TrainState.load_state_dict``)."""
+    out = {"step": int(np.asarray(_get(tree, "step"))), "seed": state.seed,
+           "model": params_from_flax(_get(tree, "params")),
+           "opt": adam_from_optax(_get(tree, "opt_state"), state.model,
+                                  params_from_flax)}
+    d_params = _get(tree, "d_params") if _has(tree, "d_params") else {}
+    if _filled(d_params):
+        if state.d is None:
+            raise ValueError("the checkpoint holds a D and this config is "
+                             "not adversarial")
+        out.update(d=d_params_from_flax(d_params),
+                   d_opt=adam_from_optax(_get(tree, "d_opt_state"), state.d,
+                                         d_params_from_flax))
+    ema = _get(tree, "ema_params") if _has(tree, "ema_params") else {}
+    if _filled(ema):
+        out["ema_model"] = params_from_flax(ema)
+    return out

@@ -394,9 +394,10 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _TWO_PI_F32 = 6.2831855               # float32 nearest to 2*pi
 
 
-def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _mulhilo32(a, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) 32-bit words of a*b for a, b < 2^32, in int64 without
-    overflow: b is multiplied by a's 16-bit halves (< 2^48 each)."""
+    overflow: b is multiplied by a's 16-bit halves (< 2^48 each); ``a`` is
+    an int or an int64 tensor broadcasting against b."""
     t_hi = (a >> 16) * b
     t_lo = (a & 0xFFFF) * b
     lo = (((t_hi & 0xFFFF) << 16) + t_lo) & _MASK32
@@ -404,19 +405,43 @@ def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def _philox_pairs(x: torch.Tensor, y: torch.Tensor, key: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ten rounds on the words as two stacked pairs, x = (c0, c2)
+    (the multiplied words) and y = (c1, c3), each [2, ...]; ``key`` the
+    int64 [2] key. One round is x ← swap(hi(M·x)) ^ y ^ k_r, y ←
+    swap(lo(M·x)), with k_r = k + r·W mod 2^32: the rounds of
+    ``csrc/reparam.cu`` in a few ops each, so a traced graph stays
+    small."""
+    lead = (2,) + (1,) * (x.dim() - 1)
+    m = torch.tensor(_PHILOX_M, dtype=torch.int64,
+                     device=x.device).reshape(lead)
+    w = torch.tensor(_PHILOX_W, dtype=torch.int64, device=x.device)
+    rounds = torch.arange(10, dtype=torch.int64, device=x.device)[:, None]
+    schedule = (key.to(x.device)[None, :] + rounds * w[None, :]) & _MASK32
+    for k in schedule.reshape((10,) + lead).unbind(0):
+        hi, lo = _mulhilo32(m, x)
+        x, y = hi.flip(0) ^ y ^ k, lo.flip(0)
+    return x, y
+
+
 def philox4x32_10(counter: tuple[torch.Tensor, ...],
-                  key: tuple[int, int]) -> tuple[torch.Tensor, ...]:
+                  key: tuple[int | torch.Tensor, int | torch.Tensor]
+                  ) -> tuple[torch.Tensor, ...]:
     """Philox4x32-10 on int64 tensors holding 32-bit words (the same
-    rounds as ``csrc/reparam.cu``)."""
+    rounds as ``csrc/reparam.cu``); the key's words are ints or int64
+    tensors (a seed read in a traced graph)."""
     c0, c1, c2, c3 = counter
+    x, y = _philox_pairs(torch.stack([c0, c2]), torch.stack([c1, c3]),
+                         _key_tensor(key, c0.device))
+    return x[0], y[0], x[1], y[1]
+
+
+def _key_tensor(key, device) -> torch.Tensor:
     k0, k1 = key
-    for _ in range(10):
-        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W[0]) & _MASK32
-        k1 = (k1 + _PHILOX_W[1]) & _MASK32
-    return c0, c1, c2, c3
+    if torch.is_tensor(k0):
+        return torch.stack([k0, k1]).to(device=device, dtype=torch.int64)
+    return torch.tensor([k0, k1], dtype=torch.int64, device=device)
 
 
 def _uniform_open(bits: torch.Tensor) -> torch.Tensor:
@@ -424,24 +449,41 @@ def _uniform_open(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
 
 
-def philox_normals(total: int, seed: int, offset: int,
-                   device: torch.device | str = "cpu") -> torch.Tensor:
-    """The kernel's stream of ``total`` N(0, 1) draws for (seed, offset)."""
-    quads = (total + 3) // 4
-    q = torch.arange(quads, dtype=torch.int64, device=device)
+def _philox_words(total: int, seed: int | torch.Tensor, offset: int,
+                  device: torch.device | str
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The words of counters 0..ceil(total/4) − 1 whose high words are
+    ``offset``, under the key ``seed`` (an int, or an int64 tensor), as
+    ``_philox_pairs``' (x, y): x = (c0, c2), y = (c1, c3)."""
+    q = torch.arange((total + 3) // 4, dtype=torch.int64, device=device)
     full = torch.full_like
-    words = philox4x32_10(
-        (q & _MASK32, q >> 32, full(q, offset & _MASK32),
-         full(q, (offset >> 32) & _MASK32)),
-        (seed & _MASK32, (seed >> 32) & _MASK32))
-    out = []
-    for b1, b2 in ((words[0], words[1]), (words[2], words[3])):
-        u1 = torch.clamp_min(_uniform_open(b1), 1e-12)
-        u2 = _uniform_open(b2)
-        r = torch.sqrt(-2.0 * torch.log(u1))
-        theta = _TWO_PI_F32 * u2
-        out += [r * torch.cos(theta), r * torch.sin(theta)]
-    return torch.stack(out, dim=1).reshape(-1)[:total]
+    x = torch.stack([q & _MASK32, full(q, offset & _MASK32)])
+    y = torch.stack([q >> 32, full(q, (offset >> 32) & _MASK32)])
+    return _philox_pairs(x, y, _key_tensor(
+        (seed & _MASK32, (seed >> 32) & _MASK32), device))
+
+
+def philox_uniforms(total: int, seed: int | torch.Tensor, offset: int,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """``total`` uniforms in (0, 1), four a counter (its words in order),
+    from the stream of (seed, offset)."""
+    x, y = _philox_words(total, seed, offset, device)
+    words = torch.stack([x, y], dim=1)          # [(c0, c1), (c2, c3)]
+    return _uniform_open(words.permute(2, 0, 1).reshape(-1))[:total]
+
+
+def philox_normals(total: int, seed: int | torch.Tensor, offset: int,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+    """The kernel's stream of ``total`` N(0, 1) draws for (seed, offset):
+    Box-Muller on the word pairs (c0, c1) and (c2, c3), four draws a
+    counter; ``seed`` may be an int64 tensor, so a traced graph draws
+    from a seed it takes as input."""
+    x, y = _philox_words(total, seed, offset, device)
+    u1 = torch.clamp_min(_uniform_open(x), 1e-12)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI_F32 * _uniform_open(y)
+    out = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+    return out.permute(1, 0, 2).reshape(-1)[:total]
 
 
 def draw_key(generator: torch.Generator | None) -> tuple[int, int]:

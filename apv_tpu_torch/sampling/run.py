@@ -19,10 +19,19 @@ sampler's device, and can be injected instead (``pool``, ``pick``,
 hand in JAX's own draws. Entry points that take a ``seed`` derive distinct
 generators for the latent draw and the pixel noise from it
 (``seed_generators``).
+
+A serving artifact cannot trace a generator or ``autograd.grad``
+(``serving.export_sampler``). There a ``SeedStream`` takes the
+generator's place: normals, uniforms and categoricals drawn in the graph
+from Philox4x32-10 keyed by a seed tensor, each draw its own stream. MALA
+then takes ∇_z log p*(z) in closed form (``shaped_prior_logp_grad``): the
+base's −z or −(z − μ)/σ², plus the latent D's gradient written out layer
+by layer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from pathlib import Path
 from typing import Callable
@@ -33,6 +42,7 @@ import torch
 from apv_tpu_torch import ops
 from apv_tpu_torch.core import distributions as D
 from apv_tpu_torch.core.flow import fit_flow, flow_inverse, flow_logpdf
+from apv_tpu_torch.ops import kernels as K
 from apv_tpu_torch.training.losses import decoder_output_to_likelihood_params
 from apv_tpu_torch.utils import png
 
@@ -49,6 +59,41 @@ def seed_generators(seed: int, count: int,
             for s in states]
 
 
+class SeedStream:
+    """Draws keyed by a seed tensor, traceable by ``torch.export``: the
+    i-th draw (normals, uniforms or a categorical's uniforms) is the
+    Philox4x32-10 stream of key ``seed`` and counter high words i + 1
+    (``ops/kernels.py``'s ``philox_normals``, the reparam kernel's
+    Box-Muller draws, and ``philox_uniforms``). Used in a generator's
+    place by this module's samplers."""
+
+    def __init__(self, seed: torch.Tensor, device: torch.device | str):
+        self.device = torch.device(device)
+        self.seed = seed.to(device=self.device, dtype=torch.int64)
+        self.draws = 0
+
+    def _stream(self) -> int:
+        self.draws += 1
+        return self.draws
+
+    def normal(self, shape) -> torch.Tensor:
+        return K.philox_normals(math.prod(shape), self.seed, self._stream(),
+                                self.device).reshape(shape)
+
+    def uniform(self, shape) -> torch.Tensor:
+        return K.philox_uniforms(math.prod(shape), self.seed,
+                                 self._stream(), self.device).reshape(shape)
+
+    def categorical(self, logits: torch.Tensor, n: int) -> torch.Tensor:
+        """n indices with probabilities softmax(logits), by inverse CDF:
+        the first index whose cumulative probability exceeds u·total."""
+        cdf = torch.cumsum(torch.softmax(logits.to(torch.float32), dim=-1),
+                           dim=-1)
+        u = self.uniform((n,)) * cdf[-1]
+        idx = torch.searchsorted(cdf, u, right=True)
+        return torch.clamp_max(idx, logits.shape[-1] - 1)
+
+
 def _check_draw(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"injected {name} has shape {tuple(t.shape)}, "
@@ -56,15 +101,27 @@ def _check_draw(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
     return t
 
 
+def _as_draw(t: torch.Tensor, device) -> torch.Tensor:
+    """An injected draw as float32 on ``device`` (itself when it is: a
+    traced graph then holds no copy)."""
+    if t.dtype == torch.float32 and t.device == torch.device(device):
+        return t
+    return t.to(device, torch.float32)
+
+
 def _normal(shape, generator, device, injected=None, name="normal"):
     if injected is not None:
-        return _check_draw(name, injected, shape).to(device, torch.float32)
+        return _as_draw(_check_draw(name, injected, shape), device)
+    if isinstance(generator, SeedStream):
+        return generator.normal(shape)
     return torch.randn(shape, generator=generator, device=device)
 
 
 def _uniform(shape, generator, device, injected=None, name="uniform"):
     if injected is not None:
-        return _check_draw(name, injected, shape).to(device, torch.float32)
+        return _as_draw(_check_draw(name, injected, shape), device)
+    if isinstance(generator, SeedStream):
+        return generator.uniform(shape)
     return torch.rand(shape, generator=generator, device=device)
 
 
@@ -74,6 +131,8 @@ def _categorical(logits: torch.Tensor, n: int, generator,
     if injected is not None:
         return _check_draw(name, injected, (n,)).to(logits.device,
                                                      torch.int64)
+    if isinstance(generator, SeedStream):
+        return generator.categorical(logits, n)
     return D.categorical(logits, n, generator=generator)
 
 
@@ -87,6 +146,52 @@ def shaped_prior_logp(z: torch.Tensor, d: Callable,
     return lp0 + d(z)
 
 
+def latent_d_grad(d, z: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(D(z) [n], ∇_z D(z) [n, Z]) of a ``LatentDiscriminator`` in closed
+    form, without autograd: the forward keeps each hidden layer's
+    pre-activation, the backward multiplies the last layer's weight row
+    by the LeakyReLU derivative (1 where the pre-activation is ≥ 0, as
+    flax's, else the slope) and each weight in turn. An ``SNDense`` layer
+    is the map W/σ(W); σ does not depend on z."""
+    def weight(layer):
+        return layer.weight / layer.sigma() if hasattr(layer, "sigma") \
+            else layer.weight
+
+    h, pres, weights = _as_draw(z, z.device), [], []
+    for layer in d.layers[:-1]:
+        w = weight(layer)
+        pre = torch.nn.functional.linear(h, w, layer.bias)
+        pres.append(pre)
+        weights.append(w)
+        h = torch.where(pre >= 0, pre, d.negative_slope * pre)
+    last = d.layers[-1]
+    w_last = weight(last)
+    logit = torch.nn.functional.linear(h, w_last, last.bias)[..., 0]
+    g = w_last[0].expand(h.shape[0], -1)
+    for pre, w in zip(reversed(pres), reversed(weights)):
+        g = torch.where(pre >= 0, g, d.negative_slope * g) @ w
+    return logit, g
+
+
+def shaped_prior_logp_grad(d, base_logp: Callable | None = None,
+                           base_grad: Callable | None = None) -> Callable:
+    """``z -> (log p*(z), ∇_z log p*(z))`` for MALA without autograd:
+    ``shaped_prior_logp``'s value, and the gradient of the base (−z for
+    N(0, I), else ``base_grad``: −(z − μ)/(T²σ²) for the trainable
+    Gaussian base at temperature T) plus ``latent_d_grad``'s."""
+    if (base_logp is None) != (base_grad is None):
+        raise ValueError("base_logp and base_grad come as a pair")
+
+    def fn(z):
+        logit, g_d = latent_d_grad(d, z)
+        if base_logp is None:
+            return -0.5 * torch.sum(z * z, dim=-1) + logit, g_d - z
+        return base_logp(z) + logit, g_d + base_grad(z)
+
+    return fn
+
+
 def sir_ess(logw: torch.Tensor) -> torch.Tensor:
     """Kish effective sample size (Σw)²/Σw² of log importance weights."""
     return torch.exp(2.0 * torch.logsumexp(logw, dim=0)
@@ -94,13 +199,16 @@ def sir_ess(logw: torch.Tensor) -> torch.Tensor:
 
 
 def langevin_refine(z0: torch.Tensor, logp_fn: Callable, steps: int, *,
-                    generator: torch.Generator | None = None,
+                    generator: torch.Generator | SeedStream | None = None,
                     noise: torch.Tensor | None = None,
-                    uniforms: torch.Tensor | None = None):
+                    uniforms: torch.Tensor | None = None,
+                    logp_grad: Callable | None = None):
     """Batched MALA on an unnormalized log-density ``logp_fn: [n, Z] ->
     [n]``; all n chains step together. The step size starts at
     ``INIT_STEP`` and adapts toward ``TARGET_ACCEPT`` with gain 1/(i + 10)
-    at step i = 1..steps.
+    at step i = 1..steps. Its gradient comes from ``torch.autograd``,
+    unless ``logp_grad`` (``z -> (log p, ∇ log p)``) gives both, as a
+    traced graph needs.
 
     ``noise`` [steps, n, Z] (the proposals' N(0, I) draws) and ``uniforms``
     [steps, n] (the accept draws) may be injected.
@@ -121,7 +229,11 @@ def langevin_refine(z0: torch.Tensor, logp_fn: Callable, steps: int, *,
         (g,) = torch.autograd.grad(lp.sum(), z)
         return lp.detach(), g.detach()
 
-    with torch.inference_mode(False), torch.enable_grad():
+    if logp_grad is not None:
+        logp_and_grad, grad_mode = logp_grad, contextlib.nullcontext()
+    else:
+        grad_mode = _autograd_on()
+    with grad_mode:
         z = z0.to(torch.float32).clone()
         lp, g = logp_and_grad(z)
         log_eps = torch.log(torch.tensor(INIT_STEP, dtype=torch.float32,
@@ -149,6 +261,12 @@ def langevin_refine(z0: torch.Tensor, logp_fn: Callable, steps: int, *,
     return z.detach(), torch.stack(rates).mean(), torch.exp(log_eps)
 
 
+@contextlib.contextmanager
+def _autograd_on():
+    with torch.inference_mode(False), torch.enable_grad():
+        yield
+
+
 def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
                  pool_factor: int = 16, refine_steps: int = 0,
                  return_diagnostics: bool = False,
@@ -158,14 +276,17 @@ def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
                  pool: torch.Tensor | None = None,
                  pick: torch.Tensor | None = None,
                  mala_noise: torch.Tensor | None = None,
-                 mala_uniforms: torch.Tensor | None = None):
+                 mala_uniforms: torch.Tensor | None = None,
+                 logp_grad: Callable | None = None):
     """n draws from the prior: the base without ``d``; with the latent D,
     SIR from the shaped prior over a pool of ``n * pool_factor`` base
     draws, optionally MALA-refined for ``refine_steps``.
 
     The base is N(0, I) unless ``base_from`` (u ~ N(0, I) -> z) and
     ``base_logp`` (its log-density, MALA's target with D) give a trainable
-    one; they come as a pair.
+    one; they come as a pair. ``logp_grad`` gives MALA its target and
+    gradient in closed form (``shaped_prior_logp_grad``) instead of
+    autograd. ``generator`` may be a ``SeedStream``.
 
     Draws: ``pool`` (the N(0, I) draws: [n, Z] without D, [n·pool_factor,
     Z] with it), ``pick`` ([n] pool indices), ``mala_noise`` and
@@ -196,10 +317,18 @@ def sample_prior(n: int, z_dim: int, *, d: Callable | None = None,
     idx = _categorical(logw, n, generator, pick)
     z = pool[idx]
     diag = {"sir_ess": sir_ess(logw), "sir_pool": n * pool_factor}
+    if refine_steps > 0 and isinstance(generator, SeedStream):
+        # every step's draws at once: two streams, not two a step, keep
+        # a traced graph small
+        if mala_noise is None:
+            mala_noise = generator.normal((refine_steps, n, z_dim))
+        if mala_uniforms is None:
+            mala_uniforms = generator.uniform((refine_steps, n))
     if refine_steps > 0:
         z, rate, eps = langevin_refine(
             z, lambda zz: shaped_prior_logp(zz, d, base_logp), refine_steps,
-            generator=generator, noise=mala_noise, uniforms=mala_uniforms)
+            generator=generator, noise=mala_noise, uniforms=mala_uniforms,
+            logp_grad=logp_grad)
         diag.update(mala_accept_rate=rate, mala_step_size=eps,
                     mala_steps=refine_steps)
     return (z, diag) if return_diagnostics else z
@@ -399,7 +528,8 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
                      model_prior: bool = False, model_base: bool = False,
                      temperature: float = 1.0,
                      return_diagnostics: bool = False,
-                     draws: dict | None = None):
+                     draws: dict | None = None,
+                     stream: SeedStream | None = None):
     """Decode n prior samples -> images [n, H, W, C] in [0, 1] on the
     model's device.
 
@@ -415,7 +545,9 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
     derived from ``seed``. ``draws`` injects draws by name: ``pool`` (the
     N(0, I) base draws, also the trained prior's), ``pick``,
     ``mala_noise``, ``mala_uniforms`` (the shaped prior), ``eps``, ``ids``
-    (the ex-post prior) and ``pixel_u``.
+    (the ex-post prior) and ``pixel_u``. A ``stream`` (a traced graph's)
+    replaces both generators, and MALA then takes its gradient in closed
+    form (``shaped_prior_logp_grad``; ``d`` a ``LatentDiscriminator``).
     """
     if prior_moments is not None and refine_steps > 0:
         raise ValueError("refine_steps applies to the adversarially-shaped "
@@ -437,7 +569,10 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
                          "their fitted scale")
     draws = draws or {}
     dev = next(model.parameters()).device
-    gen_z, gen_x = seed_generators(seed, 2, dev)
+    if stream is not None:
+        gen_z = gen_x = stream
+    else:
+        gen_z, gen_x = seed_generators(seed, 2, dev)
     with torch.no_grad():
         if prior_moments is not None:
             z = expost_prior_sample(prior_moments, n, z_dim, generator=gen_z,
@@ -449,7 +584,7 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
             z = model.prior_sample_from(temperature * u)
             diag = {}
         else:
-            base_from = base_logp = None
+            base_from = base_logp = base_grad = None
             if model_base:
                 def base_from(u):
                     return model.prior_sample_from(temperature * u)
@@ -461,13 +596,21 @@ def generate_samples(model, n: int, z_dim: int, likelihood: str,
                         mu = model.prior_sample_from(torch.zeros_like(zz))
                         zz = mu + (zz - mu) / temperature
                     return model.prior_logpdf(zz)
+
+                def base_grad(zz):
+                    mu, var = model.prior.moments()
+                    return -(zz - mu) / (temperature ** 2 * var)
+            logp_grad = (shaped_prior_logp_grad(d, base_logp, base_grad)
+                         if stream is not None and refine_steps > 0
+                         else None)
             z, diag = sample_prior(
                 n, z_dim, d=d, refine_steps=refine_steps,
                 return_diagnostics=True, generator=gen_z, device=dev,
                 base_from=base_from, base_logp=base_logp,
                 pool=draws.get("pool"), pick=draws.get("pick"),
                 mala_noise=draws.get("mala_noise"),
-                mala_uniforms=draws.get("mala_uniforms"))
+                mala_uniforms=draws.get("mala_uniforms"),
+                logp_grad=logp_grad)
         out = model.decode(z)
         images = decoder_pixels(out, likelihood, image_channels, mode,
                                 generator=gen_x, u=draws.get("pixel_u"))

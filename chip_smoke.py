@@ -134,6 +134,24 @@ Phases, one JSON line each:
      begins); each PNG decodes to its shape and is not constant;
      reconstruct equals the shadow's own reconstruction of the same
      draw.
+ 22. export: api.export_artifact of the scorer on knobs_train's EMA
+     checkpoint (a torch.export program traced on the card, its reparam,
+     kl and disc_logistic custom ops launching the kernels), called at
+     batch 64, 16 and 1, each call's launches counted and its ELBO held
+     to make_scorer of the restored shadow with the same Philox key at
+     1e-5 of the ELBO's scale, and to the plain ops (plain reparam, kl
+     and likelihood, no kernel) at scorer_phase's bar; the sampler
+     artifact of that shadow (SIR + 20 MALA steps in the graph):
+     deterministic in the seed, in [0, 1]; an int8 sampler at the CLI's
+     2 MALA steps, held to the CLI's f32 one: the file under half of it,
+     mean |Δ| under 0.05, in [0, 1]; a full-width mnist_advprior scorer
+     artifact from seeded weights for the bernoulli kernel, held as the
+     CIFAR one; beside one child running `apv-torch export` for the
+     scorer and the sampler (its scorer scores as the phase's) and a
+     tempered scorer, which it must refuse, started with phase 21's
+     child as phase 20 begins. The export (trace, save) and load
+     seconds, ms an artifact call against the in-process call, and
+     whether tensorstore imports here.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
 The likelihood forwards' launches on the paths by (rows, x rows, E) are a
@@ -1037,8 +1055,10 @@ def gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def plain_elbo(cfg, model, d, x, log_z, seed):
-    """The scorer's ELBO with the plain ops, on the kernel path's z."""
+def plain_elbo(cfg, model, d, x, log_z, seed, *, plain_z: bool = False):
+    """The scorer's ELBO with the plain ops, on the kernel path's z (drawn
+    with ``gen(seed)``), or with ``plain_z`` on the plain reparam's z of
+    the Philox key (seed, 0), as a scorer artifact keys it: no kernel."""
     from apv_tpu_torch import ops
     from apv_tpu_torch.ops import kernels as K
     from apv_tpu_torch.training.losses import \
@@ -1046,7 +1066,8 @@ def plain_elbo(cfg, model, d, x, log_z, seed):
     with torch.inference_mode():
         x_in = x if cfg.data.binarize else x * 2.0 - 1.0
         mean, logvar = model.encode(x_in)
-        z = ops.reparam_sample(mean, logvar, generator=gen(seed))
+        z = (K.reparam_plain(mean, logvar, 1, seed, 0)[0] if plain_z
+             else ops.reparam_sample(mean, logvar, generator=gen(seed)))
         params = decoder_output_to_likelihood_params(
             model.decode(z), cfg.model.likelihood, x.shape[-1])
         recon = (K.bernoulli_plain(x, *params)
@@ -2515,6 +2536,251 @@ def visualize_phase(cfg, tmp: str, dev, child: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the serving export
+# ---------------------------------------------------------------------------
+
+# A child running the CLI's main() on each argv of the JSON list in argv[1]
+# in turn, each command's exit code and refusal printed as one JSON line.
+EXPORT_CHILD = """\
+import json, sys
+from apv_tpu_torch.cli import main
+for argv in json.loads(sys.argv[1]):
+    try:
+        code, said = main(argv), ""
+    except SystemExit as e:
+        code, said = (1 if isinstance(e.code, str) else e.code), str(e)
+    print(json.dumps({"export_argv": argv, "code": code, "said": said}),
+          flush=True)
+"""
+EXPORT_BATCHES = (64, 16, 1)  # one scorer artifact, three batch sizes
+CLI_REFINE = 2                # the CLI child's sampler: MALA steps
+
+
+def start_export_cli(cfg, tmp: str) -> dict:
+    """Phase 22's `apv-torch export` child on knobs_train's checkpoint
+    (``start_cli``): the scorer, the sampler with CLI_REFINE MALA steps
+    (the phase exports the 20-step one and an int8 twin of this one
+    itself), and a tempered scorer, which must be refused."""
+    common = ["--preset", "cifar_advprior_resnet", "--checkpoint-dir",
+              str(Path(tmp) / cfg.name / "checkpoints"), "--set",
+              f"results_dir={tmp}"]
+    outs = {w: Path(tmp) / f"cli_{w}.pt2" for w in ("scorer", "sampler")}
+    argvs = [["export", "--what", "scorer", *common, "--out",
+              str(outs["scorer"])],
+             ["export", "--what", "sampler", "--refine", str(CLI_REFINE),
+              *common, "--out", str(outs["sampler"])],
+             ["export", "--what", "scorer", "--temperature", "0.8",
+              *common, "--out", str(Path(tmp) / "cli_refused.pt2")]]
+    child = start_cli([json.dumps(argvs)], tmp, tag="export",
+                      child=EXPORT_CHILD)
+    return {**child, "outs": outs}
+
+
+@contextlib.contextmanager
+def export_split(into: dict):
+    """``torch.export``'s trace and save inside the block, their wall
+    seconds written to ``into`` as ``trace`` and ``save``: wrappers over
+    the two calls, in this script only."""
+    real = torch.export.export, torch.export.save
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                into[name] = time.perf_counter() - t0
+        return run
+
+    torch.export.export = wrap("trace", real[0])
+    torch.export.save = wrap("save", real[1])
+    try:
+        yield
+    finally:
+        torch.export.export, torch.export.save = real
+
+
+def export_phase(cfg, tmp: str, dev, child: dict) -> dict:
+    """Phase 22 (module docstring): the serving artifacts of knobs_train's
+    EMA checkpoint and of a seeded full-width mnist_advprior, beside
+    ``child`` (``start_export_cli``), which it waits for."""
+    import importlib.util
+    from apv_tpu_torch import (build_model, export_artifact, get_preset,
+                               load_exported, make_latent_d, make_scorer,
+                               make_train_fns, restore_checkpoint, serving)
+    from apv_tpu_torch.data.preprocess import static_binarize
+    from apv_tpu_torch.eval.iwae_eval import estimate_log_partition
+    from apv_tpu_torch.eval.run import eval_arrays
+    from apv_tpu_torch.models import latent_d_params
+    from apv_tpu_torch.ops import kernels as K
+    ckpt_dir = str(Path(tmp) / cfg.name / "checkpoints")
+    over = [f"results_dir={tmp}"]
+    paths = {k: Path(tmp) / f"export_{k}.pt2"
+             for k in ("scorer", "sampler", "sampler_int8", "mnist_scorer")}
+    secs, errs, bars, ms, per_call = {}, {}, {}, {}, {}
+    launches = expected(K)
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if key.startswith("export_"):
+            with export_split(secs.setdefault(f"{key}_trace_save", {})):
+                out = fn()
+        else:
+            out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    def score(tag, art, ref, x, seed, want_launches, plain):
+        """One artifact call with the counters zeroed around it (after a
+        warm-up call), held to ``ref`` (make_scorer, the same key: the
+        same kernels, expected bit-equal) and to ``plain`` (the plain
+        ops, at scorer_phase's bar)."""
+        art(x, torch.tensor(seed))                         # warm up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = art(x, torch.tensor(seed))
+        torch.cuda.synchronize()
+        per_call[tag] = counts = path_counts(K)
+        for name in launches:
+            launches[name] += counts[name]
+        check(counts == want_launches, f"{tag} artifact: launches {counts}")
+        check(got.shape == (x.shape[0],) and bool(torch.isfinite(got).all()),
+              f"{tag} artifact: ELBO not finite or of the wrong shape")
+        want = ref(x, key=(seed, 0))
+        errs[tag] = float((got - want).abs().max())
+        bars[tag] = 1e-5 * float(want.abs().max())
+        check(errs[tag] <= bars[tag], f"{tag} artifact: max |Δ| vs "
+              f"make_scorer {errs[tag]} > {bars[tag]}")
+        # plain reparam (z within ulps of the kernel's), the decoder on
+        # it, plain kl and likelihood sums: as scorer_phase's bar
+        errs[f"{tag}_vs_plain"] = float((got - plain).abs().max())
+        bars[f"{tag}_vs_plain"] = 5e-2 + 1e-5 * float(plain.abs().max())
+        check(errs[f"{tag}_vs_plain"] <= bars[f"{tag}_vs_plain"],
+              f"{tag} artifact: max |Δ| vs the plain ops "
+              f"{errs[f'{tag}_vs_plain']} > {bars[f'{tag}_vs_plain']}")
+        return got
+
+    try:
+        # the scorer of the knobs' EMA checkpoint through the API (restore,
+        # log Z, trace, save), the samplers of the same restored shadow
+        torch.cuda.synchronize()
+        K.reset_launches()
+        timed("export_scorer", lambda: export_artifact(
+            "cifar_advprior_resnet", overrides=over, checkpoint_dir=ckpt_dir,
+            what="scorer", out_path=str(paths["scorer"]), device=dev))
+        fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
+        restore_checkpoint(ckpt_dir, fresh)
+        d = latent_d_params(cfg.adversarial.variant, fresh.d)
+        for key, quantize, refine in (("sampler", None, SAMPLE_REFINE),
+                                      ("sampler_int8", "int8", CLI_REFINE)):
+            timed(f"export_{key}", lambda key=key, q=quantize, r=refine:
+                  serving.export_sampler(cfg, fresh.ema_model, d, paths[key],
+                                         quantize=q, refine_steps=r,
+                                         device=dev))
+        exporting = path_counts(K)
+        check(exporting == expected(K), f"export launched {exporting}")
+        scorer = timed("load_scorer", lambda: load_exported(paths["scorer"]))
+
+        # held against make_scorer on the restored shadow, the same key,
+        # and against the plain ops
+        with torch.inference_mode():
+            log_z = float(estimate_log_partition(d, cfg.model.z_dim, seed=0,
+                                                 device=dev))
+        ref = make_scorer(cfg, fresh.ema_model, d, log_z, device=dev)
+        images = eval_arrays(cfg, None, max_examples=max(EXPORT_BATCHES))
+        x_all = torch.from_numpy(images["image"].astype(np.float32)
+                                 / 255.0).to(dev)
+        outs = {}
+        for b in EXPORT_BATCHES:
+            x, seed = x_all[:b], SEED + b
+            outs[b] = score(f"scorer_b{b}", scorer, ref, x, seed,
+                            expected(K, reparam=1, kl=1, disc_logistic=1),
+                            plain_elbo(cfg, fresh.ema_model, d, x, log_z,
+                                       seed, plain_z=True))
+        x64, seed_t = x_all[:64], torch.tensor(SEED)
+        ms["scorer_artifact"] = cuda_ms(lambda: scorer(x64, seed_t), 10)
+        ms["scorer_in_process"] = cuda_ms(lambda: ref(x64, key=(SEED, 0)),
+                                          10)
+
+        # the 20-step sampler; the int8 one is held to the CLI's below
+        s32 = timed("load_sampler", lambda: load_exported(paths["sampler"]))
+        s8 = load_exported(paths["sampler_int8"])
+        torch.cuda.synchronize()
+        K.reset_launches()
+        a, a8 = s32(torch.tensor(SEED)), s8(torch.tensor(SEED))
+        torch.cuda.synchronize()
+        sampling = path_counts(K)
+        check(sampling == expected(K), f"sampler artifacts launched "
+              f"{sampling}: their path holds no kernel")
+        check(tuple(a.shape) == (cfg.eval.batch_size, 32, 32, 3)
+              and bool(((a >= 0) & (a <= 1)).all())
+              and torch.equal(s32(torch.tensor(SEED)), a)
+              and not torch.equal(s32(torch.tensor(SEED + 1)), a),
+              f"sampler artifact: shape {tuple(a.shape)}, not in [0, 1] "
+              "or not deterministic in its seed")
+        ms["sampler_artifact"] = cuda_ms(lambda: s32(seed_t), 3, warmup=1)
+
+        # an MNIST scorer at full width from seeded weights: bernoulli
+        cfg_m = get_preset("mnist_advprior")
+        model_m = build_model(cfg_m.model, device=dev, seed=SEED + 40)
+        d_m = make_latent_d(cfg_m.adversarial, cfg_m.model.z_dim,
+                            device=dev, seed=SEED + 41)
+        timed("export_mnist_scorer", lambda: serving.export_scorer(
+            cfg_m, model_m, paths["mnist_scorer"], d=d_m, device=dev))
+        mscorer = load_exported(paths["mnist_scorer"])
+        with torch.inference_mode():
+            log_z_m = float(estimate_log_partition(d_m, cfg_m.model.z_dim,
+                                                   seed=0, device=dev))
+        ref_m = make_scorer(cfg_m, model_m, d_m, log_z_m, device=dev)
+        xb = torch.from_numpy(static_binarize(
+            synthetic_digits(BATCH, SEED + 5), seed=1).astype(
+                np.float32)).to(dev)
+        score("mnist", mscorer, ref_m, xb, SEED,
+              expected(K, reparam=1, kl=1, bernoulli=1),
+              plain_elbo(cfg_m, model_m, d_m, xb, log_z_m, SEED,
+                         plain_z=True))
+    finally:
+        out, _, secs["cli"] = finish_cli(child)
+
+    # the CLI's artifacts: two written, the tempered scorer refused; its
+    # scorer scores as the phase's own, its f32 sampler is the int8 one's
+    # twin (the same shadow, seed and MALA steps)
+    runs = [json.loads(ln) for ln in out.splitlines()
+            if ln.startswith('{"export_argv"')]
+    check([r["code"] for r in runs] == [0, 0, 1]
+          and "temperature is sampler-only" in runs[2]["said"]
+          and all(p.exists() for p in child["outs"].values()),
+          f"apv-torch export: {out[-1500:]}")
+    cli_scorer = load_exported(child["outs"]["scorer"])
+    check(torch.equal(cli_scorer(x_all[:64], torch.tensor(SEED + 64)),
+                      outs[64]), "the CLI's scorer artifact scores "
+          "otherwise than the phase's")
+    a32 = load_exported(child["outs"]["sampler"])(torch.tensor(SEED))
+    size_ratio = paths["sampler_int8"].stat().st_size \
+        / child["outs"]["sampler"].stat().st_size
+    mad = float((a32 - a8).abs().mean())
+    check(a8.shape == a32.shape
+          and all(bool(((t >= 0) & (t <= 1)).all()) for t in (a32, a8))
+          and size_ratio < 0.5 and mad < 0.05,
+          f"int8 sampler vs the CLI's f32 one: int8 size ratio "
+          f"{size_ratio}, mean |Δ| {mad}")
+    emit("export", checkpoint=cfg.name, seconds=secs, ms=ms,
+         max_abs_err=errs, bar=bars, launches_a_call=per_call,
+         sampler_refine=SAMPLE_REFINE, int8_refine=CLI_REFINE,
+         sampler_batch=int(a.shape[0]), int8_size_ratio=size_ratio,
+         int8_mean_abs_diff=mad,
+         bytes={**{k: p.stat().st_size for k, p in paths.items()},
+                "cli_sampler": child["outs"]["sampler"].stat().st_size},
+         cli_refusal=runs[2]["said"],
+         tensorstore_importable=importlib.util.find_spec("tensorstore")
+         is not None, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 10-13: groupnorm_gelu, the conv probe, sample, ood
 # ---------------------------------------------------------------------------
 
@@ -2950,16 +3216,21 @@ def main(argv: list[str]) -> int:
         # the knobs' EMA checkpoint
         path_launches["knobs_train"], cfg7 = knobs_train_phase(
             arrays, tmp, dev, flagship_s)
+        # (22.) the CLI children of phases 21-22 start here, beside 20-21
         child = start_visualize_cli(cfg7, tmp)
+        exporter = start_export_cli(cfg7, tmp)
         try:
             path_launches["mix_train"], cfg8, mix_ms = mix_train_phase(
                 arrays, tmp, dev, flagship_s)
             path_launches["visualize"] = visualize_phase(cfg7, tmp, dev,
                                                          child)
+            # 22. the serving artifacts of the knobs' checkpoint
+            path_launches["export"] = export_phase(cfg7, tmp, dev, exporter)
         finally:
-            if child["proc"].poll() is None:
-                child["proc"].kill()
-                child["proc"].wait()
+            for c in (child, exporter):
+                if c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
         if args.profile is not None:
             profile_train(args.profile, cfg_gb, dev, tag="gb_train")
             profile_train(args.profile, cfg_flow, dev, tag="flow_train")

@@ -512,7 +512,7 @@ def test_cli_parses_the_reference_flags():
 
 
 def test_cli_refuses_unknown_flags():
-    """Only export leaves its flags unparsed."""
+    """Every command parses its flags strictly, export's included."""
     with pytest.raises(SystemExit) as e:
         cli.main(["train", "--steps", "4"])
     assert e.value.code == 2
@@ -523,7 +523,8 @@ def test_cli_refuses_unknown_flags():
      "--prior apply to prior sampling"),
     (["sample", "--visualize", "latent", "--temperature", "0.8"],
      "--temperature apply to prior sampling"),
-    (["export", "--what", "scorer"], "14b"),
+    (["export", "--what", "scorer", "--temperature", "0.8"],
+     "temperature is sampler-only"),
     (["train", "--distributed"], "item 13"),
     (["train", "--checkpoint-dir", "x"], "eval-side only")])
 def test_cli_refuses_what_the_port_lacks(argv, match):
