@@ -20,7 +20,10 @@ discriminators include the spectrally normalized latent D, the R1 penalty
 and the biadversarial pixel D with its ``pixel_d`` OOD score. The training
 knobs include the cosine and floor-adaptive D learning rates, gradient
 accumulation and the EMA shadow that the eval-side entry points read;
-the likelihoods include the mixture of discretized logistics.
+the likelihoods include the mixture of discretized logistics. Training
+and evaluation also run data-parallel over ``torch.distributed``, one
+process a card (``apv-torch train --distributed``; ``parallel/``), with
+the k-sharded IWAE (``eval/sharded.py``).
 Reparameterized sampling, KL and the Bernoulli and discretized-logistic
 likelihoods run in hand-written CUDA kernels on the card
 (``apv_tpu_torch.ops``), each with a backward kernel, and in plain

@@ -106,6 +106,8 @@ def _restore_state(cfg: Config, checkpoint_dir: str | None = None, *,
 
 
 def _write_json(cfg: Config, name: str, data: dict) -> None:
+    """A result JSON in the run's dir, written by rank 0 alone under a
+    process group (the logger's rule)."""
     from apv_tpu_torch.utils.logging import MetricLogger
     MetricLogger(Path(cfg.results_dir) / cfg.name).write_json(name, data)
 

@@ -8,8 +8,11 @@ device. ``sample --visualize reconstruct|interpolate|latent`` writes the
 reconstruction, interpolation or latent-scatter PNG instead of prior
 samples; the flags of prior sampling that it would ignore are refused.
 ``export`` writes a ``torch.export`` serving artifact (``.pt2``) for the
-device it runs on, ``--temperature`` included. What the port lacks exits
-nonzero naming the ROADMAP item: ``train --distributed`` (13).
+device it runs on, ``--temperature`` included. ``train --distributed``
+joins the process group that the APV_COORDINATOR, APV_NUM_PROCESSES and
+APV_PROCESS_ID env vars describe (one process a card, started once a card
+by the launcher; ``parallel/multihost.py``) before anything touches the
+card, and exits nonzero when APV_COORDINATOR is unset.
 """
 
 from __future__ import annotations
@@ -52,8 +55,10 @@ def _parser() -> argparse.ArgumentParser:
                          help="write a torch.profiler trace of this run's "
                               "steps 10-15 into this dir")
     p_train.add_argument("--distributed", action="store_true",
-                         help="multi-card training (not ported: ROADMAP "
-                              "queue A item 13)")
+                         help="data-parallel training, one process a card: "
+                              "join the group of APV_COORDINATOR (host:port "
+                              "of rank 0), APV_NUM_PROCESSES and "
+                              "APV_PROCESS_ID")
 
     p_eval = sub.add_parser("evaluate", help="IWAE-k NLL + bits/dim")
     _add_common(p_eval, "iwae_eval")
@@ -182,9 +187,6 @@ def main(argv: list[str] | None = None) -> int:
             print(f"{name:24s} {doc}")
         return 0
     if args.command == "train":
-        if args.distributed:
-            raise SystemExit("--distributed is not ported to apv_tpu_torch "
-                             "yet (ROADMAP queue A item 13)")
         if args.checkpoint_dir:
             # train resumes from its own results dir by name
             raise SystemExit(
@@ -201,6 +203,11 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"{', '.join(moved)} apply to prior sampling; "
                              "they have no effect with --visualize — run "
                              "`apv-torch sample` without it")
+    if getattr(args, "distributed", False):
+        # before anything touches the card
+        from apv_tpu_torch.parallel.multihost import initialize_from_env
+        if not initialize_from_env(device=args.device):
+            raise SystemExit("--distributed set but APV_COORDINATOR unset")
     if args.debug_nans:
         import torch
         torch.autograd.set_detect_anomaly(True)
@@ -208,10 +215,15 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = args.device
     if args.command == "train":
-        state = api.train(args.preset, overrides=args.overrides,
-                          resume=args.resume, max_steps=args.max_steps,
-                          trace_dir=args.trace_dir, overwrite=args.overwrite,
-                          device=dev)
+        try:
+            state = api.train(args.preset, overrides=args.overrides,
+                              resume=args.resume, max_steps=args.max_steps,
+                              trace_dir=args.trace_dir,
+                              overwrite=args.overwrite, device=dev)
+        finally:
+            if args.distributed:
+                import torch.distributed as dist
+                dist.destroy_process_group()
         print(f"trained to step {int(state.step)}")
     elif args.command == "evaluate":
         result = api.evaluate(args.preset, overrides=args.overrides,

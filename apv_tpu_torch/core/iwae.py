@@ -64,7 +64,17 @@ def iwae_log_likelihood(logw_fn: Callable[[int], torch.Tensor], k: int,
     """
     if k % chunk_size != 0:
         raise ValueError(f"k={k} must be divisible by chunk_size={chunk_size}")
+    return streaming_logsumexp_finalize(
+        iwae_stream(logw_fn, k // chunk_size, out_shape, device))
+
+
+def iwae_stream(logw_fn: Callable[[int], torch.Tensor], n_chunks: int,
+                out_shape: tuple[int, ...],
+                device: torch.device | str = "cpu") -> LogSumExpState:
+    """The running state after folding in chunks 0 .. ``n_chunks`` − 1 of
+    ``logw_fn``, unfinalized: a k-shard's part of the estimator, which
+    ``eval/sharded.py`` merges across ranks."""
     state = streaming_logsumexp_init(out_shape, device)
-    for i in range(k // chunk_size):
+    for i in range(n_chunks):
         state = streaming_logsumexp_update(state, logw_fn(i))
-    return streaming_logsumexp_finalize(state)
+    return state

@@ -24,7 +24,8 @@ import torch
 
 from apv_tpu_torch import ops
 from apv_tpu_torch.core import distributions as D
-from apv_tpu_torch.core.iwae import iwae_log_likelihood
+from apv_tpu_torch.core.iwae import (iwae_stream,
+                                     streaming_logsumexp_finalize)
 from apv_tpu_torch.training.losses import recon_log_likelihood
 from apv_tpu_torch.utils.device import resolve_device
 
@@ -94,11 +95,16 @@ def make_iwae_fn(model, likelihood: str, k: int, chunk: int,
     the priors as ``make_logw_chunk_fn``'s.
 
     ``eps`` ([k // chunk, chunk, B, Z], CPU only) injects each chunk's noise.
+    ``finalize=False`` returns the running state of the k samples instead
+    of the estimate, for ``eval/sharded.py`` to merge across ranks.
     """
+    if k % chunk != 0:
+        raise ValueError(f"k={k} must be divisible by chunk_size={chunk}")
     logw_chunk = make_logw_chunk_fn(model.decode, likelihood, chunk, d_apply,
                                     prior_logpdf_p, prior_logpdf)
 
-    def iwae_fn(x_in, x_target, log_z=0.0, *, generator=None, eps=None):
+    def iwae_fn(x_in, x_target, log_z=0.0, *, generator=None, eps=None,
+                finalize=True):
         mean, logvar = model.encode(x_in)          # [B, Z], once
 
         def logw_fn(i):
@@ -106,8 +112,9 @@ def make_iwae_fn(model, likelihood: str, k: int, chunk: int,
                               generator=generator,
                               eps=None if eps is None else eps[i])
 
-        return iwae_log_likelihood(logw_fn, k, chunk, (mean.shape[0],),
-                                   mean.device)
+        state = iwae_stream(logw_fn, k // chunk, (mean.shape[0],),
+                            mean.device)
+        return streaming_logsumexp_finalize(state) if finalize else state
 
     return iwae_fn
 

@@ -22,6 +22,10 @@ variant the ``{"latent", "pixel"}`` pair, whose latent D the likelihood
 scores read (``models.latent_d_params``) and whose pixel D ``pixel_d``
 reads.
 
+Under a process group the scores come from ``evaluate_nll`` and
+``pixel_d_scores``, which share each batch over the ranks and return the
+whole score vector on every rank, so every rank computes the same AUROC.
+
 ``ood_both`` runs both pair directions, optionally with a second model
 trained on the other dataset for the reversed direction.
 """
@@ -33,7 +37,6 @@ import math
 
 import numpy as np
 import torch
-from scipy.stats import rankdata
 
 from apv_tpu_torch.eval.run import eval_arrays, evaluate_nll, pixel_d_scores
 from apv_tpu_torch.models.discriminator import latent_d_params
@@ -50,6 +53,7 @@ def auroc(in_scores: np.ndarray, ood_scores: np.ndarray) -> float:
     n1, n0 = len(in_scores), len(ood_scores)
     if n1 == 0 or n0 == 0:
         raise ValueError("auroc needs in- and out-of-distribution scores")
+    from scipy.stats import rankdata    # slow to import: only when used
     ranks = rankdata(np.concatenate([in_scores, ood_scores]))
     u = ranks[:n1].sum() - n1 * (n1 + 1) / 2.0
     return float(u / (n1 * n0))

@@ -7,6 +7,21 @@ D's logits; and ``eval_arrays``, the test split as eval sees it
 Deterministic input convention at eval: no dequantization noise — the
 encoder sees centered bin centers, the likelihood scores the discrete
 levels.
+
+Under a process group the ranks share the work and every rank returns the
+whole result. ``evaluate_nll`` lays the ranks out as an n_data × n_k grid,
+n_k = min(``eval.k_shards``, world), which must divide the world size:
+each data row of ranks scores its rows of every batch and its n_k ranks
+split the k samples (``eval/sharded.py``); the per-sample scores are
+gathered in global row order onto every rank, and log Z is estimated on
+every rank from the same seed. The batch is rounded to split over the
+data shards (``_eval_batch_size``). With more than one data shard the
+noise differs from a one-process run's (the data index is folded into the
+batch seeds); a group of one scores as no group does, bit for bit.
+``posterior_activity`` and ``pixel_d_scores`` split each batch over the
+ranks and gather their outputs. This rule is the port's own: the
+reference's multi-host guard, which asks that a row of its device mesh lie
+within one process, has no counterpart with one process a card.
 """
 
 from __future__ import annotations
@@ -18,9 +33,12 @@ import torch
 
 from apv_tpu_torch.core.metrics import active_units, nats_to_bits_per_dim
 from apv_tpu_torch.data.datasets import load_dataset
+from apv_tpu_torch.data.pipeline import Batcher
 from apv_tpu_torch.data.preprocess import (normalize_center, static_binarize,
                                            to_unit_interval)
-from apv_tpu_torch.eval.iwae_eval import estimate_log_partition, make_iwae_fn
+from apv_tpu_torch.eval.iwae_eval import estimate_log_partition
+from apv_tpu_torch.parallel import multihost
+from apv_tpu_torch.parallel.mesh import make_grid_2d
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
 
@@ -65,15 +83,42 @@ def _divisor_chunk(k: int, chunk: int) -> int:
     return eff
 
 
-def _batches(cfg: Config, images: np.ndarray, batch_size: int):
-    """(x_in, x_target) numpy batches of ``batch_size`` rows, the last
-    partial batch dropped, as the reference's eval Batcher does."""
-    n_batches = len(images) // batch_size
-    if n_batches == 0:
+def _eval_batch_size(requested: int, n_rows: int, n_shards: int) -> int:
+    """The eval batch: capped by the split, rounded down to split over
+    ``n_shards`` data shards (``multihost.round_global_batch``); a split
+    too small for one such batch is refused, not scored as nothing."""
+    if n_rows == 0:
         raise ValueError("no images to score")
-    for i in range(n_batches):
-        yield _prep_eval_batch(cfg, images[i * batch_size:
-                                          (i + 1) * batch_size])
+    bs = multihost.round_global_batch(min(requested, n_rows), pcount=1,
+                                      n_shards=n_shards)
+    if bs > n_rows:
+        raise ValueError(
+            f"eval split has only {n_rows} rows but the smallest batch "
+            f"that splits over {n_shards} data shards is {bs}; raise "
+            "max_examples or evaluate on fewer ranks")
+    return bs
+
+
+def _batches(cfg: Config, images: np.ndarray, batch_size: int,
+             shard: tuple[int, int], dev):
+    """(x_in, x_target) batches of ``batch_size`` rows in order, the last
+    partial batch dropped, as the reference's eval Batcher does; with
+    ``shard=(d, n)`` the d-th of n contiguous parts of each. Each goes to
+    ``dev`` as the caller reaches it."""
+    batcher = Batcher({"image": images}, batch_size, shuffle=False,
+                      host_shard=shard)
+    for b in batcher.epoch():
+        x_in, x_target = _prep_eval_batch(cfg, b["image"])
+        yield torch.from_numpy(x_in).to(dev), torch.from_numpy(x_target).to(
+            dev)
+
+
+def _rank_batches(cfg: Config, images: np.ndarray, batch_size: int, dev):
+    """This rank's parts of the batches: one data shard a rank (all of
+    each batch without a group)."""
+    world = multihost.process_count()
+    bs = _eval_batch_size(batch_size, len(images), world)
+    return _batches(cfg, images, bs, (multihost.process_index(), world), dev)
 
 
 def posterior_activity(cfg: Config, model, images_u8: np.ndarray, *,
@@ -85,14 +130,16 @@ def posterior_activity(cfg: Config, model, images_u8: np.ndarray, *,
     (``cfg.eval.batch_size``, the last partial batch dropped)."""
     dev = resolve_device(device)
     model = model.to(dev)
-    bs = min(batch_size if batch_size is not None else cfg.eval.batch_size,
-             len(images_u8))
+    batches = _rank_batches(cfg, images_u8, batch_size if batch_size
+                            is not None else cfg.eval.batch_size, dev)
 
     def means():
         with torch.inference_mode():
-            for x_in, _ in _batches(cfg, images_u8, bs):
-                yield model.encode(torch.from_numpy(x_in).to(dev))[0] \
-                    .float().cpu().numpy()
+            for x_in, _ in batches:
+                m = model.encode(x_in)[0].float()
+                if multihost.process_count() > 1:
+                    m = multihost.all_gather_rows(m)
+                yield m.cpu().numpy()
 
     count, var = active_units(means(), threshold=threshold)
     return {"active_units": count, "z_dim": int(cfg.model.z_dim),
@@ -111,11 +158,15 @@ def pixel_d_scores(cfg: Config, pixel_d, images_u8: np.ndarray, *,
     batch dropped)."""
     dev = resolve_device(device)
     pixel_d = pixel_d.to(dev)
-    bs = min(batch_size if batch_size is not None else cfg.ood.batch_size,
-             len(images_u8))
+    batches = _rank_batches(cfg, images_u8, batch_size if batch_size
+                            is not None else cfg.ood.batch_size, dev)
+    scores = []
     with torch.inference_mode():
-        scores = [pixel_d(torch.from_numpy(x_target).to(dev)).float().cpu()
-                  for _, x_target in _batches(cfg, images_u8, bs)]
+        for _, x_target in batches:
+            s = pixel_d(x_target).float()
+            if multihost.process_count() > 1:
+                s = multihost.all_gather_rows(s)
+            scores.append(s.cpu())
     return torch.cat(scores).double().numpy()
 
 
@@ -136,7 +187,8 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
     default ``cfg.adversarial.enabled``; it needs the latent D ``d``), log Z
     is MC-estimated first (n=100k draws from the base the weights use, the
     current N(μ, σ) for the Gaussian base; jackknife SE). Batch ``i`` draws
-    its noise from a CPU generator seeded ``seed + i``.
+    its noise from a CPU generator seeded ``seed + i``. Under a process
+    group the ranks form the (data, k) grid of the module docstring.
 
     ``prior_moments`` (a fitted ex-post prior on ``device``: ``(mean,
     var)``, ``(log_w, means, vars)`` or a flow dict, as ``sampling.run``
@@ -183,18 +235,9 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
             log_z, log_z_se = estimate_log_partition(
                 d_apply, cfg.model.z_dim, seed=seed + 17, with_se=True,
                 device=dev, base_from=base_from)
-        iwae_fn = make_iwae_fn(model, cfg.model.likelihood, k, chunk,
-                               d_apply, prior_logpdf_p=prior_logpdf_p,
-                               prior_logpdf=prior_logpdf)
-        scores = []
-        for i, (x_in, x_target) in enumerate(_batches(cfg, images_u8,
-                                                      batch_size)):
-            gen = torch.Generator().manual_seed(seed + i)
-            ll = iwae_fn(torch.from_numpy(x_in).to(dev),
-                         torch.from_numpy(x_target).to(dev), log_z,
-                         generator=gen)
-            scores.append(ll.cpu())
-    scores = torch.cat(scores).double().numpy()
+        scores = _grid_scores(cfg, model, images_u8, k, chunk, d_apply,
+                              prior_logpdf_p, prior_logpdf, log_z, seed,
+                              batch_size, dev).double().numpy()
 
     h, w, c = cfg.model.image_shape
     nll = float(-scores.mean())
@@ -218,3 +261,32 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
     if per_sample:
         result["per_sample"] = scores
     return result
+
+
+def _grid_scores(cfg: Config, model, images_u8: np.ndarray, k: int,
+                 chunk: int, d_apply, prior_logpdf_p, prior_logpdf, log_z,
+                 seed: int, batch_size: int, dev) -> torch.Tensor:
+    """``evaluate_nll``'s per-sample scores, in global row order on every
+    rank (module docstring); without a group the grid is 1 × 1."""
+    from apv_tpu_torch.eval.sharded import make_sharded_iwae_fn
+    world = multihost.process_count()
+    n_k = min(cfg.eval.k_shards, world)
+    if world % n_k:
+        raise ValueError(f"eval.k_shards={cfg.eval.k_shards}: the k-axis "
+                         f"size {n_k} does not divide the {world} ranks")
+    grid = make_grid_2d(world // n_k, n_k)
+    iwae_fn = make_sharded_iwae_fn(model, cfg.model.likelihood, k, chunk,
+                                   grid, d_apply,
+                                   prior_logpdf_p=prior_logpdf_p,
+                                   prior_logpdf=prior_logpdf)
+    bs = _eval_batch_size(batch_size, len(images_u8), grid.n_data)
+    batches = _batches(cfg, images_u8, bs, (grid.data_index, grid.n_data),
+                       dev)
+    scores = torch.stack([iwae_fn(x_in, x_target, log_z, seed=seed + i)
+                          for i, (x_in, x_target) in enumerate(batches)])
+    scores = scores[None]                         # [1, n_batches, per]
+    if world > 1:
+        # [world, n_batches, per]: one row of ranks a data shard, the
+        # first rank of each row in data order
+        scores = multihost.all_gather_rows(scores)[::n_k]
+    return scores.transpose(0, 1).reshape(-1).cpu()

@@ -13,7 +13,8 @@ they ship as ``feature_params.npz`` beside this module (c_in 1 and 3,
 generated from ``apv_tpu.eval.sample_quality.feature_params(
 jax.random.PRNGKey(0), c)``; a test regenerates and compares them). So the
 port's numbers are in the same feature space as ``apv_tpu``'s. Other
-seeds raise.
+seeds raise. Under a process group every rank draws the same samples
+from the same seed and computes the same distances.
 """
 
 from __future__ import annotations

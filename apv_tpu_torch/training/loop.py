@@ -1,5 +1,5 @@
-"""The outer training loop on one card (counterpart of
-``apv_tpu/training/loop.py``).
+"""The outer training loop, on one card or one card a rank of a process
+group (counterpart of ``apv_tpu/training/loop.py``).
 
 The host cuts index (or row) batches with the ``Batcher``; with
 ``data.device_resident`` the whole train set is uploaded once and each step
@@ -33,7 +33,21 @@ resumed run line up with, as the reference's is. A second Ctrl-C stops at
 once and saves nothing, as does a KeyboardInterrupt that comes from
 inside a call's steps: either may leave a step half-applied.
 
-Not ported: multi-card runs.
+Under a process group (``parallel/multihost.py``, one process a card) every
+rank runs this loop: after init or restore the state is broadcast from
+rank 0; each rank cuts its rows of every global batch (``Batcher(
+host_shard=...)``; with ``data.device_resident`` every rank uploads the
+whole train set and cuts its index rows) and the step averages the
+gradients. Only rank 0 writes: checkpoints, ``best/``, ``best.json``,
+``config.json``, ``metrics.jsonl`` and the clearing of ``overwrite``. The
+stale-run refusal is agreed (``agree_max``) so that every rank raises or
+none does; the valid batches are rounded to split over the ranks and their
+means averaged; the logged metrics are group means, reduced once a call in
+one stacked tensor; Ctrl-C is agreed after each call (one ``all_reduce``
+when there is more than one rank), so the ranks stop at the same call
+boundary. The loop ends with a barrier: rank 0's last checkpoint exists
+before any rank returns. A second Ctrl-C, which stops at once, leaves the
+other ranks to their collectives' time-outs.
 """
 
 from __future__ import annotations
@@ -49,8 +63,10 @@ import numpy as np
 import torch
 
 from apv_tpu_torch.data.datasets import load_dataset
-from apv_tpu_torch.data.pipeline import Batcher, stack_batches
+from apv_tpu_torch.data.pipeline import (Batcher, prefetch_to_device,
+                                         stack_batches)
 from apv_tpu_torch.data.preprocess import pack_bits, static_binarize
+from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.training.step import make_train_fns
 from apv_tpu_torch.utils import checkpoint as ckpt
@@ -115,19 +131,53 @@ class _CallBoundaryInterrupt:
         return False
 
 
-def _to_device(arrays: dict[str, np.ndarray], dev) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in arrays.items()}
-
-
 def _valid_batches(cfg: Config, valid_arrays, dev) -> list[dict] | None:
     """The valid split as unshuffled batches on the device (the train
-    batch size, or the whole split when it is smaller)."""
+    batch size, or the whole split when it is smaller, rounded to split
+    over the ranks), this rank's rows of each."""
     if valid_arrays is None:
         return None
     n = len(next(iter(valid_arrays.values())))
-    vb = Batcher(valid_arrays, min(cfg.train.batch_size, n), shuffle=False)
-    return [_to_device(b, dev) for b in vb.epoch()]
+    vbs = multihost.round_global_batch(min(cfg.train.batch_size, n))
+    if vbs > n:
+        print(f"warning: validation disabled: the valid split ({n} rows) "
+              f"is smaller than a batch that splits over "
+              f"{multihost.process_count()} ranks", flush=True)
+        return None
+    vb = Batcher(valid_arrays, vbs, shuffle=False,
+                 host_shard=multihost.host_shard())
+    return [multihost.put_batch(b, dev) for b in vb.epoch()]
+
+
+def broadcast_state(state: TrainState, src: int = 0) -> None:
+    """Copy rank ``src``'s state into every rank's, in place: the step,
+    the seed, the parameters and buffers of the VAE, D and the EMA shadow,
+    and both optimizers' counts, micro-steps, moments and accumulators."""
+    opts = [o for o in (state.opt, state.d_opt) if o is not None]
+    ints = [state.step, state.seed]
+    for o in opts:
+        ints += [o.count, o.mini_step]
+    multihost.broadcast_(state.tensors(), src)
+    ints = multihost.broadcast_ints(ints, src)
+    state.step, state.seed = ints[:2]
+    for i, o in enumerate(opts):
+        o.count, o.mini_step = ints[2 + 2 * i:4 + 2 * i]
+
+
+def _group_means(records: list[dict], dev) -> list[dict]:
+    """The tensor metrics of ``records`` averaged over the group in one
+    stacked all-reduce (Python numbers are the same on every rank)."""
+    keys = [(i, k) for i, r in enumerate(records) for k, v in r.items()
+            if torch.is_tensor(v)]
+    if not keys:
+        return records
+    stacked = torch.stack([records[i][k].detach().to(dev, torch.float32)
+                           for i, k in keys])
+    multihost.average_([stacked])
+    out = [dict(r) for r in records]
+    for (i, k), v in zip(keys, stacked):
+        out[i][k] = v
+    return out
 
 
 def train_loop(cfg: Config, *, max_steps: int | None = None,
@@ -147,21 +197,28 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
     dev = fns.device
     results_dir = Path(cfg.results_dir) / cfg.name
     ckpt_dir = results_dir / "checkpoints"
-    if not resume and (ckpt.latest_step(ckpt_dir) is not None
-                       or (results_dir / "metrics.jsonl").exists()):
+    primary = multihost.process_index() == 0
+    sync = multihost.active()
+    # what this rank sees: a checkpoint's step, 0 for a metrics file alone
+    seen = ckpt.latest_step(ckpt_dir)
+    if seen is None and (results_dir / "metrics.jsonl").exists():
+        seen = 0
+    if not resume and multihost.agree_max(seen) is not None:
         if not overwrite:
             raise FileExistsError(
                 f"{results_dir} already holds a run (checkpoint step "
                 f"{ckpt.latest_step(ckpt_dir)}). Pass resume=True to "
                 "continue it, overwrite=True to clear it, or choose "
                 "another cfg.name to keep both")
-        shutil.rmtree(results_dir)
+        if primary:
+            shutil.rmtree(results_dir, ignore_errors=True)
 
     state = fns.init_fn(cfg.train.seed)
-    start = 0
     if resume and ckpt.latest_step(ckpt_dir) is not None:
         ckpt.restore_checkpoint(ckpt_dir, state)
-        start = state.step
+    if sync:
+        broadcast_state(state)
+    start = state.step
 
     k = cfg.train.steps_per_call
     if k > 1:
@@ -185,19 +242,22 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
         train_arrays, valid_arrays = load_train_arrays(cfg)
     if cfg.data.device_resident:
         n_rows = len(next(iter(train_arrays.values())))
-        dataset = _to_device(train_arrays, dev)
+        dataset = multihost.put_batch(train_arrays, dev)
         resident = make_resident_step(fns.train_step)
 
         def step_fn(s, b):
             return resident(s, b, dataset)
 
         batcher = Batcher({"_index": np.arange(n_rows, dtype=np.int64)},
-                          cfg.train.batch_size, seed=cfg.train.seed)
+                          cfg.train.batch_size, seed=cfg.train.seed,
+                          host_shard=multihost.host_shard())
     else:
         step_fn = fns.train_step
         batcher = Batcher(train_arrays, cfg.train.batch_size,
-                          seed=cfg.train.seed)
-    calls = stack_batches(batcher.iter_from(start), k)
+                          seed=cfg.train.seed,
+                          host_shard=multihost.host_shard())
+    calls = prefetch_to_device(stack_batches(batcher.iter_from(start), k),
+                               dev)
     valid_batches = _valid_batches(cfg, valid_arrays, dev)
 
     logger = MetricLogger(results_dir, log_every=cfg.train.log_every,
@@ -214,7 +274,13 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
         for b in valid_batches:
             for name, v in fns.eval_step(state, b).items():
                 sums[name] = sums.get(name, 0.0) + float(v)
-        return {name: v / len(valid_batches) for name, v in sums.items()}
+        means = {name: v / len(valid_batches) for name, v in sums.items()}
+        if sync:
+            names = sorted(means)
+            t = multihost.all_reduce(torch.tensor(
+                [means[n] for n in names], dtype=torch.float64, device=dev))
+            means = dict(zip(names, (t / multihost.process_count()).tolist()))
+        return means
 
     interrupt = _CallBoundaryInterrupt()
     in_call = False                       # inside a call's k steps
@@ -223,8 +289,7 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
         with interrupt:
             for base in range(start, stop, k):
                 logger.maybe_trace(base, stride=k)
-                stacked = {kk: torch.from_numpy(v).to(dev)
-                           for kk, v in next(calls).items()}
+                stacked = next(calls)
                 step_metrics = []
                 in_call = True
                 for i in range(k):
@@ -232,8 +297,13 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
                                                for kk, v in stacked.items()})
                     step_metrics.append(m)
                 in_call = False
-                for i, m in enumerate(step_metrics):
-                    logger.log(base + i, m)
+                logged = [(base + i, m) for i, m in enumerate(step_metrics)
+                          if (base + i) % logger.log_every == 0]
+                if sync and logged:
+                    logged = list(zip([s for s, _ in logged], _group_means(
+                        [m for _, m in logged], dev)))
+                for step, m in logged:
+                    logger.log(step, m)
                 done = base + k                   # steps taken so far
                 if valid_batches and cfg.train.eval_every > 0 \
                         and done % cfg.train.eval_every == 0:
@@ -241,13 +311,18 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
                     logger.log_now(done, vm)
                     if vm["valid_elbo"] > best_valid_elbo:
                         best_valid_elbo = vm["valid_elbo"]
-                        ckpt.save_checkpoint(results_dir / "best", state,
-                                             done)
+                        if primary:
+                            ckpt.save_checkpoint(results_dir / "best",
+                                                 state, done)
                         logger.write_json("best.json", {"step": done, **vm})
                 if done % cfg.train.checkpoint_every == 0 or done == stop:
-                    ckpt.save_checkpoint(ckpt_dir, state, done)
+                    if primary:
+                        ckpt.save_checkpoint(ckpt_dir, state, done)
                     saved = done
-                if interrupt.requested:
+                stop_now = interrupt.requested
+                if multihost.process_count() > 1:
+                    stop_now = bool(multihost.agree_max(int(stop_now)))
+                if stop_now:
                     raise KeyboardInterrupt
     except KeyboardInterrupt:
         if interrupt.forced or in_call:
@@ -255,11 +330,12 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
                   "saved, --resume continues from step "
                   f"{ckpt.latest_step(ckpt_dir) or 0}", flush=True)
         else:
-            if saved != state.step:
+            if saved != state.step and primary:
                 ckpt.save_checkpoint(ckpt_dir, state, state.step)
             print(f"interrupted at step {state.step}; checkpoint saved, "
                   "resume with --resume", flush=True)
         raise
     finally:
         logger.close()
+    multihost.barrier()
     return state

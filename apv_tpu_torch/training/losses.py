@@ -155,31 +155,40 @@ def discriminator_loss(d_logits_q: torch.Tensor, d_logits_p: torch.Tensor,
     return loss, acc
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def free_bits_kl(mean: torch.Tensor, logvar: torch.Tensor,
-                 free_bits: float) -> torch.Tensor:
+                 free_bits: float, batch_mean: Callable = _identity
+                 ) -> torch.Tensor:
     """Free-bits KL objective (Kingma et al., IAF appendix C.8): the
     batch-mean per-dimension KL floored at ``free_bits`` nats before the
     sum, Σ_j max(λ, E_B[KL_j]). A scalar; the reported metrics keep the
-    true KL."""
-    kd = D.gaussian_kl_standard(mean, logvar).mean(dim=0)
+    true KL. ``batch_mean`` maps this batch's means to the global batch's
+    (the data-parallel step's group mean)."""
+    kd = batch_mean(D.gaussian_kl_standard(mean, logvar).mean(dim=0))
     return torch.sum(torch.clamp_min(kd, free_bits))
 
 
 def free_bits_kl_gaussian_base(mean: torch.Tensor, logvar: torch.Tensor,
                                mu_p: torch.Tensor, logvar_p: torch.Tensor,
-                               free_bits: float) -> torch.Tensor:
+                               free_bits: float,
+                               batch_mean: Callable = _identity
+                               ) -> torch.Tensor:
     """``free_bits_kl`` against the trainable Gaussian base N(μ_p, σ_p²):
     its analytic KL splits per dimension, so the floor is exact. A floored
     dimension passes no gradient to the encoder nor to the base."""
-    kd = D.gaussian_kl(mean, logvar, mu_p, logvar_p).mean(dim=0)
+    kd = batch_mean(D.gaussian_kl(mean, logvar, mu_p, logvar_p).mean(dim=0))
     return torch.sum(torch.clamp_min(kd, free_bits))
 
 
 def free_information_kl(kl_mc: torch.Tensor, z_dim: int,
-                        free_bits: float) -> torch.Tensor:
+                        free_bits: float, batch_mean: Callable = _identity
+                        ) -> torch.Tensor:
     """Total-KL floor for the flow prior, whose MC KL log q − log p_θ does
     not split per dimension: max(E_B[KL], z_dim·λ) ("free information")."""
-    return torch.clamp_min(kl_mc.mean(), z_dim * free_bits)
+    return torch.clamp_min(batch_mean(kl_mc.mean()), z_dim * free_bits)
 
 
 class _ScaleGrad(torch.autograd.Function):

@@ -52,6 +52,19 @@ class TrainState:
             out["ema_model"] = self.ema_model.state_dict()
         return out
 
+    def tensors(self) -> list:
+        """Every tensor of the state, in one order: the parameters and
+        buffers of the VAE, D and the EMA shadow, then both optimizers'
+        moments and accumulators (the tensors share storage with the
+        state's)."""
+        mods = [m for m in (self.model, self.d, self.ema_model)
+                if m is not None]
+        out = [t for m in mods for t in m.state_dict().values()]
+        for o in (self.opt, self.d_opt):
+            if o is not None:
+                out += o.mu + o.nu + (o.acc or [])
+        return out
+
     def load_state_dict(self, saved: dict) -> None:
         """Copy a ``state_dict`` into this state's tensors in place."""
         if (self.d is None) != ("d" not in saved):

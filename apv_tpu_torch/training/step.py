@@ -54,6 +54,21 @@ iterations). ``train.ema_decay`` d keeps the VAE's Polyak average in
 ``state.ema_model``, e ← d·e + (1 − d)·θ once per micro-step after the D
 phases; validation reads the raw parameters.
 
+Data parallelism: under a process group (``parallel/multihost.py``) each
+rank runs the step on its rows of the global batch, and the step averages
+each phase's gradients over the group in one flattened float32 bucket
+between ``torch.autograd.grad`` and the optimizer, the counterpart of the
+all-reduce XLA inserts: clip, Adam and ``grad_norm`` see the global
+gradient. The floor-adaptive factors come from the group mean of the D
+losses, carried in D's bucket, as the reference's global-batch loss gives
+them: a factor from the local loss would let the replicas drift apart.
+The statistics that the loss takes of a whole batch before a nonlinearity
+(the free-bits floors, the dispersion penalty's mean norms) are replaced
+by their group means with the gradient passed through to the local ones,
+so the averaged gradient is the global batch's. With more than one rank
+the rank is folded into each step's generator (and the eval step's), so
+the ranks draw distinct noise; a group of one draws what no group draws.
+
 The combinations the reference refuses raise ``ValueError``.
 """
 
@@ -70,6 +85,7 @@ from apv_tpu_torch.data.preprocess import (normalize_center,
                                            uniform_dequantize, unpack_bits)
 from apv_tpu_torch.models import (build_model, latent_d_params,
                                   make_discriminators)
+from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.training import losses as L
 from apv_tpu_torch.training.optim import (ClippedAdam, constant,
                                           cosine_decay, warmup_cosine_decay)
@@ -154,11 +170,41 @@ def _beta(cfg: Config, step: int) -> float:
     return beta
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of one step's noise: a function of (seed, step)."""
-    words = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+def step_generator(seed: int, step: int,
+                   rank: int | None = None) -> torch.Generator:
+    """The CPU generator of one step's noise: a function of (seed, step),
+    and of the rank when one is given (data parallelism over more than one
+    rank)."""
+    entropy = [seed, step] + ([] if rank is None else [rank])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator().manual_seed((int(words[0]) << 32)
                                          | int(words[1]))
+
+
+class _GroupMean(torch.autograd.Function):
+    """Forward: the group mean of a batch statistic; backward: the
+    gradient passed to the local statistic unchanged, so the gradients
+    averaged over the group are those of the global statistic."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return multihost.group_mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def group_batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a mean over this rank's rows, as the global batch's mean
+    (``t`` itself without a process group)."""
+    return _GroupMean.apply(t) if multihost.active() else t
+
+
+def sync_d(grads: list[torch.Tensor], losses: list[torch.Tensor]) -> None:
+    """Average D's gradients and the detached losses of its throttle over
+    the group, in place, in one bucket."""
+    multihost.average_(grads + losses)
 
 
 def _loss_scale(cfg: Config) -> float:
@@ -256,21 +302,23 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
         per_sample = per_sample + cfg.adversarial.pixel_weight * px_term
         aux["g_px"] = px_term.mean()
         aux["x_hat"] = x_hat.detach()
+    gm = group_batch_mean
     if t.free_bits > 0.0:
         if prior == "gaussian":
             kl_obj = L.free_bits_kl_gaussian_base(mean, logvar, mu_p,
-                                                  logvar_p, t.free_bits)
+                                                  logvar_p, t.free_bits, gm)
         elif prior == "flow":
-            kl_obj = L.free_information_kl(kl, cfg.model.z_dim, t.free_bits)
+            kl_obj = L.free_information_kl(kl, cfg.model.z_dim, t.free_bits,
+                                           gm)
         else:
-            kl_obj = L.free_bits_kl(mean, logvar, t.free_bits)
+            kl_obj = L.free_bits_kl(mean, logvar, t.free_bits, gm)
     else:
         kl_obj = kl.mean()
     objective = per_sample.mean() - beta * kl_obj
     if prior == "flow" and t.flow_dispersion_penalty > 0.0:
         z_s = model.prior_sample_from(draw_u(z.shape))
-        m_s = torch.sum(z_s.square(), dim=-1).mean()
-        m_q = torch.sum(z.detach().square(), dim=-1).mean()
+        m_s = gm(torch.sum(z_s.square(), dim=-1).mean())
+        m_q = gm(torch.sum(z.detach().square(), dim=-1).mean())
         excess = torch.clamp_min(m_s / m_q - 1.0, 0.0)
         objective = objective - t.flow_dispersion_penalty * excess.square()
         aux["flow_dispersion"] = (m_s / m_q).detach()
@@ -343,6 +391,9 @@ def make_train_fns(cfg: Config, *, device=None,
 
     ema_decay = cfg.train.ema_decay
     throttle = adv and a.d_lr_schedule == "floor_adaptive"
+    sync = multihost.active()          # average gradients over the group
+    fold = (multihost.process_index() if multihost.process_count() > 1
+            else None)                 # the rank in each step's generator
 
     def init_fn(seed: int) -> TrainState:
         model = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
@@ -389,6 +440,8 @@ def make_train_fns(cfg: Config, *, device=None,
                                       else normal(shape, gen)), px=px)
         x_hat = aux.pop("x_hat", None)
         grads = torch.autograd.grad(loss, state.opt.params)
+        if sync:
+            multihost.average_(list(grads))
         grad_norm = state.opt.step(grads)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
@@ -415,14 +468,18 @@ def make_train_fns(cfg: Config, *, device=None,
                     x_target.shape[-1])
         total, metrics = d_objective(cfg, state.d, z_q, z_p, x_target,
                                      x_hat)
-        grads = torch.autograd.grad(total, state.d_opt.params)
+        grads = list(torch.autograd.grad(total, state.d_opt.params))
+        # the throttle's losses: the group's means under a process group
+        losses = ([metrics[n].detach().clone() for n in ("d_loss", "px_d_loss")
+                   if n in metrics] if throttle else [])
+        if sync:
+            sync_d(grads, losses)
         scales = None
         if throttle:
             # one factor a D, each from its own loss, on the device
-            metrics["d_lr_factor"] = f = d_lr_factor(cfg, metrics["d_loss"])
+            metrics["d_lr_factor"] = f = d_lr_factor(cfg, losses[0])
             if biadv:
-                metrics["px_d_lr_factor"] = pf = d_lr_factor(
-                    cfg, metrics["px_d_loss"])
+                metrics["px_d_lr_factor"] = pf = d_lr_factor(cfg, losses[1])
                 scales = ([f for _ in state.d["latent"].parameters()]
                           + [pf for _ in state.d["pixel"].parameters()])
             else:
@@ -443,7 +500,7 @@ def make_train_fns(cfg: Config, *, device=None,
             raise ValueError("train_step: noise is accepted only on the CPU; "
                              "on CUDA the kernels draw it")
         noise = noise or {}
-        gen = step_generator(state.seed, state.step)
+        gen = step_generator(state.seed, state.step, fold)
         x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen),
                                        noise.get("u"))
         beta = _beta(cfg, state.step)
@@ -481,7 +538,7 @@ def make_train_fns(cfg: Config, *, device=None,
     def eval_step(state: TrainState, batch: dict) -> dict:
         """Single-sample ELBO on a batch; deterministic in (seed, batch).
         With a trained prior the KL is the MC log q(z|x) − log p_θ(z)."""
-        gen = step_generator(state.seed, 0x7FFFFFFF)
+        gen = step_generator(state.seed, 0x7FFFFFFF, fold)
         x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen))
         model = state.model
         with torch.no_grad():

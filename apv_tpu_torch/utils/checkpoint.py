@@ -26,6 +26,11 @@ existed) or with an empty one seeds a wanted shadow from the parameters,
 and a saved shadow is dropped by a state without one. ``import_orbax``
 writes ``step_<n>.pt`` beside each orbax step, for machines without
 tensorstore. Pruning after a save deletes only the port's own files.
+
+Under a process group only rank 0 saves (the training loop calls
+``save_checkpoint`` there alone) and every rank restores from the shared
+directory; the loop then broadcasts rank 0's state, so a rank that cannot
+see the directory still starts from it.
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ first call boundary past its last, then writes a Chrome trace
 ``trace_steps_<a>-<b>.json`` (absolute steps) into ``trace_dir``. A run
 that ends inside the window writes it in ``close()``. The CUDA activity is
 traced when ``trace_cuda``.
+
+Under a process group only rank 0 creates the dir, writes ``metrics.jsonl``
+and the JSON files and prints: the other ranks' records (group means, the
+loop reduces them) would be copies. ``images_per_sec`` counts the global
+batch over the group, ``images_per_sec_per_chip`` that over the ranks.
+Every rank traces its own window, into ``trace_steps_<a>-<b>.rank<r>.json``
+when the group has more than one rank.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import json
 import time
 from pathlib import Path
 
+from apv_tpu_torch.parallel import multihost
+
 
 class MetricLogger:
     def __init__(self, results_dir: str | Path, *, log_every: int = 100,
@@ -29,7 +38,10 @@ class MetricLogger:
                  trace_steps: tuple[int, int] = (10, 15),
                  trace_offset: int = 0, trace_cuda: bool = False):
         self.dir = Path(results_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.primary = multihost.process_index() == 0
+        self.world = multihost.process_count()
+        if self.primary:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.path = self.dir / "metrics.jsonl"
         self.log_every = log_every
         self.batch_size = batch_size
@@ -63,8 +75,10 @@ class MetricLogger:
         self._prof.stop()
         self.trace_dir.mkdir(parents=True, exist_ok=True)
         a, b = self.trace_steps
+        rank = (f".rank{multihost.process_index()}" if self.world > 1
+                else "")
         self._prof.export_chrome_trace(
-            str(self.trace_dir / f"trace_steps_{a}-{b}.json"))
+            str(self.trace_dir / f"trace_steps_{a}-{b}{rank}.json"))
         self._prof, self.trace_dir = None, None          # one window
 
     def close(self) -> None:
@@ -73,7 +87,7 @@ class MetricLogger:
             self._stop_trace()
 
     def log(self, step: int, metrics: dict) -> None:
-        if step % self.log_every != 0:
+        if step % self.log_every != 0 or not self.primary:
             return
         record = {"step": step}
         record.update({k: float(v) for k, v in metrics.items()})
@@ -82,13 +96,18 @@ class MetricLogger:
             dt = (now - self._last_time) / (step - self._last_step)
             record["step_time_s"] = dt
             if self.batch_size:
-                # the single-card path: per chip = per run
-                record["images_per_sec_per_chip"] = self.batch_size / dt
+                # batch_size is the global batch, over the group's cards
+                record["images_per_sec_per_chip"] = (self.batch_size / dt
+                                                     / self.world)
+                if self.world > 1:
+                    record["images_per_sec"] = self.batch_size / dt
         self._last_time, self._last_step = now, step
         self._write(record)
 
     def log_now(self, step: int, metrics: dict) -> None:
         """One record whatever ``log_every`` says (validation results)."""
+        if not self.primary:
+            return
         self._write({"step": step,
                      **{k: float(v) for k, v in metrics.items()}})
 
@@ -100,5 +119,7 @@ class MetricLogger:
         print("  ".join(parts), flush=True)
 
     def write_json(self, name: str, obj) -> None:
+        if not self.primary:
+            return
         with open(self.dir / name, "w") as f:
             json.dump(obj, f, indent=2, default=str)

@@ -152,6 +152,22 @@ Phases, one JSON line each:
      child as phase 20 begins. The export (trace, save) and load
      seconds, ms an artifact call against the in-process call, and
      whether tensorstore imports here.
+ 23. distributed: data parallelism over torch.distributed on the one
+     card, its children started before phase 14 and collected after 22:
+     (a) `apv-torch train --distributed` of the flagship at full width as
+     a world of one over NCCL (APV_COORDINATOR=127.0.0.1:<free port>,
+     APV_NUM_PROCESSES=1, APV_PROCESS_ID=0), 8 steps under cuDNN's
+     deterministic algorithms, its checkpoint equal bit for bit to the
+     same 8 steps without a group in this process; (b) two ranks sharing
+     the card over gloo, 128 rows each of the global batch of 256, 8
+     steps through train_loop: the replicas equal bit for bit, the
+     losses finite, each rank's launches; (c) on those ranks the
+     k-sharded IWAE (eval.k_shards=2: k=1000 in two shards of 20 chunks
+     of 25, 64 images) equal to this process's evaluate_nll of rank 0's
+     checkpoint with the same seed within rtol 1e-5. ms a step from the
+     runs' loggers (calls of one step, each logged). The synthetic sets
+     are cut to 4,096 images a split.
+     NCCL refuses two ranks on one card: no run here has two cards.
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the paths that did not launch fails the run.
 The likelihood forwards' launches on the paths by (rows, x rows, E) are a
@@ -259,6 +275,12 @@ TIMED_STEPS = 48           # a timed rerun: five logged calls of 8 steps
 FRONT_STEPS = (16, 8)      # the CLI's train, then its resume
 FRONT_SYNTHETIC = 4_096    # the CLI runs' synthetic images a split
 BIADV_STEPS = 24           # the biadversarial flagship: three calls of 8
+DIST_STEPS = 8              # phase 23's runs: one call of 8
+DIST_SYNTHETIC = 4_096      # their synthetic sets, a split
+DIST_K = (1000, 25, 2)      # the k-sharded IWAE: k, chunk, k-shards
+DIST_EXTRA: tuple = ()      # overrides of phase 23's runs (none on the card)
+DIST_SETS = ("train.steps_per_call=1", "train.log_every=1",
+             f"data.synthetic_size={DIST_SYNTHETIC}")
 BIADV = ("adversarial.variant=biadversarial", "adversarial.r1_gamma=1.0",
          "adversarial.d_spectral_norm=true")
 
@@ -1848,6 +1870,24 @@ finally:
 """
 
 
+# CLI_CHILD with TF32 off and cuDNN's deterministic algorithms, as this
+# script runs the comparison (phase 23 (a)).
+DIST_CHILD = """\
+import json, os, runpy
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from apv_tpu_torch.ops import kernels as K
+K.reset_launches()
+try:
+    runpy.run_module("apv_tpu_torch.cli", run_name="__main__", alter_sys=True)
+finally:
+    with open(os.environ["APV_LAUNCHES_OUT"], "w") as f:
+        json.dump(dict(K.launches), f)
+"""
+
+
 # A child running the CLI's main() on each argv of the JSON list in argv[1]
 # in turn, each command's output closed by a NO_CUDA_END line; last, whether
 # CUDA was initialized.
@@ -1866,17 +1906,18 @@ print(json.dumps({"cuda_initialized": torch.cuda.is_initialized()}))
 
 
 def start_cli(args: list[str], tmp: str, *, tag: str,
-              child: str = CLI_CHILD, no_cuda: bool = False) -> dict:
+              child: str = CLI_CHILD, no_cuda: bool = False,
+              env_add: dict | None = None) -> dict:
     """Start ``child`` (CLI_CHILD: the CLI, with its launch counts) with
     ``args`` in a process from this checkout, its output into files under
     ``tmp`` named by ``tag``; ``no_cuda`` hides every CUDA device from
-    it."""
-    env = dict(os.environ)
+    it; ``env_add`` adds to its environment."""
+    env = dict(os.environ, **(env_add or {}))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     if no_cuda:
         env["CUDA_VISIBLE_DEVICES"] = ""
-    count = child is CLI_CHILD
+    count = child in (CLI_CHILD, DIST_CHILD)
     counts = Path(tmp) / f"launches_{tag}.json"
     env["APV_LAUNCHES_OUT"] = str(counts)
     cmd = [sys.executable, "-c", child, *args]
@@ -2019,6 +2060,197 @@ def front_door_phase(dev) -> dict:
         emit("front_door", launches=total, wall_s=walls,
              trace_bytes=len(blob), traced_kernels=traced,
              evaluate=results, synthetic_size=FRONT_SYNTHETIC)
+    return total
+
+
+PER_CIFAR_STEP = {"reparam": 1, "kl": 1, "disc_logistic": 1,
+                  "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
+
+
+def dist_config(results_dir: str, name: str, *extra: str):
+    """The flagship as phase 23 runs it: full width, the cut synthetic
+    set, calls of one step, each logged (the logger's step time)."""
+    from apv_tpu_torch import apply_overrides, get_preset
+    return apply_overrides(get_preset("cifar_advprior_resnet"), [
+        f"results_dir={results_dir}", f"name={name}", *DIST_SETS, *extra])
+
+
+def dist_images() -> np.ndarray:
+    return np.random.default_rng(SEED + 23).integers(
+        0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+
+
+def dist_eval_config(n_k: int, *extra: str):
+    from apv_tpu_torch import apply_overrides, get_preset
+    return apply_overrides(get_preset("iwae_eval"),
+                           [f"eval.k_shards={n_k}", *extra])
+
+
+def step_ms(cfg) -> float:
+    """ms a step from a run's logger (from step 1: step 0 has no time)."""
+    return 1e3 * float(np.mean([r["step_time_s"] for r in read_metrics(cfg)
+                                if "step_time_s" in r]))
+
+
+def dist_rank(tmp: str, device: str, k: int, chunk: int, n_k: int,
+              *extra: str) -> None:
+    """Phase 23 (b, c) on one of two ranks sharing the card over gloo
+    (started by ``start_distributed``, which hands it DIST_K and
+    DIST_EXTRA): 8 steps through train_loop, the replicas compared, then
+    evaluate_nll with eval.k_shards=n_k; the rank's results to
+    ``<tmp>/rank<r>.json``."""
+    from apv_tpu_torch import evaluate_nll, train_loop
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.parallel import multihost
+    from apv_tpu_torch.parallel.dryrun import replicas_equal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = multihost.process_index()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = dist_config(tmp, "dist_w2", *extra)
+    K.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_loop(cfg, max_steps=DIST_STEPS, device=dev)
+    sync()
+    out = {"rank": rank, "train_launches": dict(K.launches),
+           "replicas_equal": replicas_equal(state)}
+    K.reset_launches()
+    res = evaluate_nll(dist_eval_config(n_k, *extra), state.model, state.d,
+                       dist_images(), k=k, chunk=chunk, batch_size=BATCH,
+                       per_sample=True, seed=SEED, device=dev)
+    sync()
+    out.update(eval_launches=dict(K.launches),
+               per_sample=res["per_sample"].tolist(),
+               log_partition=res["log_partition"])
+    if rank == 0:
+        out["ms_per_step"] = step_ms(cfg)
+        out["losses"] = [r["loss"] for r in read_metrics(cfg) if "loss" in r]
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_distributed(tmp: str) -> dict:
+    """Phase 23's children: (a) the CLI's world of one over NCCL, (b, c)
+    the two gloo ranks."""
+    from apv_tpu_torch.parallel.dryrun import start_ranks
+    import atexit
+    w1 = str(Path(tmp) / "dist_w1")
+    sets = [a for o in (f"results_dir={w1}", "name=dist_w1", *DIST_SETS,
+                        *DIST_EXTRA) for a in ("--set", o)]
+    world1 = start_cli(
+        ["train", "--distributed", "--preset", "cifar_advprior_resnet",
+         "--max-steps", str(DIST_STEPS), "--device", DEVICE, *sets], tmp,
+        tag="dist_w1", child=DIST_CHILD, env_add={
+            "APV_COORDINATOR": f"127.0.0.1:{free_port()}",
+            "APV_NUM_PROCESSES": "1", "APV_PROCESS_ID": "0"})
+    w2 = Path(tmp) / "dist_w2"
+    w2.mkdir()
+    ranks = start_ranks(2, "chip_smoke:dist_rank", str(w2), DEVICE,
+                        *DIST_K, *DIST_EXTRA, device=DEVICE,
+                        backend="gloo", paths=(str(ROOT),))
+    h = {"world1": world1, "ranks": ranks, "w1": w1, "w2": w2}
+    atexit.register(stop_distributed, h)     # a phase before 23 may fail
+    return h
+
+
+def stop_distributed(h: dict) -> None:
+    """Kill phase 23's children where they still run (a failed run)."""
+    for p in [h["world1"]["proc"], *h["ranks"]["procs"]]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def distributed_phase(tmp: str, dev, h: dict) -> dict:
+    """Phase 23 (module docstring): collects ``start_distributed``'s
+    children and runs their comparisons here."""
+    from apv_tpu_torch import (evaluate_nll, make_train_fns,
+                               restore_checkpoint, train_loop)
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.parallel.dryrun import finish_ranks
+    t0 = time.perf_counter()
+    total = expected(K)
+
+    def add(name, got, want):
+        check(got == want, f"distributed {name} launches {got}, want {want}")
+        for n in total:
+            total[n] += got[n]
+
+    per_run = expected(K, **{n: DIST_STEPS * c
+                             for n, c in PER_CIFAR_STEP.items()})
+    # (a) the world of one against no group, here
+    out, launches, wall_w1 = finish_cli(h["world1"], timeout=300)
+    check(f"trained to step {DIST_STEPS}" in out, f"distributed (a): {out}")
+    add("(a) child", launches, per_run)
+    cfg_a = dist_config(h["w1"], "dist_w1", *DIST_EXTRA)
+    cfg_ref = dist_config(str(Path(tmp) / "dist_ref"), "dist_w1",
+                          *DIST_EXTRA)
+    with deterministic_cudnn(), contextlib.redirect_stdout(io.StringIO()):
+        ref = train_loop(cfg_ref, max_steps=DIST_STEPS, device=dev)
+    torch.cuda.synchronize()
+    add("(a) without a group", dict(K.launches), per_run)
+    K.reset_launches()
+    fns = make_train_fns(cfg_a, device=dev)
+    child = restore_checkpoint(Path(h["w1"]) / "dist_w1" / "checkpoints",
+                               fns.init_fn(cfg_a.train.seed))
+    check(child.step == DIST_STEPS and states_equal(child, ref),
+          "distributed (a): the world of one over NCCL differs from the "
+          "run without a group")
+    # (b, c) the two gloo ranks
+    finish_ranks(h["ranks"], timeout=300)
+    ranks = [json.loads((h["w2"] / f"rank{r}.json").read_text())
+             for r in range(2)]
+    k, chunk, n_k = DIST_K
+    for r in ranks:
+        check(r["replicas_equal"], f"distributed (b): rank {r['rank']}'s "
+              "replica differs")
+        add(f"(b) rank {r['rank']}", r["train_launches"], per_run)
+        add(f"(c) rank {r['rank']}", r["eval_launches"],
+            expected(K, reparam=k // n_k // chunk,
+                     disc_logistic=k // n_k // chunk))
+    check(len(ranks[0]["losses"]) == DIST_STEPS
+          and all(math.isfinite(v) for v in ranks[0]["losses"]),
+          f"distributed (b): losses {ranks[0]['losses']}")
+    cfg_b = dist_config(str(h["w2"]), "dist_w2", *DIST_EXTRA)
+    fns = make_train_fns(cfg_b, device=dev)
+    st = restore_checkpoint(h["w2"] / "dist_w2" / "checkpoints",
+                            fns.init_fn(cfg_b.train.seed))
+    res = evaluate_nll(dist_eval_config(1, *DIST_EXTRA), st.model, st.d,
+                       dist_images(), k=k, chunk=chunk, batch_size=BATCH,
+                       per_sample=True, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    add("(c) one process", dict(K.launches),
+        expected(K, reparam=k // chunk, disc_logistic=k // chunk))
+    want = np.asarray(res["per_sample"])
+    got = np.asarray(ranks[0]["per_sample"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(ranks[1]["per_sample"] == ranks[0]["per_sample"]
+          and ranks[0]["log_partition"] == res["log_partition"]
+          and rel <= 1e-5, f"distributed (c): the k-sharded IWAE is off "
+          f"the one-process run by {rel} (rtol 1e-5); log Z "
+          f"{ranks[0]['log_partition']} vs {res['log_partition']}")
+    emit("distributed", launches=total, steps=DIST_STEPS,
+         world1_nccl_bit_exact=True, world1_child_wall_s=wall_w1,
+         world1_ms_per_step=step_ms(cfg_a),
+         world1_launches=launches, gloo_ranks=2,
+         gloo_rows_per_rank=cfg_b.train.batch_size // 2,
+         gloo_replicas_equal=True,
+         gloo_rank_launches=[{"train": r["train_launches"],
+                              "iwae": r["eval_launches"]} for r in ranks],
+         gloo_ms_per_step=ranks[0]["ms_per_step"],
+         gloo_losses=ranks[0]["losses"],
+         ksharded={"k": k, "chunk": chunk, "k_shards": n_k,
+                   "images": BATCH, "max_rel_err": rel,
+                   "nll_nats": res["nll_nats"],
+                   "bits_per_dim": res["bits_per_dim"]},
+         parent_s=time.perf_counter() - t0)
     return total
 
 
@@ -3202,6 +3434,8 @@ def main(argv: list[str]) -> int:
                                                    PRIOR_STEPS))
         emit("cifar_arrays", rows=len(arrays["image"]),
              load_s=time.perf_counter() - t0)
+        # (23.) phase 23's children start here, beside phases 14-22
+        dist = start_distributed(tmp)
         path_launches["gb_train"], cfg_gb = prior_phase(
             "gb_train", "cifar_gb", arrays, tmp, dev)
         path_launches["flow_train"], cfg_flow = prior_phase(
@@ -3226,11 +3460,15 @@ def main(argv: list[str]) -> int:
                                                          child)
             # 22. the serving artifacts of the knobs' checkpoint
             path_launches["export"] = export_phase(cfg7, tmp, dev, exporter)
+            # 23. data parallelism on the one card
+            K.reset_launches()
+            path_launches["distributed"] = distributed_phase(tmp, dev, dist)
         finally:
             for c in (child, exporter):
                 if c["proc"].poll() is None:
                     c["proc"].kill()
                     c["proc"].wait()
+            stop_distributed(dist)
         if args.profile is not None:
             profile_train(args.profile, cfg_gb, dev, tag="gb_train")
             profile_train(args.profile, cfg_flow, dev, tag="flow_train")

@@ -525,7 +525,11 @@ def test_cli_refuses_unknown_flags():
      "--temperature apply to prior sampling"),
     (["export", "--what", "scorer", "--temperature", "0.8"],
      "temperature is sampler-only"),
-    (["train", "--distributed"], "item 13"),
+    # item 13 is ported: --distributed without APV_COORDINATOR is refused
+    # as the reference refuses it (the id kept from the refusal it had)
+    pytest.param(["train", "--distributed"],
+                 "--distributed set but APV_COORDINATOR unset",
+                 id="argv3-item 13"),
     (["train", "--checkpoint-dir", "x"], "eval-side only")])
 def test_cli_refuses_what_the_port_lacks(argv, match):
     with pytest.raises(SystemExit, match=match):
