@@ -6,9 +6,9 @@ likelihood is plain PyTorch on both."""
 from apv_tpu_torch.ops.dispatch import (bernoulli_recon_ll,
                                         disc_logistic_mix_recon_ll,
                                         disc_logistic_recon_ll, kl_standard,
-                                        reparam_sample)
+                                        reparam_kl, reparam_sample)
 from apv_tpu_torch.ops.groupnorm import groupnorm_gelu
 
 __all__ = ["bernoulli_recon_ll", "disc_logistic_mix_recon_ll",
            "disc_logistic_recon_ll", "groupnorm_gelu", "kl_standard",
-           "reparam_sample"]
+           "reparam_kl", "reparam_sample"]

@@ -58,8 +58,10 @@ SIGNATURES = {
                                ctypes.POINTER(ctypes.c_int), _P),
     "apv_kl": (_P, _P, _P, _I64, _I64, _P),
     "apv_kl_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    "apv_reparam": (_P, _P, _P, _I64, _I64, _U64, _U64, _P),
-    "apv_reparam_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    # reparam's kl out (null: none) and event (Z) beside n; its backward's
+    # logvar and g_kl (null: no KL term)
+    "apv_reparam": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P),
+    "apv_reparam_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 build_seconds: float | None = None   # wall time of this process's build

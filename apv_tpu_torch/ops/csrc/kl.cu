@@ -3,13 +3,22 @@
 // Replaces apv_tpu/ops/kernels.py::_kl_fwd (Pallas kernel _kl_kernel):
 //     out[r] = sum_z 0.5 * (mean^2 + exp(logvar) - 1 - logvar)
 //
-// Bound on an H100: launch latency. At the scorer's [64, 128] the inputs
-// are 65.5 KB, ~20 ns of memory time, far below the few microseconds a
-// launch costs, so the design only keeps the work to one pass: one warp per
-// row (8 rows per 256-thread block), coalesced loads striding by 32, and a
-// shuffle reduction with no shared memory. Fusing it into the encoder head
-// is the way to remove the launch, in a later change.
-#include "common.cuh"
+// Bound on an H100: the launch. At the train step's [256, 128] the inputs
+// are 131 KB, ~0.04 us of memory time, while a launch of any kernel costs
+// the card ~1.1-1.3 us (the launch floor in PERF.md); this kernel takes
+// ~1.8 us. A redesign of the kernel alone cannot remove the launch, so the
+// ELBO paths, which draw z from the same mean and logvar, no longer launch
+// it: reparam.cu's forward runs these rows in its own launch (its KL
+// blocks) and its backward adds this file's gradient terms in its own
+// launch. These two kernels stay for the callers of kl alone (the serving
+// artifacts' apv::kl and ops.kl_standard). Design: one warp per row (8
+// rows per 256-thread block), coalesced loads striding by 32, and a
+// shuffle reduction with no shared memory; the terms are kl_terms.cuh's,
+// shared with reparam.cu, so both give the same bits.
+//
+// Backward: replaces apv_tpu/ops/kernels.py::_kl_bwd, the custom_vjp rule
+// (dmean, dlogvar) = (g * mean, g * 0.5 * (exp(logvar) - 1)), g per row.
+#include "kl_terms.cuh"
 
 namespace {
 
@@ -22,14 +31,8 @@ kl_rows(const float* __restrict__ mean, const float* __restrict__ logvar,
     const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= rows) return;  // whole warps leave together
-    const float* m = mean + row * event;
-    const float* lv = logvar + row * event;
-    float acc = 0.0f;
-    for (int64_t i = lane; i < event; i += 32) {
-        const float mu = m[i], l = lv[i];
-        acc += 0.5f * (mu * mu + expf(l) - 1.0f - l);
-    }
-    acc = apv::warp_sum(acc);
+    const float acc = apv::kl_row_sum(mean + row * event, logvar + row * event,
+                                      event, lane);
     if (lane == 0) out[row] = acc;
 }
 
@@ -43,8 +46,8 @@ kl_bwd_rows(const float* __restrict__ g, const float* __restrict__ mean,
     const float gr = g[row];
     const int64_t base = row * event;
     for (int64_t i = lane; i < event; i += 32) {
-        dmean[base + i] = gr * mean[base + i];
-        dlogvar[base + i] = gr * 0.5f * (expf(logvar[base + i]) - 1.0f);
+        dmean[base + i] = apv::kl_dmean(gr, mean[base + i]);
+        dlogvar[base + i] = apv::kl_dlogvar(gr, logvar[base + i]);
     }
 }
 

@@ -37,25 +37,61 @@
 // and 1.7 us at the train step's S = 1, against 4.6 and 2.3 before
 // (PERF.md).
 //
+// With a KL output (the ELBO paths: S = 1, the standard prior), the same
+// launch also writes kl[r] = KL( N(mean_r, exp(logvar_r)) || N(0, I) ) for
+// each row r of [B, Z]: the grid is the sample blocks followed by one KL
+// block per two rows, each warp summing one row as kl.cu's kl_rows does
+// (kl_terms.cuh), so z has apv_reparam's bits and kl apv_kl's. The branch
+// on blockIdx.x is uniform within a block, and without a KL output the
+// grid and the sampling code are the ones above. This removes the kl
+// launch (~1.8 us of device time and the host's wrapper call and launch)
+// from every ELBO step and scorer batch: the two kernels read the same
+// [B, Z]. It runs in 1.80 us at [1, 256, 128], against 3.03 us for the
+// two launches (PERF.md).
+//
 // Backward: replaces apv_tpu/ops/kernels.py::_reparam_bwd with
-// _unbroadcast, the custom_vjp rule written in jnp. With g the incoming
-// gradient [S, n] and z the forward's output [S, n]:
-//     dmean[i]   = sum_s g[s, i]
+// _unbroadcast, the custom_vjp rule written in jnp, and, where the forward
+// wrote a KL, apv_tpu/ops/kernels.py::_kl_bwd too. With g the incoming
+// gradient [S, n], z the forward's output [S, n] and g_kl the KL's
+// incoming gradient [B] (row r = i / Z):
+//     dmean[i]   = sum_s g[s, i]                         + g_kl[r] * mean[i]
 //     dlogvar[i] = sum_s 0.5 * g[s, i] * (z[s, i] - mean[i])
+//                  + (g_kl[r] * 0.5) * (exp(logvar[i]) - 1)
 // (dz/dlogvar = 0.5 * sigma * eps = 0.5 * (z - mean)), summed over the
-// sample axis as _unbroadcast sums the broadcast one. Bound: memory, read g
-// and z once and write two [n] vectors; the train step's S = 1, n = 10240
-// moves 164 KB, launch-bound. Design: one thread per i walks s in order, so
-// each step of the walk is one coalesced row of g and z across the block,
-// no atomics are needed and the result is deterministic. The products and
-// sums use __fmul_rn/__fadd_rn so that nvcc does not contract them into an
-// FMA: each term rounds as the plain version's separate multiply and add.
-#include "common.cuh"
+// sample axis as _unbroadcast sums the broadcast one. Each part rounds as
+// the separate kernels did (the s-ordered sum, kl.cu's products, each
+// product and sum rounded on its own with __fmul_rn/__fadd_rn, so nvcc
+// contracts nothing into an FMA), and one __fadd_rn joins them, the add
+// autograd made of the two kernels' outputs: the same bits in one launch
+// instead of three (reparam_bwd, kl_bwd, the add). Bound: memory, read g
+// and z once, mean (and logvar) once and write two [n] vectors; the
+// train step's S = 1 at [256, 128] moves 0.66 MB (0.79 MB with the KL
+// term), the IWAE objective's S = 5 1.7 MB (0.51 us), all near the
+// launch floor. The first design gave
+// each thread one element and walked s in a loop whose loads waited on
+// each other, in 128 blocks of 256 threads at [256, 128]. This one:
+// - a thread takes four elements as float4 loads and stores when n % 4
+//   == 0, the pointers are 16-byte aligned and (with g_kl) a quad lies
+//   in one row (Z % 4 == 0); one element a thread otherwise;
+// - the sample count is a template argument from 1 to 8 (a general
+//   loop, unrolled by 8, past that), so a thread issues all its loads
+//   (mean, logvar and g_kl first) before the first sum, and S = 1 runs
+//   no loop at all;
+// - one-warp blocks: 256 of them at n = 32,768, about two on every SM
+//   (64-thread blocks measured 0.34 us slower at S = 5);
+// - the row of g_kl by one 32-bit division while n < 2^31.
+// One thread owns each output: deterministic, no atomics. With its inputs
+// in L2 it runs in 1.20 us at [1, 256, 128], 1.36 us with the KL term
+// (the three launches it replaces: 5.10 us) and 1.38 us at S = 5,
+// against 1.26 and 1.63 for the first design (PERF.md).
+#include "kl_terms.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;        // reparam_bwd_sum
 constexpr int kSampleThreads = 64;  // reparam_samples
+constexpr int kKlRows = kSampleThreads / 32;   // rows a KL block sums
+constexpr int kBwdThreads = 32;     // reparam_bwd_sum
+constexpr int kBwdUnroll = 8;       // samples whose loads issue together
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
@@ -95,12 +131,24 @@ constexpr int kVecLoad = 1;   // n % 4 == 0, mean and logvar 16-byte aligned
 constexpr int kVecStore = 2;  // z 16-byte aligned
 
 // Thread q: counter q, outputs 4q .. 4q+3 of the flat [S, n] z. Index is
-// uint32_t when S * n < 2^31, else uint64_t.
-template <typename Index>
+// uint32_t when S * n < 2^31, else uint64_t. With kKl, the blocks from
+// sample_blocks on write kl instead, two rows [event] a block.
+template <typename Index, bool kKl>
 __global__ void __launch_bounds__(kSampleThreads)
 reparam_samples(const float* __restrict__ mean, const float* __restrict__ logvar,
                 float* __restrict__ z, Index n, Index total, uint2 key,
-                uint2 offset, int flags) {
+                uint2 offset, int flags, float* __restrict__ kl,
+                unsigned sample_blocks, int64_t rows, int64_t event) {
+    if (kKl && blockIdx.x >= sample_blocks) {   // uniform within the block
+        const int64_t row = static_cast<int64_t>(blockIdx.x - sample_blocks) * kKlRows
+                          + (threadIdx.x >> 5);
+        const int lane = threadIdx.x & 31;
+        if (row >= rows) return;  // whole warps leave together
+        const float acc = apv::kl_row_sum(mean + row * event, logvar + row * event,
+                                          event, lane);
+        if (lane == 0) kl[row] = acc;
+        return;
+    }
     const Index q = static_cast<Index>(blockIdx.x) * kSampleThreads + threadIdx.x;
     const Index e0 = 4 * q;
     if (e0 >= total) return;
@@ -135,28 +183,168 @@ reparam_samples(const float* __restrict__ mean, const float* __restrict__ logvar
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-reparam_bwd_sum(const float* __restrict__ g, const float* __restrict__ z,
-                const float* __restrict__ mean, float* __restrict__ dmean,
-                float* __restrict__ dlogvar, int64_t samples, int64_t n) {
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-    if (i >= n) return;
-    const float m = mean[i];
-    float dm = 0.0f, dlv = 0.0f;
-    for (int64_t s = 0; s < samples; ++s) {
-        const float gv = g[s * n + i];
-        dm = __fadd_rn(dm, gv);
-        dlv = __fadd_rn(dlv, __fmul_rn(__fmul_rn(gv, 0.5f), __fadd_rn(z[s * n + i], -m)));
+template <int W>
+__device__ __forceinline__ void load(const float* __restrict__ p, float (&v)[W]) {
+    if constexpr (W == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+        v[0] = *p;
     }
-    dmean[i] = dm;
-    dlogvar[i] = dlv;
+}
+
+template <int W>
+__device__ __forceinline__ void store(float* __restrict__ p, const float (&v)[W]) {
+    if constexpr (W == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+        *p = v[0];
+    }
+}
+
+// One sample's terms of the sums, in the order of the walk over s.
+template <int W>
+__device__ __forceinline__ void add_sample(float (&dm)[W], float (&dlv)[W],
+                                           const float (&gv)[W],
+                                           const float (&zv)[W],
+                                           const float (&m)[W]) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        dm[w] = __fadd_rn(dm[w], gv[w]);
+        dlv[w] = __fadd_rn(dlv[w], __fmul_rn(__fmul_rn(gv[w], 0.5f),
+                                             __fadd_rn(zv[w], -m[w])));
+    }
+}
+
+// Thread t: elements W*t .. W*t + W-1 of [n] (W = 4: one float4). kS > 0:
+// exactly kS samples, every load issued before the first sum; kS = 0: any
+// count, in unrolled chunks of kBwdUnroll and then one at a time. With kKl
+// the KL's gradient terms are added for row i / event (one row a quad).
+template <int W, bool kKl, int kS>
+__global__ void __launch_bounds__(kBwdThreads)
+reparam_bwd_sum(const float* __restrict__ g, const float* __restrict__ z,
+                const float* __restrict__ mean, const float* __restrict__ logvar,
+                const float* __restrict__ g_kl, float* __restrict__ dmean,
+                float* __restrict__ dlogvar, int64_t samples, int64_t n,
+                int64_t event) {
+    const int64_t i = (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) * W;
+    if (i >= n) return;
+    float m[W], lv[W], dm[W], dlv[W];
+    float gk = 0.0f;
+    load<W>(mean + i, m);
+    if constexpr (kKl) {
+        load<W>(logvar + i, lv);
+        const int64_t row = n < (int64_t{1} << 31)
+            ? static_cast<int64_t>(static_cast<uint32_t>(i) / static_cast<uint32_t>(event))
+            : i / event;
+        gk = g_kl[row];
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) dm[w] = dlv[w] = 0.0f;
+    if constexpr (kS > 0) {
+        float gv[kS][W], zv[kS][W];
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+            load<W>(g + s * n + i, gv[s]);
+            load<W>(z + s * n + i, zv[s]);
+        }
+#pragma unroll
+        for (int s = 0; s < kS; ++s) add_sample<W>(dm, dlv, gv[s], zv[s], m);
+    } else {
+        int64_t s0 = 0;
+        for (; s0 + kBwdUnroll <= samples; s0 += kBwdUnroll) {
+            float gv[kBwdUnroll][W], zv[kBwdUnroll][W];
+#pragma unroll
+            for (int u = 0; u < kBwdUnroll; ++u) {
+                load<W>(g + (s0 + u) * n + i, gv[u]);
+                load<W>(z + (s0 + u) * n + i, zv[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < kBwdUnroll; ++u) add_sample<W>(dm, dlv, gv[u], zv[u], m);
+        }
+        for (; s0 < samples; ++s0) {
+            float gv[W], zv[W];
+            load<W>(g + s0 * n + i, gv);
+            load<W>(z + s0 * n + i, zv);
+            add_sample<W>(dm, dlv, gv, zv, m);
+        }
+    }
+    if constexpr (kKl) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            dm[w] = __fadd_rn(dm[w], apv::kl_dmean(gk, m[w]));
+            dlv[w] = __fadd_rn(dlv[w], apv::kl_dlogvar(gk, lv[w]));
+        }
+    }
+    store<W>(dmean + i, dm);
+    store<W>(dlogvar + i, dlv);
+}
+
+template <int W, bool kKl, int kS>
+void launch_bwd_grid(const float* g, const float* z, const float* mean,
+                     const float* logvar, const float* g_kl, float* dmean,
+                     float* dlogvar, int64_t samples, int64_t n, int64_t event,
+                     cudaStream_t stream) {
+    const int64_t threads = (n + W - 1) / W;
+    const unsigned blocks = static_cast<unsigned>((threads + kBwdThreads - 1) / kBwdThreads);
+    reparam_bwd_sum<W, kKl, kS><<<blocks, kBwdThreads, 0, stream>>>(
+        g, z, mean, logvar, g_kl, dmean, dlogvar, samples, n, event);
+}
+
+// The sample count as a template argument from 1 to kBwdUnroll (the
+// train steps' 1, the IWAE objective's k), else the general loop.
+template <int W, bool kKl>
+void launch_bwd(const float* g, const float* z, const float* mean,
+                const float* logvar, const float* g_kl, float* dmean,
+                float* dlogvar, int64_t samples, int64_t n, int64_t event,
+                cudaStream_t stream) {
+#define APV_BWD(S) launch_bwd_grid<W, kKl, S>(g, z, mean, logvar, g_kl, dmean, \
+                                              dlogvar, samples, n, event, stream)
+    switch (samples) {
+        case 1: APV_BWD(1); break;
+        case 2: APV_BWD(2); break;
+        case 3: APV_BWD(3); break;
+        case 4: APV_BWD(4); break;
+        case 5: APV_BWD(5); break;
+        case 6: APV_BWD(6); break;
+        case 7: APV_BWD(7); break;
+        case 8: APV_BWD(8); break;
+        default: APV_BWD(0); break;
+    }
+#undef APV_BWD
+}
+
+template <typename Index, bool kKl>
+void launch_sample_grid(const float* mean, const float* logvar, float* z, float* kl,
+                    int64_t total, int64_t n, uint2 key, uint2 ctr, int flags,
+                    unsigned sample_blocks, int64_t rows, int64_t event,
+                    cudaStream_t stream) {
+    const unsigned kl_blocks = kKl ? static_cast<unsigned>((rows + kKlRows - 1) / kKlRows) : 0;
+    reparam_samples<Index, kKl><<<sample_blocks + kl_blocks, kSampleThreads, 0, stream>>>(
+        mean, logvar, z, static_cast<Index>(n), static_cast<Index>(total), key, ctr,
+        flags, kl, sample_blocks, rows, event);
+}
+
+template <typename Index>
+void launch_samples(const float* mean, const float* logvar, float* z, float* kl,
+                    int64_t total, int64_t n, uint2 key, uint2 ctr, int flags,
+                    unsigned sample_blocks, int64_t rows, int64_t event,
+                    cudaStream_t stream) {
+    if (kl != nullptr) {
+        launch_sample_grid<Index, true>(mean, logvar, z, kl, total, n, key, ctr, flags,
+                                        sample_blocks, rows, event, stream);
+    } else {
+        launch_sample_grid<Index, false>(mean, logvar, z, kl, total, n, key, ctr, flags,
+                                         sample_blocks, rows, event, stream);
+    }
 }
 
 }  // namespace
 
+// kl: null, or [n / event] per-row KLs written by the same launch.
 extern "C" int apv_reparam(const float* mean, const float* logvar, float* z,
-                           int64_t samples, int64_t n, uint64_t seed,
-                           uint64_t offset, void* stream) {
+                           float* kl, int64_t samples, int64_t n, int64_t event,
+                           uint64_t seed, uint64_t offset, void* stream) {
     const int64_t total = samples * n;
     if (total <= 0) return 0;
     const int64_t quads = (total + 3) / 4;
@@ -166,25 +354,38 @@ extern "C" int apv_reparam(const float* mean, const float* logvar, float* z,
     const uint2 ctr = make_uint2(static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
     const int flags = (n % 4 == 0 && apv::aligned16(mean) && apv::aligned16(logvar) ? kVecLoad : 0)
                     | (apv::aligned16(z) ? kVecStore : 0);
+    const int64_t rows = kl != nullptr ? n / event : 0;
     if (total < (int64_t{1} << 31)) {
-        reparam_samples<uint32_t><<<blocks, kSampleThreads, 0, s>>>(
-            mean, logvar, z, static_cast<uint32_t>(n), static_cast<uint32_t>(total),
-            key, ctr, flags);
+        launch_samples<uint32_t>(mean, logvar, z, kl, total, n, key, ctr, flags, blocks,
+                                 rows, event, s);
     } else {
-        reparam_samples<uint64_t><<<blocks, kSampleThreads, 0, s>>>(
-            mean, logvar, z, static_cast<uint64_t>(n), static_cast<uint64_t>(total),
-            key, ctr, flags);
+        launch_samples<uint64_t>(mean, logvar, z, kl, total, n, key, ctr, flags, blocks,
+                                 rows, event, s);
     }
     return apv::launch_status();
 }
 
+// g: null when samples is 0 (z had no gradient). g_kl: null (no KL term;
+// logvar and event unused), or [n / event], the KL's incoming gradient.
 extern "C" int apv_reparam_bwd(const float* g, const float* z, const float* mean,
+                               const float* logvar, const float* g_kl,
                                float* dmean, float* dlogvar, int64_t samples,
-                               int64_t n, void* stream) {
+                               int64_t n, int64_t event, void* stream) {
     if (n <= 0) return 0;
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    reparam_bwd_sum<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(g, z, mean, dmean,
-                                                           dlogvar, samples, n);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool with_kl = g_kl != nullptr;
+    const bool vec = n % 4 == 0 && apv::aligned16(g) && apv::aligned16(z)
+                  && apv::aligned16(mean) && apv::aligned16(dmean)
+                  && apv::aligned16(dlogvar)
+                  && (!with_kl || (event % 4 == 0 && apv::aligned16(logvar)));
+    if (vec && with_kl) {
+        launch_bwd<4, true>(g, z, mean, logvar, g_kl, dmean, dlogvar, samples, n, event, s);
+    } else if (vec) {
+        launch_bwd<4, false>(g, z, mean, logvar, g_kl, dmean, dlogvar, samples, n, event, s);
+    } else if (with_kl) {
+        launch_bwd<1, true>(g, z, mean, logvar, g_kl, dmean, dlogvar, samples, n, event, s);
+    } else {
+        launch_bwd<1, false>(g, z, mean, logvar, g_kl, dmean, dlogvar, samples, n, event, s);
+    }
     return apv::launch_status();
 }

@@ -6,7 +6,9 @@ differentiates. A CUDA tensor goes to a ``torch.autograd.Function`` whose
 forward launches the op's hand-written kernel and whose backward launches
 its backward kernel: the counterpart of the reference's ``custom_vjp``.
 There is no switch and no fallback that sends CUDA tensors to the plain
-versions.
+versions. ``reparam_kl`` serves the ELBO, which draws z from a posterior
+and takes its KL: on CUDA both come from one launch and go back through
+one.
 
 All ops take tensors whose axis 0 is the batch axis; the likelihood and
 divergence ops reduce every other axis to one value per sample. The
@@ -60,6 +62,32 @@ class _ReparamFn(torch.autograd.Function):
     def backward(ctx, g):
         z, mean = ctx.saved_tensors      # z, an output, comes back with grad
         dmean, dlogvar = K.reparam_bwd_cuda(g.contiguous(), z.detach(), mean)
+        return dmean, dlogvar, None, None, None
+
+
+class _PosteriorFn(torch.autograd.Function):
+    """z [S, *mean.shape] and the per-row KL(q || N(0, I)) of one
+    posterior: the reparam kernel's launch with its KL blocks, and one
+    launch of its backward for both (the KL's terms joined to z's). An
+    output that gets no gradient hands the backward None (no zeros are
+    made for it): a KL that the loss does not use adds no term."""
+
+    @staticmethod
+    def forward(ctx, mean, logvar, samples, seed, offset):
+        mean, logvar = mean.detach(), logvar.detach()
+        z, kl = K.reparam_kl_cuda(mean, logvar, samples, seed, offset)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(z, mean, logvar)
+        return z, kl
+
+    @staticmethod
+    def backward(ctx, g, g_kl):
+        if g is None and g_kl is None:
+            return None, None, None, None, None
+        z, mean, logvar = ctx.saved_tensors
+        dmean, dlogvar = K.reparam_bwd_cuda(
+            None if g is None else g.contiguous(), z.detach(), mean,
+            g_kl=None if g_kl is None else g_kl.contiguous(), logvar=logvar)
         return dmean, dlogvar, None, None, None
 
 
@@ -165,6 +193,28 @@ def reparam_sample(mean: torch.Tensor, logvar: torch.Tensor,
         z = _ReparamFn.apply(mean.contiguous(), logvar.contiguous(), s,
                              *K.draw_key(generator))
     return z if samples is not None else z[0]
+
+
+def reparam_kl(mean: torch.Tensor, logvar: torch.Tensor, *,
+               generator: torch.Generator | None = None,
+               eps: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z, kl): ``reparam_sample(mean, logvar)`` and ``kl_standard(mean,
+    logvar)`` of one posterior, the ELBO's two uses of it.
+
+    On the CPU the two ops as they are. On CUDA one launch draws z (the
+    same Philox stream and key as ``reparam_sample`` with this
+    ``generator``) and sums the KL, and one launch differentiates both;
+    ``eps`` is refused there, as ``reparam_sample`` refuses it."""
+    if _on_cpu("reparam_kl", mean, logvar):
+        return (reparam_sample(mean, logvar, generator=generator, eps=eps),
+                kl_standard(mean, logvar))
+    if eps is not None:
+        raise ValueError("reparam_kl: eps is accepted only for CPU tensors; "
+                         "on CUDA the kernel draws the noise")
+    z, kl = _PosteriorFn.apply(mean.contiguous(), logvar.contiguous(), 1,
+                               *K.draw_key(generator))
+    return z[0], kl
 
 
 def kl_standard(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -29,15 +29,21 @@ blocks); each backward kernel replaces the jnp rule of that op's
   score each image under S samples without copying it S times.
 * ``kl`` (``csrc/kl.cu``) replaces ``_kl_fwd`` / ``_kl_kernel``. Bound:
   launch latency (65.5 KB at [64, 128]). Design: one warp per row.
-  ``kl_bwd`` (same file) replaces ``_kl_bwd``.
+  ``kl_bwd`` (same file) replaces ``_kl_bwd``. The ELBO paths fold both
+  into reparam's launches (below); these serve the callers of kl alone.
 * ``reparam`` (``csrc/reparam.cu``) replaces ``_reparam_fwd`` /
   ``_reparam_kernel``. Bound: launch latency (0.82 MB written at
   [25, 64, 128]). Design: Philox4x32-10 + Box-Muller inside the kernel,
   one counter (four outputs) a thread with one 32-bit remainder and one
   16-byte store; mean and logvar are read as [B, Z] for all S samples.
-  ``reparam_bwd``
-  (same file) replaces ``_reparam_bwd`` + ``_unbroadcast``: one thread per
-  element sums over the sample axis, deterministic, no atomics.
+  ``reparam_kl_cuda`` launches the same kernel with KL blocks after the
+  sample blocks: z and the per-row KL in one launch (counted as
+  ``reparam``; ``kl`` counts the standalone kernel only).
+  ``reparam_bwd`` (same file) replaces ``_reparam_bwd`` + ``_unbroadcast``
+  and, given the KL's row gradient, ``_kl_bwd`` with the add that joins
+  them: a float4 of each output a thread, the sample count a template
+  argument up to 8, deterministic, no atomics, the separate kernels'
+  bits.
 * ``groupnorm_gelu`` (``csrc/groupnorm_gelu.cu``) replaces
   ``apv_tpu/ops/groupnorm.py::_fwd`` / ``_gn_gelu_kernel``. Bound: memory,
   x in and y out (67.1 MB in bf16 at [256, 32, 32, 64]). Design: a
@@ -511,50 +517,107 @@ def reparam_plain(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
                             eps.reshape((samples,) + tuple(mean.shape)))
 
 
+def _reparam_launch(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
+                    seed: int, offset: int, with_kl: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    _check("reparam", mean, logvar)
+    if samples < int(with_kl):
+        raise ValueError(f"reparam: samples must be >= {int(with_kl)}, got "
+                         f"{samples}")
+    if with_kl and mean.dim() < 1:
+        raise ValueError("reparam: the KL needs a row axis, got a scalar")
+    z = torch.empty((samples,) + tuple(mean.shape), dtype=torch.float32,
+                    device=mean.device)
+    kl, event = None, 0
+    if with_kl:      # [rows] (zeros where there is no element to sum)
+        kl = (torch.empty if z.numel() else torch.zeros)(
+            mean.shape[0], dtype=torch.float32, device=mean.device)
+        event = mean.numel() // max(mean.shape[0], 1)
+    if z.numel():
+        _launch("reparam", _lib().apv_reparam, mean.data_ptr(),
+                logvar.data_ptr(), z.data_ptr(),
+                None if kl is None else kl.data_ptr(), samples,
+                mean.numel(), event, seed, offset, device=mean.device)
+    return z, kl
+
+
 def reparam_cuda(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
                  seed: int, offset: int) -> torch.Tensor:
     """Kernel version of ``reparam_plain``: f32 [*shape] -> [samples, *shape]."""
-    _check("reparam", mean, logvar)
-    if samples < 0:
-        raise ValueError(f"reparam: samples must be >= 0, got {samples}")
-    z = torch.empty((samples,) + tuple(mean.shape), dtype=torch.float32,
-                    device=mean.device)
-    if z.numel():
-        _launch("reparam", _lib().apv_reparam, mean.data_ptr(),
-                logvar.data_ptr(), z.data_ptr(), samples, mean.numel(),
-                seed, offset, device=mean.device)
-    return z
+    return _reparam_launch(mean, logvar, samples, seed, offset, False)[0]
 
 
-def reparam_bwd_plain(g: torch.Tensor, z: torch.Tensor, mean: torch.Tensor
+def reparam_kl_plain(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
+                     seed: int, offset: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``reparam_plain``, ``kl_plain``) of one posterior [rows, ...]."""
+    return (reparam_plain(mean, logvar, samples, seed, offset),
+            kl_plain(mean, logvar))
+
+
+def reparam_kl_cuda(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
+                    seed: int, offset: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel version of ``reparam_kl_plain``: z [samples, *shape] and the
+    per-row KL [rows] from one launch of the reparam kernel (counted as
+    ``reparam``), z with ``reparam_cuda``'s bits and the KL with
+    ``kl_cuda``'s."""
+    return _reparam_launch(mean, logvar, samples, seed, offset, True)
+
+
+def reparam_bwd_plain(g: torch.Tensor | None, z: torch.Tensor,
+                      mean: torch.Tensor, g_kl: torch.Tensor | None = None,
+                      logvar: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """``_reparam_bwd`` + ``_unbroadcast``: g and z [S, *shape], mean
-    [*shape] -> (Σ_s g, Σ_s 0.5·g·(z − μ)), each of mean's shape.
+    [*shape] -> (Σ_s g, Σ_s 0.5·g·(z − μ)), each of mean's shape; with
+    ``g_kl`` [rows] (and ``logvar``), ``kl_bwd_plain``'s terms added, as
+    autograd adds the two rules' outputs. ``g`` None: z had no gradient.
 
     The sums run over s = 0, 1, ... in order, as the kernel's do (a
     reduction in another order differs by a few ulps per sample)."""
-    terms = g * 0.5 * (z - mean)
     dmean, dlogvar = torch.zeros_like(mean), torch.zeros_like(mean)
-    for s in range(g.shape[0]):
-        dmean, dlogvar = dmean + g[s], dlogvar + terms[s]
+    if g is not None:
+        terms = g * 0.5 * (z - mean)
+        for s in range(g.shape[0]):
+            dmean, dlogvar = dmean + g[s], dlogvar + terms[s]
+    if g_kl is not None:
+        km, klv = kl_bwd_plain(g_kl, mean, logvar)
+        dmean, dlogvar = dmean + km, dlogvar + klv
     return dmean, dlogvar
 
 
-def reparam_bwd_cuda(g: torch.Tensor, z: torch.Tensor, mean: torch.Tensor
+def reparam_bwd_cuda(g: torch.Tensor | None, z: torch.Tensor,
+                     mean: torch.Tensor, g_kl: torch.Tensor | None = None,
+                     logvar: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel version of ``reparam_bwd_plain`` on f32 tensors."""
-    _check("reparam_bwd", g, z)
-    _check_each("reparam_bwd", mean)
-    if g.dim() < 1 or tuple(g.shape[1:]) != tuple(mean.shape) \
-            or mean.device != g.device:
-        raise ValueError(f"reparam_bwd: gradient {tuple(g.shape)} is not "
+    """Kernel version of ``reparam_bwd_plain`` on f32 tensors: one launch,
+    with or without the KL's terms."""
+    _check_each("reparam_bwd", *(t for t in (g, z, mean, g_kl, logvar)
+                                 if t is not None))
+    if g is not None:
+        _check("reparam_bwd", g, z)
+    if z.dim() < 1 or tuple(z.shape[1:]) != tuple(mean.shape) \
+            or mean.device != z.device:
+        raise ValueError(f"reparam_bwd: gradient {tuple(z.shape)} is not "
                          f"[S, *{tuple(mean.shape)}] on {mean.device}")
+    event = 0
+    if g_kl is not None:
+        if logvar is None or mean.dim() < 1:
+            raise ValueError("reparam_bwd: the KL's gradient needs logvar "
+                             "and a row axis")
+        _check("reparam_bwd", mean, logvar)
+        _check_row_grad("reparam_bwd", g_kl, mean)
+        event = mean.numel() // max(mean.shape[0], 1)
     dmean, dlogvar = torch.empty_like(mean), torch.empty_like(mean)
     if mean.numel():
-        _launch("reparam_bwd", _lib().apv_reparam_bwd, g.data_ptr(),
-                z.data_ptr(), mean.data_ptr(), dmean.data_ptr(),
-                dlogvar.data_ptr(), g.shape[0], mean.numel(),
-                device=mean.device)
+        kl_ptrs = ((None, None) if g_kl is None
+                   else (logvar.data_ptr(), g_kl.data_ptr()))
+        _launch("reparam_bwd", _lib().apv_reparam_bwd,
+                None if g is None else g.data_ptr(), z.data_ptr(),
+                mean.data_ptr(), *kl_ptrs, dmean.data_ptr(),
+                dlogvar.data_ptr(), 0 if g is None else g.shape[0],
+                mean.numel(), event, device=mean.device)
     return dmean, dlogvar
 
 

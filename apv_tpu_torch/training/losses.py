@@ -97,10 +97,8 @@ def elbo_terms(encode: Callable, decode: Callable, x_in: torch.Tensor,
 
     ``eps`` (CPU only) injects the reparameterization noise."""
     mean, logvar = encode(x_in)
-    z = ops.reparam_sample(mean, logvar, generator=generator, eps=eps)
-    out = decode(z)
-    recon = recon_log_likelihood(x_target, out, likelihood)
-    kl = ops.kl_standard(mean, logvar)
+    z, kl = ops.reparam_kl(mean, logvar, generator=generator, eps=eps)
+    recon = recon_log_likelihood(x_target, decode(z), likelihood)
     return recon, kl, z
 
 

@@ -274,7 +274,10 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
     t = cfg.train
     prior = cfg.model.prior
     mean, logvar = model.encode(x_in)
-    z = ops.reparam_sample(mean, logvar, generator=generator, eps=eps)
+    if prior in ("flow", "gaussian"):
+        z = ops.reparam_sample(mean, logvar, generator=generator, eps=eps)
+    else:                     # N(0, I): z and the analytic KL together
+        z, kl = ops.reparam_kl(mean, logvar, generator=generator, eps=eps)
     out = model.decode(z)
     recon = L.recon_log_likelihood(x_target, out, cfg.model.likelihood)
     if prior == "flow":
@@ -283,8 +286,6 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
     elif prior == "gaussian":
         mu_p, logvar_p = model.prior.mu, 2.0 * model.prior.log_sigma
         kl = torch.sum(D.gaussian_kl(mean, logvar, mu_p, logvar_p), dim=-1)
-    else:
-        kl = ops.kl_standard(mean, logvar)
     aux = {"recon": recon.mean(), "kl": kl.mean()}
     per_sample = recon
     if d is not None:

@@ -4,6 +4,8 @@
     python3 chip_smoke.py                      # needs one CUDA card
     python3 chip_smoke.py --profile DIR        # also writes profiler tables
     python3 chip_smoke.py --quality-gate       # also the 3k-step CIFAR gate
+    python3 chip_smoke.py --biadv-seeds 24     # phase 18's gradient check at
+                                               # 24 seeds, nothing else
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -17,7 +19,12 @@ Phases, one JSON line each:
      disc_logistic with two rows in its t <= 1e-3 series in each case,
      each twice for the same bits, with their times at each path shape;
      reparam also at the OOD chunk and an odd shape, with its times at
-     the OOD chunk and the train step; bernoulli_bwd also at
+     the OOD chunk and the train step; reparam with its KL blocks and its
+     backward with and without the KL's row gradient at the ELBO's
+     posterior shapes and an odd one, with whether their bits equal the
+     unfused kernels' and their times beside the unfused kernels'
+     (kl_bwd, which no main path launches, is held there too);
+     bernoulli_bwd also at
      257 rows and with dx; groupnorm_gelu and its backward
      also at shapes that take their other kernels, each twice for the
      same bits, each held to the kernel that ran;
@@ -104,8 +111,10 @@ Phases, one JSON line each:
      gradients through the kernels held to the step written out with
      their plain versions (f32, the pixel D in f32), the D step's inputs
      (z_q, x̂) to the plain path's and its gradients to the D loss
-     written out, and the D gradients across the two paths' inputs to a
-     bar set by a witness of D's own sensitivity (biadv_grad_check); then
+     written out, and the D gradients across the two paths' inputs, on
+     the rows where both give the Ds the same activation masks (the
+     flipped units counted), to a bar set by a witness of D's own
+     sensitivity (biadv_grad_check); then
      api.ood_score with ood.score=pixel_d (both directions, 2,000
      examples) and api.sample (256 SIR draws through the SN latent D).
  19. knobs_train: the flagship with adversarial.d_lr_schedule=
@@ -169,7 +178,10 @@ Phases, one JSON line each:
      are cut to 4,096 images a split.
      NCCL refuses two ranks on one card: no run here has two cards.
 Each path runs once with the launch counters zeroed just before it and
-read just after; a kernel of the paths that did not launch fails the run.
+read just after; a kernel of the paths that did not launch fails the run
+(OFF_PATH lists the one kernel that no path launches, and a launch of it
+fails the run too). Under the standard prior the ELBO's z and KL come
+from one reparam launch and go back through one reparam_bwd launch.
 The likelihood forwards' launches on the paths by (rows, x rows, E) are a
 "launch_shapes" line (counted by this script's shims over the two
 wrappers).
@@ -245,6 +257,11 @@ REPLACES = {
     "groupnorm_gelu_bwd": "apv_tpu/ops/groupnorm.py:166",
     "conv3x3": "scripts/conv_microbench.py:67",
 }
+# Kernels that no main path launches: kl_bwd, the backward of kl alone,
+# serves the callers that differentiate ops.kl_standard by itself; the
+# ELBO's KL term goes back through reparam_bwd's launch. Phase 2 holds it
+# to its plain version; a main-path launch of it fails the run.
+OFF_PATH = ("kl_bwd",)
 # each kernel's __global__ functions, to find them in a profile
 KERNEL_FNS = {"reparam": ("reparam_samples",), "kl": ("kl_rows",),
               "disc_logistic": ("disc_logistic_rows",),
@@ -283,6 +300,12 @@ DIST_SETS = ("train.steps_per_call=1", "train.log_every=1",
              f"data.synthetic_size={DIST_SYNTHETIC}")
 BIADV = ("adversarial.variant=biadversarial", "adversarial.r1_gamma=1.0",
          "adversarial.d_spectral_norm=true")
+# A CIFAR train step's launches: reparam and its backward, the
+# likelihood's pair. Under the standard prior the reparam launch also sums
+# the KL and its backward takes the KL's term (no kl, no kl_bwd launch);
+# the trained priors' KL and the IWAE objective use no KL kernel.
+PER_CIFAR_STEP = {"reparam": 1, "disc_logistic": 1, "reparam_bwd": 1,
+                  "disc_logistic_bwd": 1}
 
 
 class CheckFailed(RuntimeError):
@@ -322,9 +345,12 @@ def mem_bw(name: str) -> float:
     return MEM_BW["H100"]
 
 
-def bound(name: str, card: str, nbytes: int, elems: int) -> dict:
+def bound(name: str, card: str, nbytes: int, elems: int,
+          ops: float | None = None) -> dict:
+    """The larger of the bytes' time and the operations' (``ops``, or
+    OPS_PER_ELEM[name] an element of ``elems``)."""
     t_bytes = nbytes / mem_bw(card)
-    t_ops = OPS_PER_ELEM[name] * elems / F32_OPS
+    t_ops = (OPS_PER_ELEM[name] * elems if ops is None else ops) / F32_OPS
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -520,7 +546,101 @@ def kernel_checks(K, card: str, dev) -> dict:
         "at": more}
     results.update(mnist_kernel_checks(K, card, rng, cuda))
     results.update(cifar_kernel_checks(K, card, rng, cuda))
+    fwd, bwd = posterior_kernel_checks(K, card, cuda)
+    results["reparam"]["with_kl"] = fwd
+    results["reparam_bwd"]["with_kl"] = bwd
     return results
+
+
+# [S, B, Z] of the ELBO's posterior op: the CIFAR and MNIST train steps, the
+# scorer's batch, the IWAE objective's S = 5, and an odd shape (the scalar
+# loads and stores, a KL block holding one row of its two)
+POSTERIOR_SHAPES = ((1, 256, 128), (1, 256, 40), (1, 64, 128),
+                    (5, 256, 128), (1, 7, 13))
+POSTERIOR_TIMED = ((1, 256, 128), (5, 256, 128))
+
+
+def posterior_kernel_checks(K, card: str, cuda) -> tuple[dict, dict]:
+    """The reparam kernel with its KL blocks (``reparam_kl_cuda``) and its
+    backward with the KL's row gradient (``reparam_bwd_cuda(g_kl=)``) and
+    without, at POSTERIOR_SHAPES: z within reparam's bar (1e-5 of 1 + |z|),
+    the KL within kl's (1e-4 + 1e-6·max |kl|), the gradients within
+    reparam_bwd's and kl_bwd's (1e-6 of 1 + |ref|) of their plain
+    versions; and whether the bits equal the unfused kernels' (reparam +
+    kl; reparam_bwd + kl_bwd + the add autograd made of them), which the
+    design expects. Times at POSTERIOR_TIMED, beside the unfused
+    kernels'. Returns (forward, backward) fields by shape."""
+    rng = np.random.default_rng(SEED + 39)
+    seed, offset = 0x0123456789ABCDEF, 42
+    fwd, bwd = {}, {}
+    for s_, b_, z_ in POSTERIOR_SHAPES:
+        tag, n = f"{s_}x{b_}x{z_}", b_ * z_
+        m = cuda(rng.normal(size=(b_, z_)).astype(np.float32))
+        lv = cuda(rng.uniform(-4.0, 1.0, size=(b_, z_)).astype(np.float32))
+        z, kl = K.reparam_kl_cuda(m, lv, s_, seed, offset)
+        zp, klp = K.reparam_kl_plain(m, lv, s_, seed, offset)
+        z_rel, kl_err = ulp_err(z, zp), float((kl - klp).abs().max())
+        kl_tol = 1e-4 + 1e-6 * float(klp.abs().max())
+        check(z_rel <= 1e-5 and kl_err <= kl_tol, f"reparam with kl {tag}: "
+              f"z {z_rel} (bar 1e-5), kl {kl_err} (bar {kl_tol})")
+        again = K.reparam_kl_cuda(m, lv, s_, seed, offset)
+        check(torch.equal(z, again[0]) and torch.equal(kl, again[1]),
+              f"reparam with kl {tag}: a second call gave other bits")
+        fwd[tag] = {
+            "shape": [s_, b_, z_], "max_rel_err_z": z_rel,
+            "max_abs_err_kl": kl_err, "tol_kl": kl_tol,
+            "equal_bits_to_unfused": torch.equal(
+                z, K.reparam_cuda(m, lv, s_, seed, offset))
+            and torch.equal(kl, K.kl_cuda(m, lv)),
+            # mean and logvar read once, z and kl written once
+            **bound("reparam", card, 4 * (2 * n + s_ * n + b_), s_ * n,
+                    ops=OPS_PER_ELEM["reparam"] * s_ * n
+                    + OPS_PER_ELEM["kl"] * n)}
+        g = cuda(rng.normal(size=(s_, b_, z_)).astype(np.float32))
+        g_kl = cuda(rng.normal(size=b_).astype(np.float32))
+        with_kl = K.reparam_bwd_cuda(g, z, m, g_kl=g_kl, logvar=lv)
+        without = K.reparam_bwd_cuda(g, z, m)
+        err_kl = max(ulp_err(a, b) for a, b in zip(
+            with_kl, K.reparam_bwd_plain(g, z, m, g_kl, lv)))
+        err_no = max(ulp_err(a, b) for a, b in zip(
+            without, K.reparam_bwd_plain(g, z, m)))
+        check(max(err_kl, err_no) <= 1e-6, f"reparam_bwd {tag}: max rel "
+              f"err {err_kl} with the KL's gradient, {err_no} without")
+        parts = K.kl_bwd_cuda(g_kl, m, lv)
+        bwd[tag] = {
+            "shape": [s_, b_, z_], "max_rel_err": err_kl,
+            "max_rel_err_without_kl": err_no,
+            "equal_bits_to_unfused": all(
+                torch.equal(a, b + c) for a, b, c in zip(with_kl, without,
+                                                         parts)),
+            # g and z read once, mean, logvar and g_kl once, two outputs
+            **bound("reparam_bwd", card, 4 * (2 * s_ * n + 2 * n + b_
+                                              + 2 * n), s_ * n,
+                    ops=OPS_PER_ELEM["reparam_bwd"] * s_ * n
+                    + (OPS_PER_ELEM["kl_bwd"] + 2) * n)}
+        if (s_, b_, z_) not in POSTERIOR_TIMED:
+            continue
+
+        def unfused_bwd():
+            a, b = K.reparam_bwd_cuda(g, z, m), K.kl_bwd_cuda(g_kl, m, lv)
+            return a[0] + b[0], a[1] + b[1]
+
+        fwd[tag].update(
+            ms=cuda_ms(lambda: K.reparam_kl_cuda(m, lv, s_, seed, offset),
+                       500),
+            unfused_ms=cuda_ms(lambda: (K.reparam_cuda(m, lv, s_, seed,
+                                                       offset),
+                                        K.kl_cuda(m, lv)), 500),
+            plain_ms=cuda_ms(lambda: K.reparam_kl_plain(m, lv, s_, seed,
+                                                        offset), 50))
+        bwd[tag].update(
+            ms=cuda_ms(lambda: K.reparam_bwd_cuda(g, z, m, g_kl=g_kl,
+                                                  logvar=lv), 500),
+            ms_without_kl=cuda_ms(lambda: K.reparam_bwd_cuda(g, z, m), 500),
+            unfused_ms=cuda_ms(unfused_bwd, 500),
+            plain_ms=cuda_ms(lambda: K.reparam_bwd_plain(g, z, m, g_kl, lv),
+                             50))
+    return fwd, bwd
 
 
 def ulp_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1118,7 +1238,7 @@ def scorer_phase(phase, cfg, model, d, x, dev):
     launches = path_counts(K)
     recon = "bernoulli" if cfg.model.likelihood == "bernoulli" \
         else "disc_logistic"
-    check(launches == expected(K, reparam=1, kl=1, **{recon: 1}),
+    check(launches == expected(K, reparam=1, **{recon: 1}),
           f"{phase} launches {launches}")
     check(elbo.shape == (x.shape[0],) and bool(torch.isfinite(elbo).all()),
           f"{phase}: ELBO not finite or of the wrong shape")
@@ -1326,8 +1446,8 @@ def train_phase(dev, tmp: str):
     state = run_train(cfg, arrays, dev)
     wall_checked = time.perf_counter() - t0
     launches = path_counts(K)
-    per_step = {"reparam": 1, "kl": 1, "bernoulli": 1, "reparam_bwd": 1,
-                "kl_bwd": 1, "bernoulli_bwd": 1}
+    per_step = {"reparam": 1, "bernoulli": 1, "reparam_bwd": 1,
+                "bernoulli_bwd": 1}
     check(launches == expected(K, **{n: TRAIN_STEPS * c
                                      for n, c in per_step.items()}),
           f"train launches {launches}")
@@ -1448,10 +1568,8 @@ def cifar_train_phase(dev, tmp: str):
         torch.cuda.synchronize()
         wall_second = time.perf_counter() - t0
     launches = path_counts(K)
-    per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1, "reparam_bwd": 1,
-                "kl_bwd": 1, "disc_logistic_bwd": 1}
-    per_valid = {"reparam": 1, "kl": 1, "disc_logistic": 1}
-    want = {n: CIFAR_STEPS * per_step.get(n, 0)
+    per_valid = {"reparam": 1, "disc_logistic": 1}
+    want = {n: CIFAR_STEPS * PER_CIFAR_STEP.get(n, 0)
             + 2 * valid_batches * per_valid.get(n, 0) for n in K.launches}
     check(launches == want, f"cifar_train launches {launches}, want {want}")
     check(state.step == CIFAR_STEPS and latest_step(ckpt_dir) == CIFAR_STEPS,
@@ -1528,7 +1646,7 @@ def cifar_ckpt_phase(cfg, state, tmp: str, dev):
     elbo = scorer(x, generator=gen(SEED))
     torch.cuda.synchronize()
     launches = path_counts(K)
-    check(launches == expected(K, reparam=1, kl=1, disc_logistic=1),
+    check(launches == expected(K, reparam=1, disc_logistic=1),
           f"cifar_ckpt scorer launches {launches}")
     check(bool(torch.isfinite(elbo).all()) and torch.equal(elbo, elbo_mem),
           "cifar_ckpt: the restored model's ELBO differs from the trained "
@@ -1652,10 +1770,8 @@ def prior_phase(phase: str, preset: str, arrays, tmp: str, dev) -> dict:
           and cfg.adversarial.enabled == gauss,
           f"{phase}: {preset} has prior {cfg.model.prior}, adversarial "
           f"{cfg.adversarial.enabled}")
-    per_step = {"reparam": 1, "disc_logistic": 1, "reparam_bwd": 1,
-                "disc_logistic_bwd": 1}
     state, launches, records, wall, (first, last) = checked_train(
-        phase, cfg, arrays, dev, per_step)
+        phase, cfg, arrays, dev, PER_CIFAR_STEP)
 
     fresh = make_train_fns(cfg, device=dev).init_fn(cfg.train.seed)
     restore_checkpoint(Path(tmp) / cfg.name / "checkpoints", fresh)
@@ -1685,7 +1801,7 @@ def prior_phase(phase: str, preset: str, arrays, tmp: str, dev) -> dict:
     elbo = scorer(x, generator=gen(SEED))
     torch.cuda.synchronize()
     sc_launches = path_counts(K)
-    check(sc_launches == expected(K, reparam=1, kl=1, disc_logistic=1),
+    check(sc_launches == expected(K, reparam=1, disc_logistic=1),
           f"{phase} scorer launches {sc_launches}")
     check(bool(torch.isfinite(elbo).all()), f"{phase}: ELBO not finite")
     elbo_np = elbo.double().cpu().numpy()
@@ -1962,10 +2078,8 @@ def front_door_phase(dev) -> dict:
     """Phase 17: the port's CLI as a user runs it (module docstring)."""
     from apv_tpu_torch import latest_step
     from apv_tpu_torch.ops import kernels as K
-    per_cifar = {"reparam": 1, "kl": 1, "disc_logistic": 1,
-                 "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
-    per_mnist = {"reparam": 1, "kl": 1, "bernoulli": 1, "reparam_bwd": 1,
-                 "kl_bwd": 1, "bernoulli_bwd": 1}
+    per_mnist = {"reparam": 1, "bernoulli": 1, "reparam_bwd": 1,
+                 "bernoulli_bwd": 1}
     total = expected(K)
     walls, results = {}, {}
 
@@ -1986,13 +2100,13 @@ def front_door_phase(dev) -> dict:
             tag="train")
         check(f"trained to step {first}" in out, f"front_door train: {out}")
         add("train", launches, expected(K, **{n: first * c
-                                               for n, c in per_cifar.items()}))
+                                               for n, c in PER_CIFAR_STEP.items()}))
         trace = trace_dir / "trace_steps_10-15.json"
         check(trace.exists(), f"front_door: no trace at {trace}")
         blob = trace.read_bytes()
         traced = {name: any(f"{fn}(".encode() in blob
                             or f"{fn}<".encode() in blob for fn in fns)
-                  for name, fns in KERNEL_FNS.items() if name in per_cifar}
+                  for name, fns in KERNEL_FNS.items() if name in PER_CIFAR_STEP}
         check(all(traced.values()), f"front_door: the trace of steps 10-15 "
               f"misses kernels {traced}")
         out, launches, walls["resume"] = run_cli(
@@ -2002,7 +2116,7 @@ def front_door_phase(dev) -> dict:
               and latest_step(run / "checkpoints") == first + more,
               f"front_door resume: {out}")
         add("resume", launches, expected(K, **{n: more * c for n, c in
-                                                per_cifar.items()}))
+                                                PER_CIFAR_STEP.items()}))
         for prior in ("model", "expost"):
             out, launches, walls[f"evaluate_{prior}"] = run_cli(
                 ["evaluate", "--preset", "iwae_eval", "--checkpoint-dir",
@@ -2061,10 +2175,6 @@ def front_door_phase(dev) -> dict:
              trace_bytes=len(blob), traced_kernels=traced,
              evaluate=results, synthetic_size=FRONT_SYNTHETIC)
     return total
-
-
-PER_CIFAR_STEP = {"reparam": 1, "kl": 1, "disc_logistic": 1,
-                  "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
 
 
 def dist_config(results_dir: str, name: str, *extra: str):
@@ -2254,7 +2364,29 @@ def distributed_phase(tmp: str, dev, h: dict) -> dict:
     return total
 
 
-def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
+def d_masks(d32, z: torch.Tensor, x: torch.Tensor) -> dict:
+    """The activation masks of the two Ds' LeakyReLUs (pre-activation >= 0,
+    flax's derivative at 0) on the latent D's z and the pixel D's x, one
+    [B, units] tensor a layer, by D."""
+    from apv_tpu_torch.models.discriminator import leaky_relu
+    lat, px = d32["latent"], d32["pixel"]
+    masks = {"latent": [], "pixel": []}
+    with torch.no_grad():
+        h = z.to(torch.float32)
+        for layer in lat.layers[:-1]:
+            pre = layer(h)
+            masks["latent"].append((pre >= 0).flatten(1))
+            h = leaky_relu(pre, lat.negative_slope)
+        h = x.permute(0, 3, 1, 2).to(px.dtype)
+        for conv in px.convs:
+            pre = conv(h)
+            masks["pixel"].append((pre >= 0).flatten(1))
+            h = leaky_relu(pre, px.negative_slope)
+    return masks
+
+
+def biadv_grad_check(cfg, state, x_in, x_target, dev, seed: int = SEED,
+                     strict: bool = True) -> dict:
     """One biadversarial G step's gradients through the kernels against
     the step written out with the kernels' plain versions on the same
     Philox draws (f32 compute, the pixel D too, and deterministic cuDNN,
@@ -2262,14 +2394,25 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
     through z_q and x̂ alone, so those are held to the plain path's
     (z at reparam's bar in phase 2, 1e-5; x̂ in [0, 1] at 1e-4), and its
     gradients (latent and pixel BCE, both R1 penalties, ``d_objective``)
-    to the D loss written out on the same z_q and x̂ at 1e-3. Across the
-    two paths' inputs the D gradients are held to max(1e-3, twice the
-    witness): the witness is how far the same D gradients move, on the
-    plain path alone, when its inputs are mirrored about themselves by
-    the kernels' difference (z_p − (z_k − z_p), x̂ likewise, clipped to
-    [0, 1]) or moved by N(0, 1e-6²) noise, so it measures D's own
-    sensitivity to inputs that close, which no kernel enters; the plain
-    inputs' gradients computed twice give the run-to-run floor."""
+    to the D loss written out on the same z_q and x̂ at 1e-3.
+
+    Across the two paths' inputs the D gradients are held to max(1e-3,
+    twice the witness) on the rows whose inputs give both Ds the same
+    activation masks in every layer on both paths. The Ds are piecewise
+    linear (LeakyReLU) and their R1 penalties differentiate through the
+    masks: a pre-activation within the inputs' ~1e-6 of 0 changes slope
+    and moves the D gradient by a finite step that no kernel causes. The
+    units that flip and the rows they lie in are counted and reported;
+    the flipped rows are left out of this comparison only (``rel_d`` holds
+    the whole D step at the kernel path's own inputs). The witness is how
+    far the same rows' D gradients move, on the plain path alone, when its
+    inputs are mirrored about themselves by the kernels' difference (z_p −
+    (z_k − z_p), x̂ likewise, clipped to [0, 1]) or moved by N(0, 1e-6²)
+    noise: D's own sensitivity to inputs that close, which no kernel
+    enters; the plain inputs' gradients computed twice give the run-to-run
+    floor. ``seed`` shifts every draw of the check (the G step's Philox
+    key, z_p, the noise); with ``strict`` False the failed bars are
+    returned under ``failed`` instead of raised."""
     from apv_tpu_torch import build_model
     from apv_tpu_torch.models import PixelDiscriminator
     from apv_tpu_torch.ops import kernels as K
@@ -2288,11 +2431,11 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
         d32 = torch.nn.ModuleDict({"latent": lat, "pixel": px})
         params = list(m32.parameters())
         loss_k, aux, z_k = g_objective(cfg, m32, lat, x_in, x_target, 1.0,
-                                       generator=gen(SEED + 5), px=px)
+                                       generator=gen(seed + 5), px=px)
         grads_k = torch.autograd.grad(loss_k, params)
 
         mean, logvar = m32.encode(x_in)
-        z = K.reparam_plain(mean, logvar, 1, *K.draw_key(gen(SEED + 5)))[0]
+        z = K.reparam_plain(mean, logvar, 1, *K.draw_key(gen(seed + 5)))[0]
         lik = decoder_output_to_likelihood_params(
             m32.decode(z), cfg.model.likelihood, x_target.shape[-1])
         x_hat = torch.clamp(lik[0], 0.0, 1.0)
@@ -2307,7 +2450,7 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
                       / z.detach().abs().max())
         x_hat_err = float((xh - x_hat.detach()).abs().max())
         z_p = torch.randn(z.shape, device=dev,
-                          generator=torch.Generator(dev).manual_seed(SEED + 9))
+                          generator=torch.Generator(dev).manual_seed(seed + 9))
         d_params = list(d32.parameters())
         total_k, _ = d_objective(cfg, d32, zq, z_p, x_target, xh)
         gd_k = torch.autograd.grad(total_k, d_params, allow_unused=True)
@@ -2328,20 +2471,37 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
                    + a.r1_gamma * r1(px, x_target))
         gd_p = torch.autograd.grad(total_p, d_params, allow_unused=True)
 
-        def d_grads(z_in, x_in_d):
-            total, _ = d_objective(cfg, d32, z_in, z_p, x_target, x_in_d)
+        z0, x0 = z.detach(), x_hat.detach()
+        # the rows on which both paths' inputs give both Ds the same masks
+        m_k, m_p = d_masks(d32, zq, xh), d_masks(d32, z0, x0)
+        flips = {part: [int((a_ != b_).sum()) for a_, b_ in
+                        zip(m_k[part], m_p[part])] for part in m_k}
+        same = torch.stack([(a_ == b_).all(dim=1) for part in m_k
+                            for a_, b_ in zip(m_k[part], m_p[part])]).all(0)
+        keep = same.nonzero().flatten()
+
+        def d_grads(z_in, x_in_d, rows=keep):
+            total, _ = d_objective(cfg, d32, z_in[rows], z_p[rows],
+                                   x_target[rows], x_in_d[rows])
             return torch.autograd.grad(total, d_params, allow_unused=True)
 
-        z0, x0 = z.detach(), x_hat.detach()
-        noise = torch.Generator(dev).manual_seed(SEED + 10)
+        noise = torch.Generator(dev).manual_seed(seed + 10)
+        moved = {"mirror": (2 * z0 - zq, (2 * x0 - xh).clamp(0.0, 1.0)),
+                 "noise": (z0 + 1e-6 * z0.abs().max() * torch.randn(
+                     z0.shape, device=dev, generator=noise),
+                     (x0 + 1e-6 * torch.randn(
+                         x0.shape, device=dev, generator=noise)).clamp(
+                             0.0, 1.0))}
+        gd_cross = d_grads(zq, xh)
         gd_plain = d_grads(z0, x0)
-        gd_again = d_grads(z0, x0)
-        gd_mirror = d_grads(2 * z0 - zq, (2 * x0 - xh).clamp(0.0, 1.0))
-        gd_noise = d_grads(
-            z0 + 1e-6 * z0.abs().max() * torch.randn(
-                z0.shape, device=dev, generator=noise),
-            (x0 + 1e-6 * torch.randn(x0.shape, device=dev,
-                                     generator=noise)).clamp(0.0, 1.0))
+        gd_moved = {"repeat": d_grads(z0, x0),
+                    **{how: d_grads(*v) for how, v in moved.items()}}
+        if not strict:
+            # the comparison over every row, flipped ones included, with
+            # its witness: the form this check had before (reported only)
+            every = torch.arange(z0.shape[0], device=dev)
+            gd_every = (gd_k, d_grads(z0, x0, every),
+                        {how: d_grads(*v, every) for how, v in moved.items()})
         torch.cuda.synchronize()
 
     def rel(gs_a, gs_b, names=None, part=""):
@@ -2352,31 +2512,89 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev) -> dict:
 
     rel_g, rel_d = rel(grads_k, grads_p), rel(gd_k, gd_p)
     d_names = [nm for nm, _ in d32.named_parameters()]
-    cross = {part: rel(gd_k, gd_plain, d_names, part)
-             for part in ("latent", "pixel")}
+    parts = ("latent", "pixel")
+    cross = {part: rel(gd_cross, gd_plain, d_names, part) for part in parts}
     witness = {f"{how}_{part}": rel(g, gd_plain, d_names, part)
-               for how, g in (("mirror", gd_mirror), ("noise", gd_noise),
-                              ("repeat", gd_again))
-               for part in ("latent", "pixel")}
+               for how, g in gd_moved.items() for part in parts}
     d_bar = max(1e-3, 2 * max(v for k_, v in witness.items()
                               if not k_.startswith("repeat")))
-    check(rel_g <= 1e-3, f"biadv_train: G gradients kernels vs plain, "
-          f"scale-relative {rel_g} > 1e-3")
-    check(z_err <= 1e-5 and x_hat_err <= 1e-4, f"biadv_train: the D step's "
-          f"inputs, kernels vs plain: z_q {z_err} (bar 1e-5 of max|z|), "
-          f"x̂ {x_hat_err} (bar 1e-4)")
-    check(rel_d <= 1e-3, f"biadv_train: D gradients vs the D loss written "
-          f"out, scale-relative {rel_d} > 1e-3")
-    check(max(cross.values()) <= d_bar, f"biadv_train: D gradients at the "
-          f"kernels' inputs vs the plain path's, scale-relative {cross} > "
-          f"{d_bar} (witness {witness})")
+    every_rows = {}
+    if not strict:
+        g_k, g_p, g_m = gd_every
+        w_every = max(rel(g, g_p, d_names, part) for g in g_m.values()
+                      for part in parts)
+        every_rows = {"d_grad_cross_path_every_row": {
+            part: rel(g_k, g_p, d_names, part) for part in parts},
+            "d_grad_cross_bar_every_row": max(1e-3, 2 * w_every)}
+    rows = int(z0.shape[0])
+    bars = [
+        (rel_g <= 1e-3, f"biadv_train: G gradients kernels vs plain, "
+         f"scale-relative {rel_g} > 1e-3"),
+        (z_err <= 1e-5 and x_hat_err <= 1e-4, f"biadv_train: the D step's "
+         f"inputs, kernels vs plain: z_q {z_err} (bar 1e-5 of max|z|), "
+         f"x̂ {x_hat_err} (bar 1e-4)"),
+        (rel_d <= 1e-3, f"biadv_train: D gradients vs the D loss written "
+         f"out, scale-relative {rel_d} > 1e-3"),
+        # a kernel fault moves every row: most must keep their masks
+        (2 * len(keep) >= rows, f"biadv_train: {rows - len(keep)} of "
+         f"{rows} rows change a D activation mask across the paths' "
+         f"inputs (flipped units {flips})"),
+        (max(cross.values()) <= d_bar, f"biadv_train: D gradients at the "
+         f"kernels' inputs vs the plain path's on the {len(keep)} rows of "
+         f"equal masks, scale-relative {cross} > {d_bar} (witness "
+         f"{witness})")]
+    failed = [msg for ok, msg in bars if not ok]
+    if strict and failed:
+        check(False, failed[0])
     return {"grad_max_scale_rel_err": rel_g, "d_grad_max_scale_rel_err":
             rel_d, "d_grad_cross_path": cross, "d_grad_witness": witness,
-            "d_grad_cross_bar": d_bar,
+            "d_grad_cross_bar": d_bar, **every_rows,
+            "d_mask_flips": flips, "d_rows_compared": len(keep),
+            "d_rows": rows,
             "d_input_z_rel_err": z_err, "d_input_x_hat_err":
             x_hat_err, "loss_kernels": float(loss_k.detach()),
             "loss_plain": float(loss_p.detach()),
-            "d_total": float(total_k.detach())}
+            "d_total": float(total_k.detach()), "failed": failed}
+
+
+def biadv_seeds(n: int, dev) -> int:
+    """``--biadv-seeds N``: the biadversarial flagship trained as phase 18
+    trains it (on the synthetic set of phases 14-16), then
+    ``biadv_grad_check`` at N seeds of its inputs: seed k takes the k-th
+    batch of 256, its own dequantization noise and check draws (k = 0 is
+    phase 18's check). One ``biadv_seed`` line a seed with the flipped
+    units, the rows compared, the held comparison and the every-row one
+    it replaced; then a summary. Returns 1 if a seed failed a bar."""
+    from apv_tpu_torch.data.preprocess import (normalize_center,
+                                               uniform_dequantize)
+    from apv_tpu_torch.training.loop import load_train_arrays
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays, _ = load_train_arrays(prior_config("cifar_gb", tmp,
+                                                   PRIOR_STEPS))
+        cfg = prior_config("cifar_advprior_resnet", tmp, BIADV_STEPS,
+                           "name=cifar_biadv", *BIADV)
+        state, *_ = checked_train("biadv_seeds", cfg, arrays, dev,
+                                  PER_CIFAR_STEP)
+        b = cfg.train.batch_size
+        failed, every_failed = [], []
+        for k in range(n):
+            image = torch.from_numpy(arrays["image"][k * b:(k + 1) * b]).to(
+                dev)
+            u = torch.rand(image.shape, device=dev, generator=torch.Generator(
+                dev).manual_seed(SEED + 7 + 100 * k))
+            r = biadv_grad_check(cfg, state, normalize_center(
+                uniform_dequantize(image, u=u)), image.to(torch.float32)
+                / 255.0, dev, seed=SEED + 100 * k, strict=False)
+            emit("biadv_seed", seed_index=k, **r)
+            if r["failed"]:
+                failed.append(k)
+            if max(r["d_grad_cross_path_every_row"].values()) \
+                    > r["d_grad_cross_bar_every_row"]:
+                every_failed.append(k)
+        emit("biadv_seeds", seeds=n, failed=failed,
+             every_row_form_failed=every_failed,
+             card=torch.cuda.get_device_name(0))
+    return 1 if failed else 0
 
 
 def biadv_train_phase(arrays, tmp: str, dev):
@@ -2395,10 +2613,8 @@ def biadv_train_phase(arrays, tmp: str, dev):
           f"biadv_train: adversarial section {a}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1,
-                "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
     state, launches, records, wall, (first, last) = checked_train(
-        "biadv_train", cfg, arrays, dev, per_step)
+        "biadv_train", cfg, arrays, dev, PER_CIFAR_STEP)
     peak = torch.cuda.max_memory_allocated()
     keys = ("d_loss", "px_d_loss", "d_r1", "px_d_r1", "g_px", "px_d_acc")
     check(all(k in r for r in records for k in keys),
@@ -2512,8 +2728,7 @@ def knobs_train_phase(arrays, tmp: str, dev, flagship_s: float):
     check((cfg.adversarial.d_lr_schedule, cfg.train.ema_decay,
            cfg.train.grad_accum) == ("floor_adaptive", 0.999, 2),
           f"knobs_train: the knobs are not on: {cfg.train}")
-    per_step = {"reparam": 1, "kl": 1, "disc_logistic": 1,
-                "reparam_bwd": 1, "kl_bwd": 1, "disc_logistic_bwd": 1}
+    per_step = PER_CIFAR_STEP
     with deterministic_cudnn():
         state, launches, records, wall, (first, last) = checked_train(
             "knobs_train", cfg, arrays, dev, per_step)
@@ -2641,9 +2856,8 @@ def mix_train_phase(arrays, tmp: str, dev, flagship_s: float):
     check_flagship_width("mix_train", cfg)
     check(cfg.model.likelihood == "disc_logistic_mix"
           and cfg.model.mix_components == 5, f"mix_train: {cfg.model}")
-    per_step = {"reparam": 1, "kl": 1, "reparam_bwd": 1, "kl_bwd": 1}
     state, launches, records, wall, (first, last) = checked_train(
-        "mix_train", cfg, arrays, dev, per_step)
+        "mix_train", cfg, arrays, dev, {"reparam": 1, "reparam_bwd": 1})
     check(state.model.decoder.head.weight.shape[0] == 45,
           "mix_train: the decoder head is not 3·K·C = 45 channels")
     image = torch.from_numpy(arrays["image"][:cfg.train.batch_size]).to(dev)
@@ -3328,6 +3542,10 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--quality-gate", action="store_true",
                     help="also run the 3k-step CIFAR gate and IWAE k=100 "
                          "on 512 test images (a few minutes)")
+    ap.add_argument("--biadv-seeds", type=int, default=0, metavar="N",
+                    help="instead of the paths: train the biadversarial "
+                         "flagship as phase 18 does and run its gradient "
+                         "check at N seeds of its inputs")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3357,6 +3575,8 @@ def main(argv: list[str]) -> int:
          cuda=torch.version.cuda, device_count=torch.cuda.device_count(),
          build_s=_build.build_seconds,
          load_s=time.perf_counter() - t0)
+    if args.biadv_seeds:
+        return biadv_seeds(args.biadv_seeds, dev)
 
     # 2. kernels
     with torch.inference_mode():
@@ -3485,7 +3705,9 @@ def main(argv: list[str]) -> int:
     total = {n: sum(pl[n] for pl in path_launches.values())
              for n in K.launches}
     for name, n in total.items():
-        check(n > 0, f"{name} was not launched on the main paths")
+        check((n > 0) != (name in OFF_PATH), f"{name}: {n} launches on "
+              f"the main paths, {'none' if name in OFF_PATH else 'some'} "
+              "expected")
     emit("launch_shapes", shapes=[
         {"name": name, "rows": r, "x_rows": b, "event": e, "launches": n}
         for (name, (r, b, e)), n in sorted(PATH_SHAPES.items())])

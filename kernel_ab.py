@@ -27,13 +27,19 @@ change, change, parent; per run (``ITERS`` launches):
   interleaves each launch with a one-element ``neg_`` whose device time
   is the window's ``floor_us`` (the least a launch costs the card).
 
-With ``--host``: the two likelihood ops as the paths call them, through
-each checkout's own wrappers (``apv_tpu_torch.ops``, its autograd
-rules, ``ops/kernels.py`` and the launch), host µs a call over
+With ``--host``: the two likelihood ops and the ELBO's posterior (z and
+its KL, forward and forward with backward) as the paths call them,
+through each checkout's own wrappers (``apv_tpu_torch.ops``, its
+autograd rules, ``ops/kernels.py`` and the launch), host µs a call over
 back-to-back calls (``"kind": "host"``), each checkout in a process of
 its own (``python3 -P`` with that checkout on ``PYTHONPATH``), in the
 order parent, change, change, parent. The parent's IWAE-chunk call
 expands x to the parameters' rows first, as its paths did.
+
+Rows whose parent build has the older ``apv_reparam`` and
+``apv_reparam_bwd`` (no KL argument) launch, on the parent's side,
+what the parent's paths launched for the same outputs: ``apv_reparam``
+then ``apv_kl``; ``apv_reparam_bwd``, ``apv_kl_bwd`` and the two adds.
 
 With ``--sass OUT``: ``nvcc -Xptxas -v`` and ``cuobjdump -sass`` of both
 builds of the rows' sources, written to OUT, with a summary line per
@@ -104,22 +110,97 @@ def _seeded(rng, shape, scale=1.0, shift=0.0, dtype=torch.float32,
         np.float32)).to(dev, dtype)
 
 
-def reparam_call(samples: int, shape: tuple[int, ...], lib: ctypes.CDLL,
-                 dev: torch.device) -> Call:
-    """``apv_reparam`` on seeded [*shape] inputs."""
+def _posterior(shape: tuple[int, ...], dev: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded mean and logvar [*shape]."""
     rng = np.random.default_rng(0)
     mean = _seeded(rng, shape, dev=dev)
     logvar = torch.from_numpy(
         rng.uniform(-4.0, 1.0, size=shape).astype(np.float32)).to(dev)
+    return mean, logvar
+
+
+PHILOX_KEY = (0x0123456789ABCDEF, 42)
+OLD_REPARAM_ARGS = 8     # the entry points before the KL was folded in
+OLD_REPARAM_BWD_ARGS = 8
+
+
+def _reparam_launch(lib: ctypes.CDLL, mean, logvar, z, kl, samples: int):
+    """``apv_reparam`` in either signature: z, and the per-row KL where
+    ``kl`` is a tensor (a build whose entry point takes no KL launches
+    ``apv_kl`` after it, as that build's paths did)."""
+    fn, seed, offset = lib.apv_reparam, *PHILOX_KEY
+    rows = mean.shape[0]
+    if len(fn.argtypes) == OLD_REPARAM_ARGS:
+        _ok(fn(mean.data_ptr(), logvar.data_ptr(), z.data_ptr(), samples,
+               mean.numel(), seed, offset, _stream()))
+        if kl is not None:
+            _ok(lib.apv_kl(mean.data_ptr(), logvar.data_ptr(), kl.data_ptr(),
+                           rows, mean.numel() // rows, _stream()))
+        return
+    _ok(fn(mean.data_ptr(), logvar.data_ptr(), z.data_ptr(),
+           None if kl is None else kl.data_ptr(), samples, mean.numel(),
+           mean.numel() // rows, seed, offset, _stream()))
+
+
+def reparam_call(samples: int, shape: tuple[int, ...], lib: ctypes.CDLL,
+                 dev: torch.device, with_kl: bool = False) -> Call:
+    """``apv_reparam`` on seeded [*shape] inputs; with ``with_kl`` the
+    per-row KL too (one launch, or the older build's two)."""
+    mean, logvar = _posterior(shape, dev)
     z = torch.empty((samples, *shape), dtype=torch.float32, device=dev)
-    seed, offset = 0x0123456789ABCDEF, 42
+    kl = torch.empty(shape[0], dtype=torch.float32, device=dev) \
+        if with_kl else None
+    outputs = (z,) if kl is None else (z, kl)
 
-    def launch():
-        _ok(lib.apv_reparam(mean.data_ptr(), logvar.data_ptr(), z.data_ptr(),
-                            samples, mean.numel(), seed, offset, _stream()))
+    def plain():
+        z_p = K.reparam_plain(mean, logvar, samples, *PHILOX_KEY)
+        return (z_p,) if kl is None else (z_p, K.kl_plain(mean, logvar))
 
-    return Call(launch, (z,), lambda: (K.reparam_plain(mean, logvar, samples,
-                                                       seed, offset),))
+    return Call(lambda: _reparam_launch(lib, mean, logvar, z, kl, samples),
+                outputs, plain)
+
+
+def reparam_bwd_call(samples: int, shape: tuple[int, ...], lib: ctypes.CDLL,
+                     dev: torch.device, with_kl: bool = False) -> Call:
+    """``apv_reparam_bwd`` on seeded g and z [samples, *shape]; with
+    ``with_kl`` the KL's row gradient too: one launch, or in a build whose
+    entry point takes no KL, ``apv_reparam_bwd``, ``apv_kl_bwd`` and the
+    two adds that autograd made of their outputs."""
+    mean, logvar = _posterior(shape, dev)
+    rng = np.random.default_rng(6)
+    g, z = (_seeded(rng, (samples, *shape), dev=dev) for _ in range(2))
+    g_kl = _seeded(rng, shape[0], dev=dev) if with_kl else None
+    dmean, dlogvar = torch.empty_like(mean), torch.empty_like(mean)
+    fn, n, rows = lib.apv_reparam_bwd, mean.numel(), shape[0]
+    if len(fn.argtypes) == OLD_REPARAM_BWD_ARGS:
+        parts = [torch.empty_like(mean) for _ in range(4)]
+
+        def launch():
+            if g_kl is None:
+                _ok(fn(g.data_ptr(), z.data_ptr(), mean.data_ptr(),
+                       dmean.data_ptr(), dlogvar.data_ptr(), samples, n,
+                       _stream()))
+                return
+            _ok(fn(g.data_ptr(), z.data_ptr(), mean.data_ptr(),
+                   parts[0].data_ptr(), parts[1].data_ptr(), samples, n,
+                   _stream()))
+            _ok(lib.apv_kl_bwd(g_kl.data_ptr(), mean.data_ptr(),
+                               logvar.data_ptr(), parts[2].data_ptr(),
+                               parts[3].data_ptr(), rows, n // rows,
+                               _stream()))
+            torch.add(parts[0], parts[2], out=dmean)
+            torch.add(parts[1], parts[3], out=dlogvar)
+    else:
+        def launch():
+            kl_args = ((logvar.data_ptr(), g_kl.data_ptr()) if with_kl
+                       else (None, None))
+            _ok(fn(g.data_ptr(), z.data_ptr(), mean.data_ptr(), *kl_args,
+                   dmean.data_ptr(), dlogvar.data_ptr(), samples, n,
+                   n // rows, _stream()))
+
+    return Call(launch, (dmean, dlogvar), lambda: K.reparam_bwd_plain(
+        g, z, mean, g_kl, logvar if with_kl else None))
 
 
 def _gn_inputs(dtype: torch.dtype, dev: torch.device):
@@ -346,6 +427,9 @@ class Case(NamedTuple):
     functions: tuple[tuple[str, ...], tuple[str, ...]]
     routes: tuple[str, ...] = ()       # names of the reported routes
     timed: bool = True
+    # PyTorch's kernels that a version's launch also runs (the parent's
+    # adds of two kernels' outputs), counted with ``functions[1]``
+    torch_functions: tuple[str, ...] = ()
 
 
 _GN_FWD_FNS = (("groupnorm_gelu_image", "groupnorm_gelu_rows"), ())
@@ -357,6 +441,29 @@ CASES = (
            (("reparam_samples",), ()), timed=timed)
       for s, shape, timed in ((25, (64, 128), True), (50, (64, 128), True),
                               (1, (256, 128), True), (3, (7, 5), False))),
+    # z and the per-row KL: the change's one launch, the parent's reparam
+    # and kl launches (the ELBO paths' posterior at S = 1); [7, 13] takes
+    # the scalar loads and a KL block with one row of its two
+    *(Case("reparam+kl", (1, *shape), torch.float32, "reparam.cu",
+           functools.partial(reparam_call, 1, shape, with_kl=True),
+           parents_bits(1e-5), (("reparam_samples",), ("kl_rows",)),
+           timed=timed)
+      for shape, timed in (((256, 128), True), ((256, 40), False),
+                           ((64, 128), False), ((7, 13), False))),
+    # the backward without the KL (the IWAE objective's S = 5 and the
+    # train step's S = 1) and with it (the change's one launch, the
+    # parent's reparam_bwd, kl_bwd and the two adds)
+    *(Case("reparam_bwd", (s, *shape), torch.float32, "reparam.cu",
+           functools.partial(reparam_bwd_call, s, shape),
+           parents_bits(1e-6), (("reparam_bwd_sum",), ()), timed=timed)
+      for s, shape, timed in ((5, (256, 128), True), (1, (256, 128), True),
+                              (3, (7, 5), False))),
+    *(Case("reparam_bwd+kl_bwd", (1, *shape), torch.float32, "reparam.cu",
+           functools.partial(reparam_bwd_call, 1, shape, with_kl=True),
+           parents_bits(1e-6), (("reparam_bwd_sum",), ("kl_bwd_rows",)),
+           timed=timed, torch_functions=("CUDAFunctor_add",))
+      for shape, timed in (((256, 128), True), ((256, 40), False),
+                           ((64, 128), False), ((7, 13), False))),
     *(Case("groupnorm_gelu", GN_SHAPE, dtype, "groupnorm_gelu.cu",
            functools.partial(gn_fwd_call, dtype), gn_forward_bars(dtype),
            _GN_FWD_FNS, K.GN_KERNELS)
@@ -419,7 +526,8 @@ def queued_us(launch, iters: int = ITERS) -> float:
 def device_us(launch, functions: tuple[tuple[str, ...], tuple[str, ...]],
               iters: int = ITERS) -> tuple[float | None, float | None]:
     """(device µs a launch of ``functions`` summed, the one-element
-    ``neg_``'s device µs a launch) from one profiler window."""
+    ``neg_``'s device µs a launch) from one profiler window; a launch of
+    ``functions[0]`` counts one call, ``functions[1]``'s are its own."""
     from torch.profiler import ProfilerActivity, profile
     one = torch.zeros(1, device="cuda")
     launch()
@@ -457,7 +565,9 @@ def measure(case: Case, libs: dict, dev: torch.device) -> None:
     runs = collections.defaultdict(list)
     for version in ("parent", "change", "change", "parent"):
         launch = calls[version].launch
-        dev_us, floor = device_us(launch, case.functions)
+        main, beside = case.functions
+        dev_us, floor = device_us(launch, (main,
+                                           beside + case.torch_functions))
         runs[version].append({"call_us": call_us(launch),
                               "queued_us": queued_us(launch),
                               "device_us": dev_us, "floor_us": floor})
@@ -619,9 +729,11 @@ def host_us(fn, iters: int = 1000) -> float:
 def host_child(version: str, lib_dir: Path) -> None:
     """The ``--host`` timings of the checkout this process imported
     ``apv_tpu_torch`` from, its kernels built into ``lib_dir``: the train
-    steps' calls (x at the parameters' rows, forward and forward with
-    backward) and the IWAE chunk's (mean, log_scale [25·64, ...] beside
-    the batch's x [64, ...])."""
+    steps' likelihood calls (x at the parameters' rows, forward and
+    forward with backward), the IWAE chunk's (mean, log_scale [25·64, ...]
+    beside the batch's x [64, ...]) and the flagship step's posterior, z
+    and its KL at [256, 128] (``ops.reparam_kl`` where the checkout has
+    it, else ``reparam_sample`` and ``kl_standard``)."""
     import inspect
     from apv_tpu_torch import ops
     _build.library = functools.cache(
@@ -643,6 +755,16 @@ def host_child(version: str, lib_dir: Path) -> None:
               for lo, hi in ((-0.2, 1.2), (-7.0, 0.0)))
     broadcast = "samples" in inspect.signature(
         ops.disc_logistic_recon_ll).parameters
+    mp, lp = ([dev(rng.normal(size=(256, 128)), g) for g in (False, True)]
+              for _ in range(2))
+    key = torch.Generator().manual_seed(5)
+
+    def posterior(mean, logvar):
+        """The ELBO's z and KL, as the checkout's paths take them."""
+        if hasattr(ops, "reparam_kl"):
+            return ops.reparam_kl(mean, logvar, generator=key)
+        return (ops.reparam_sample(mean, logvar, generator=key),
+                ops.kl_standard(mean, logvar))
 
     def iwae_chunk():
         if broadcast:
@@ -662,6 +784,9 @@ def host_child(version: str, lib_dir: Path) -> None:
             lambda: ops.disc_logistic_recon_ll(xd, md[1],
                                                sd[1]).sum().backward(),
         "disc_logistic [1600,3072] x [64,3072] forward": iwae_chunk,
+        "reparam+kl [256,128] forward": lambda: posterior(mp[0], lp[0]),
+        "reparam+kl [256,128] forward+backward": lambda: sum(
+            v.sum() for v in posterior(mp[1], lp[1])).backward(),
     }
     for case, fn in cases.items():
         emit("host", version=version, case=case, us=host_us(fn))

@@ -198,6 +198,65 @@ def test_cuda_autograd_functions_detach_and_pair_kernels(monkeypatch):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("uses", ["z_and_kl", "z", "kl"])
+def test_posterior_fn_one_launch_each_way(monkeypatch, uses):
+    """``ops.reparam_kl`` on the CUDA path (``_PosteriorFn``), the kernels
+    stood in by their plain versions: one forward call (z and the KL) and
+    one backward call, both with detached inputs; the backward gets a null
+    g_kl when the loss does not use the KL and a null g when it does not
+    use z; no standalone reparam or kl wrapper runs; the gradients equal
+    autograd through the plain pair on the same Philox key."""
+    from apv_tpu_torch.ops import dispatch as Dp
+    calls = []
+
+    def fwd(mean, logvar, samples, seed, offset):
+        assert not (mean.requires_grad or logvar.requires_grad)
+        calls.append("reparam_kl_cuda")
+        return K.reparam_kl_plain(mean, logvar, samples, seed, offset)
+
+    def bwd(g, z, mean, g_kl=None, logvar=None):
+        assert not any(t is not None and t.requires_grad
+                       for t in (g, z, mean, g_kl, logvar))
+        assert (g is None) == (uses == "kl")
+        assert (g_kl is None) == (uses == "z")
+        calls.append("reparam_bwd_cuda")
+        return K.reparam_bwd_plain(g, z, mean, g_kl, logvar)
+
+    def forbidden(*a, **kw):
+        raise AssertionError("a standalone wrapper ran")
+
+    monkeypatch.setattr(K, "reparam_kl_cuda", fwd)
+    monkeypatch.setattr(K, "reparam_bwd_cuda", bwd)
+    for name in ("reparam_cuda", "kl_cuda", "kl_bwd_cuda"):
+        monkeypatch.setattr(K, name, forbidden)
+    gen = torch.Generator().manual_seed(0)
+    mean0, logvar0 = torch.randn(6, 10, generator=gen), torch.randn(
+        6, 10, generator=gen)
+    proj, w_kl = torch.randn(10, 3, generator=gen), torch.randn(
+        6, generator=gen)
+
+    def objective(draw):
+        mean = mean0.clone().requires_grad_()
+        logvar = logvar0.clone().requires_grad_()
+        z, kl = draw(mean, logvar)
+        terms = {"z": (z @ proj).square().sum(), "kl": (kl * w_kl).sum()}
+        sum(v for k, v in terms.items() if k in uses).backward()
+        return mean.grad, logvar.grad
+
+    with monkeypatch.context() as m:
+        m.setattr(Dp, "_on_cpu", lambda name, *t: False)
+        got = objective(lambda mu, lv: ops.reparam_kl(
+            mu, lv, generator=torch.Generator().manual_seed(4)))
+    assert calls == ["reparam_kl_cuda", "reparam_bwd_cuda"]
+    seed, offset = K.draw_key(torch.Generator().manual_seed(4))
+    want = objective(lambda mu, lv: (
+        K.reparam_plain(mu, lv, 1, seed, offset)[0], K.kl_plain(mu, lv)))
+    for g, w in zip(got, want):
+        # the rule's 0.5·g·(z − μ) against autograd's 0.5·g·σ·ε: the same
+        # f32 products in another order
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
 # -- disc_logistic ------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(8, 3072), (6, 32, 32, 3)])
@@ -392,6 +451,9 @@ WRAPPER_CALLS = {
     "kl_bwd": lambda m, lv, g: K.kl_bwd_cuda(g, m, lv),
     "reparam_bwd": lambda m, lv, g: K.reparam_bwd_cuda(m[None], lv[None],
                                                        lv),
+    "reparam_kl": lambda m, lv, g: K.reparam_kl_cuda(m, lv, 1, 0, 0),
+    "reparam_bwd_kl": lambda m, lv, g: K.reparam_bwd_cuda(
+        m[None], lv[None], lv, g_kl=g, logvar=lv),
     "disc_logistic_bwd": lambda m, lv, g: K.disc_logistic_bwd_cuda(g, lv, m,
                                                                    lv),
 }
