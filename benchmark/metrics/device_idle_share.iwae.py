@@ -1,0 +1,7 @@
+"""Percent of the profiled IWAE call in which the device ran nothing."""
+
+from benchmark.harness import stretch
+
+
+def read(s):
+    return stretch.idle_share(s, "iwae")
