@@ -53,7 +53,9 @@ def _parser() -> argparse.ArgumentParser:
     p_train.add_argument("--max-steps", type=int, default=None)
     p_train.add_argument("--trace-dir", default=None,
                          help="write a torch.profiler trace of this run's "
-                              "steps 10-15 into this dir")
+                              "steps 10-15 into this dir; it names the "
+                              "program's spans (loop.step, step.g_phase, "
+                              "...) as user_annotation ranges")
     p_train.add_argument("--distributed", action="store_true",
                          help="data-parallel training, one process a card: "
                               "join the group of APV_COORDINATOR (host:port "

@@ -15,6 +15,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from apv_tpu_torch.utils.logging import waits
+
 
 class LogSumExpState(NamedTuple):
     """Running logsumexp over a streamed axis: value = max + log(acc)."""
@@ -48,9 +50,11 @@ def streaming_logsumexp_update(state: LogSumExpState,
 
 
 def streaming_logsumexp_finalize(state: LogSumExpState) -> torch.Tensor:
-    """logsumexp - log(count): the IWAE average in log space."""
-    return state.max + torch.log(state.acc) - torch.log(
-        torch.tensor(float(state.count), device=state.max.device))
+    """logsumexp - log(count): the IWAE average in log space (the count
+    crosses from host memory: a synchronising copy on the card)."""
+    with waits("upload"):
+        count = torch.tensor(float(state.count), device=state.max.device)
+    return state.max + torch.log(state.acc) - torch.log(count)
 
 
 def iwae_log_likelihood(logw_fn: Callable[[int], torch.Tensor], k: int,

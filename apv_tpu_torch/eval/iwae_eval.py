@@ -28,6 +28,7 @@ from apv_tpu_torch.core.iwae import (iwae_stream,
                                      streaming_logsumexp_finalize)
 from apv_tpu_torch.training.losses import recon_log_likelihood
 from apv_tpu_torch.utils.device import resolve_device
+from apv_tpu_torch.utils.logging import span, waits
 
 
 def sample_posterior_chunk(mean: torch.Tensor, logvar: torch.Tensor,
@@ -108,9 +109,10 @@ def make_iwae_fn(model, likelihood: str, k: int, chunk: int,
         mean, logvar = model.encode(x_in)          # [B, Z], once
 
         def logw_fn(i):
-            return logw_chunk(mean, logvar, x_target, log_z,
-                              generator=generator,
-                              eps=None if eps is None else eps[i])
+            with span("eval.chunk", marks="start"):
+                return logw_chunk(mean, logvar, x_target, log_z,
+                                  generator=generator,
+                                  eps=None if eps is None else eps[i])
 
         state = iwae_stream(logw_fn, k // chunk, (mean.shape[0],),
                             mean.device)
@@ -141,8 +143,11 @@ def estimate_log_partition(d_apply: Callable, z_dim: int, *, seed: int = 0,
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def chunk(i):
-        u = (draws[i].to(dev) if draws is not None else
-             torch.randn((batch, z_dim), generator=gen, device=dev))
+        if draws is not None:
+            with waits("upload"):
+                u = draws[i].to(dev)
+        else:
+            u = torch.randn((batch, z_dim), generator=gen, device=dev)
         return torch.logsumexp(d_apply(u if base_from is None
                                        else base_from(u)), dim=0)
 

@@ -41,6 +41,8 @@ from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.parallel.mesh import make_grid_2d
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
+from apv_tpu_torch.utils.logging import (invocation, read, span, upload,
+                                         waits)
 
 
 def eval_arrays(cfg: Config, dataset: str | None = None,
@@ -79,7 +81,7 @@ def _divisor_chunk(k: int, chunk: int) -> int:
     eff = max(d for d in range(1, min(chunk, k) + 1) if k % d == 0)
     warnings.warn(f"iwae chunk {chunk} does not divide k={k}; using "
                   f"chunk={eff} (largest divisor). Pick a divisor of k to "
-                  "silence this.", stacklevel=3)
+                  "silence this.", stacklevel=4)
     return eff
 
 
@@ -109,8 +111,10 @@ def _batches(cfg: Config, images: np.ndarray, batch_size: int,
                       host_shard=shard)
     for b in batcher.epoch():
         x_in, x_target = _prep_eval_batch(cfg, b["image"])
-        yield torch.from_numpy(x_in).to(dev), torch.from_numpy(x_target).to(
-            dev)
+        with waits("upload", 2):      # from pageable host memory
+            pair = (torch.from_numpy(x_in).to(dev),
+                    torch.from_numpy(x_target).to(dev))
+        yield pair
 
 
 def _rank_batches(cfg: Config, images: np.ndarray, batch_size: int, dev):
@@ -197,13 +201,31 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
     log Z stays 0; ``use_adversarial_prior=True`` beside it raises. The
     result's ``"prior"`` says which: ``model``, ``expost``, ``expost_gmm``
     or ``expost_flow``.
+
+    The call is one ``evaluate_nll`` invocation of the span recorder
+    (``utils/logging.py``), whose summary adds ``images``, the rows scored
+    here: spans ``eval.log_partition``, ``eval.batch`` (one ``iwae_fn``
+    call, a unit), ``eval.chunk`` (one chunk's log weights) and
+    ``eval.readback`` (the scores and log Z read back), with device
+    markers at the start of each batch and chunk and around log Z.
     """
     if prior_moments is not None and use_adversarial_prior:
         raise ValueError("prior_moments (ex-post prior) and "
                          "use_adversarial_prior are mutually exclusive: "
                          "each is a complete reading of log p(z)")
     dev = resolve_device(device)
-    model = model.to(dev)
+    with invocation("evaluate_nll", dev) as summary:
+        result = _evaluate_nll(cfg, model, d, images_u8, k, chunk,
+                               batch_size, seed, use_adversarial_prior,
+                               per_sample, prior_moments, dev)
+        summary["images"] = result["num_examples"]
+    return result
+
+
+def _evaluate_nll(cfg, model, d, images_u8, k, chunk, batch_size, seed,
+                  use_adversarial_prior, per_sample, prior_moments,
+                  dev) -> dict:
+    model = upload(model, device=dev)
     k = k if k is not None else cfg.eval.iwae_k
     chunk = _divisor_chunk(k, chunk if chunk is not None
                            else min(cfg.eval.iwae_chunk, k))
@@ -229,15 +251,21 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
     log_z_se = torch.zeros((), device=dev)
     with torch.inference_mode():
         if use_adv:
-            d_apply = d.to(dev)
+            d_apply = upload(d, device=dev)
             base_from = (model.prior_sample_from
                          if model_prior == "gaussian" else None)
-            log_z, log_z_se = estimate_log_partition(
-                d_apply, cfg.model.z_dim, seed=seed + 17, with_se=True,
-                device=dev, base_from=base_from)
+            with span("eval.log_partition", unit=0, marks="both"):
+                log_z, log_z_se = estimate_log_partition(
+                    d_apply, cfg.model.z_dim, seed=seed + 17, with_se=True,
+                    device=dev, base_from=base_from)
         scores = _grid_scores(cfg, model, images_u8, k, chunk, d_apply,
                               prior_logpdf_p, prior_logpdf, log_z, seed,
-                              batch_size, dev).double().numpy()
+                              batch_size, dev)
+        with span("eval.readback"):
+            with waits("read"):
+                scores = scores.cpu()
+            log_z, log_z_se = read(log_z), read(log_z_se)
+        scores = scores.double().numpy()
 
     h, w, c = cfg.model.image_shape
     nll = float(-scores.mean())
@@ -250,8 +278,8 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
         "bits_per_dim": float(nats_to_bits_per_dim(nll, h * w * c)),
         "iwae_k": k,
         "num_examples": int(scores.shape[0]),
-        "log_partition": float(log_z),
-        "log_partition_se": float(log_z_se),
+        "log_partition": log_z,
+        "log_partition_se": log_z_se,
         "adversarial_prior": bool(use_adv),
         "prior": ("model" if prior_moments is None
                   else "expost_flow" if isinstance(prior_moments, dict)
@@ -267,7 +295,8 @@ def _grid_scores(cfg: Config, model, images_u8: np.ndarray, k: int,
                  chunk: int, d_apply, prior_logpdf_p, prior_logpdf, log_z,
                  seed: int, batch_size: int, dev) -> torch.Tensor:
     """``evaluate_nll``'s per-sample scores, in global row order on every
-    rank (module docstring); without a group the grid is 1 × 1."""
+    rank (module docstring), on the device; without a group the grid is
+    1 × 1."""
     from apv_tpu_torch.eval.sharded import make_sharded_iwae_fn
     world = multihost.process_count()
     n_k = min(cfg.eval.k_shards, world)
@@ -282,11 +311,13 @@ def _grid_scores(cfg: Config, model, images_u8: np.ndarray, k: int,
     bs = _eval_batch_size(batch_size, len(images_u8), grid.n_data)
     batches = _batches(cfg, images_u8, bs, (grid.data_index, grid.n_data),
                        dev)
-    scores = torch.stack([iwae_fn(x_in, x_target, log_z, seed=seed + i)
-                          for i, (x_in, x_target) in enumerate(batches)])
-    scores = scores[None]                         # [1, n_batches, per]
+    per_batch = []
+    for i, (x_in, x_target) in enumerate(batches):
+        with span("eval.batch", unit=i, marks="start"):
+            per_batch.append(iwae_fn(x_in, x_target, log_z, seed=seed + i))
+    scores = torch.stack(per_batch)[None]         # [1, n_batches, per]
     if world > 1:
         # [world, n_batches, per]: one row of ranks a data shard, the
         # first rank of each row in data order
         scores = multihost.all_gather_rows(scores)[::n_k]
-    return scores.transpose(0, 1).reshape(-1).cpu()
+    return scores.transpose(0, 1).reshape(-1)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from apv_tpu_torch.models.common import Conv, Dense, lecun_normal_init_
 from apv_tpu_torch.utils import jax_prng
 from apv_tpu_torch.utils.device import resolve_device
+from apv_tpu_torch.utils.logging import upload
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
@@ -124,7 +125,7 @@ def make_latent_d(adv_cfg, z_dim: int, *, device=None,
     dev = resolve_device(device)
     disc = LatentDiscriminator(z_dim, tuple(adv_cfg.d_widths),
                                spectral_norm=adv_cfg.d_spectral_norm)
-    return lecun_normal_init_(disc, seed).to(dev)
+    return upload(lecun_normal_init_(disc, seed), device=dev)
 
 
 def make_discriminators(adv_cfg, z_dim: int, image_shape: Sequence[int], *,
@@ -141,7 +142,8 @@ def make_discriminators(adv_cfg, z_dim: int, image_shape: Sequence[int], *,
                                dtype=dtype)
     lecun_normal_init_(pixel, [seed, 1])
     return nn.ModuleDict({"latent": latent,
-                          "pixel": pixel.to(latent.layers[0].weight.device)})
+                          "pixel": upload(pixel, device=latent.layers[0]
+                                          .weight.device)})
 
 
 def latent_d_params(variant: str, d):

@@ -12,6 +12,7 @@ from apv_tpu_torch.models.conv_vae import ConvVAE
 from apv_tpu_torch.models.flow_prior import FlowPrior
 from apv_tpu_torch.models.resnet_vae import ResNetVAE
 from apv_tpu_torch.utils.device import resolve_device
+from apv_tpu_torch.utils.logging import upload
 
 
 def build_model(model_cfg, *, dtype: torch.dtype = torch.bfloat16,
@@ -49,4 +50,4 @@ def build_model(model_cfg, *, dtype: torch.dtype = torch.bfloat16,
     lecun_normal_init_(model, seed)
     if isinstance(model.prior, FlowPrior):
         model.prior.reset_parameters(np.random.default_rng([seed, 1]))
-    return model.to(device=dev, memory_format=torch.channels_last)
+    return upload(model, device=dev, memory_format=torch.channels_last)

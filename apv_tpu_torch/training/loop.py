@@ -48,6 +48,22 @@ when there is more than one rank), so the ranks stop at the same call
 boundary. The loop ends with a barrier: rank 0's last checkpoint exists
 before any rank returns. A second Ctrl-C, which stops at once, leaves the
 other ranks to their collectives' time-outs.
+
+The span recorder of ``utils/logging.py`` is always on and keeps
+aggregates only: each call of ``train_loop`` is one ``train_loop``
+invocation, with spans ``loop.data`` (the next call's batches cut and
+copied), ``loop.step`` (one ``train_step``; inside it ``step.d_phase``,
+``step.g_phase``, the optimizers ``step.d_opt`` and ``step.g_opt``, and
+``step.ema``), ``loop.readback`` (a logged record's read-back),
+``loop.validate`` and ``loop.save``; on the card, device markers at each
+step's start and end and at each phase's start; and the synchronising
+calls counted where they are made (the models' upload, the resident train
+set's and each valid batch's, each metric read back, a checkpoint's
+restore and save). Each logged record after the first adds, per step of
+its interval, ``host_step_ms``, ``sync_wait_ms``, ``host_lead_ms`` (on
+the card) and the phases' and optimizers' self ms. Only while a profiler
+runs (``trace_dir``) is each span also a ``record_function`` range: the
+trace names the loop's spans.
 """
 
 from __future__ import annotations
@@ -71,7 +87,9 @@ from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.training.step import make_train_fns
 from apv_tpu_torch.utils import checkpoint as ckpt
 from apv_tpu_torch.utils.config import Config
-from apv_tpu_torch.utils.logging import MetricLogger
+from apv_tpu_torch.utils.device import resolve_device
+from apv_tpu_torch.utils.logging import (MetricLogger, invocation, read, span,
+                                         waits)
 
 
 def load_train_arrays(cfg: Config) -> tuple[dict[str, np.ndarray],
@@ -146,7 +164,14 @@ def _valid_batches(cfg: Config, valid_arrays, dev) -> list[dict] | None:
         return None
     vb = Batcher(valid_arrays, vbs, shuffle=False,
                  host_shard=multihost.host_shard())
-    return [multihost.put_batch(b, dev) for b in vb.epoch()]
+    return [_upload(b, dev) for b in vb.epoch()]
+
+
+def _upload(arrays: dict[str, np.ndarray], dev) -> dict[str, torch.Tensor]:
+    """``multihost.put_batch``: one copy from pageable host memory a
+    non-empty array, each a synchronising call on the card."""
+    with waits("upload", sum(1 for v in arrays.values() if v.size)):
+        return multihost.put_batch(arrays, dev)
 
 
 def broadcast_state(state: TrainState, src: int = 0) -> None:
@@ -191,8 +216,16 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
     configs, ``image`` otherwise); it has no valid split. ``max_steps``
     caps this invocation; the schedules still use ``cfg.train.steps``.
     ``trace_dir`` writes the profiler window's trace there. ``device=None``
-    means the CUDA card.
+    means the CUDA card. The call is one ``train_loop`` invocation of the
+    span recorder (``utils/logging.py``).
     """
+    with invocation("train_loop", resolve_device(device)):
+        return _train_loop(cfg, max_steps, arrays, resume, overwrite,
+                           trace_dir, device)
+
+
+def _train_loop(cfg: Config, max_steps, arrays, resume, overwrite, trace_dir,
+                device) -> TrainState:
     fns = make_train_fns(cfg, device=device)
     dev = fns.device
     results_dir = Path(cfg.results_dir) / cfg.name
@@ -242,7 +275,7 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
         train_arrays, valid_arrays = load_train_arrays(cfg)
     if cfg.data.device_resident:
         n_rows = len(next(iter(train_arrays.values())))
-        dataset = multihost.put_batch(train_arrays, dev)
+        dataset = _upload(train_arrays, dev)
         resident = make_resident_step(fns.train_step)
 
         def step_fn(s, b):
@@ -273,13 +306,16 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
         sums: dict[str, float] = {}
         for b in valid_batches:
             for name, v in fns.eval_step(state, b).items():
-                sums[name] = sums.get(name, 0.0) + float(v)
+                sums[name] = sums.get(name, 0.0) + read(v)
         means = {name: v / len(valid_batches) for name, v in sums.items()}
         if sync:
             names = sorted(means)
-            t = multihost.all_reduce(torch.tensor(
-                [means[n] for n in names], dtype=torch.float64, device=dev))
-            means = dict(zip(names, (t / multihost.process_count()).tolist()))
+            with waits("upload"):
+                t = torch.tensor([means[n] for n in names],
+                                 dtype=torch.float64, device=dev)
+            t = multihost.all_reduce(t) / multihost.process_count()
+            with waits("read"):
+                means = dict(zip(names, t.tolist()))
         return means
 
     interrupt = _CallBoundaryInterrupt()
@@ -289,12 +325,14 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
         with interrupt:
             for base in range(start, stop, k):
                 logger.maybe_trace(base, stride=k)
-                stacked = next(calls)
+                with span("loop.data"):
+                    stacked = next(calls)
                 step_metrics = []
                 in_call = True
                 for i in range(k):
-                    state, m = step_fn(state, {kk: v[i]
-                                               for kk, v in stacked.items()})
+                    with span("loop.step", unit=base + i, marks="both"):
+                        state, m = step_fn(state, {
+                            kk: v[i] for kk, v in stacked.items()})
                     step_metrics.append(m)
                 in_call = False
                 logged = [(base + i, m) for i, m in enumerate(step_metrics)
@@ -307,17 +345,20 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
                 done = base + k                   # steps taken so far
                 if valid_batches and cfg.train.eval_every > 0 \
                         and done % cfg.train.eval_every == 0:
-                    vm = run_validation()
-                    logger.log_now(done, vm)
+                    with span("loop.validate"):
+                        vm = run_validation()
+                        logger.log_now(done, vm)
                     if vm["valid_elbo"] > best_valid_elbo:
                         best_valid_elbo = vm["valid_elbo"]
                         if primary:
-                            ckpt.save_checkpoint(results_dir / "best",
-                                                 state, done)
+                            with span("loop.save"):
+                                ckpt.save_checkpoint(results_dir / "best",
+                                                     state, done)
                         logger.write_json("best.json", {"step": done, **vm})
                 if done % cfg.train.checkpoint_every == 0 or done == stop:
                     if primary:
-                        ckpt.save_checkpoint(ckpt_dir, state, done)
+                        with span("loop.save"):
+                            ckpt.save_checkpoint(ckpt_dir, state, done)
                     saved = done
                 stop_now = interrupt.requested
                 if multihost.process_count() > 1:
@@ -331,7 +372,8 @@ def train_loop(cfg: Config, *, max_steps: int | None = None,
                   f"{ckpt.latest_step(ckpt_dir) or 0}", flush=True)
         else:
             if saved != state.step and primary:
-                ckpt.save_checkpoint(ckpt_dir, state, state.step)
+                with span("loop.save"):
+                    ckpt.save_checkpoint(ckpt_dir, state, state.step)
             print(f"interrupted at step {state.step}; checkpoint saved, "
                   "resume with --resume", flush=True)
         raise

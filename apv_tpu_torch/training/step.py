@@ -92,6 +92,7 @@ from apv_tpu_torch.training.optim import (ClippedAdam, constant,
 from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
+from apv_tpu_torch.utils.logging import span
 
 
 class TrainFns(NamedTuple):
@@ -443,7 +444,8 @@ def make_train_fns(cfg: Config, *, device=None,
         grads = torch.autograd.grad(loss, state.opt.params)
         if sync:
             multihost.average_(list(grads))
-        grad_norm = state.opt.step(grads)
+        with span("step.g_opt"):
+            grad_norm = state.opt.step(grads)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
         return metrics, z.detach(), x_hat
@@ -485,7 +487,8 @@ def make_train_fns(cfg: Config, *, device=None,
                           + [pf for _ in state.d["pixel"].parameters()])
             else:
                 scales = [f] * len(grads)
-        state.d_opt.step(grads, scales)
+        with span("step.d_opt"):
+            state.d_opt.step(grads, scales)
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: dict, *,
@@ -510,24 +513,27 @@ def make_train_fns(cfg: Config, *, device=None,
         def run_d_phases(z_q, x_hat):
             d_ms = []
             for i in range(a.n_critic):
-                d_ms.append(d_phase(
-                    state, x_in, x_target, z_q, x_hat, gen,
-                    noise["d_eps"][i] if "d_eps" in noise else None,
-                    noise["z_p"][i] if "z_p" in noise else None))
+                with span("step.d_phase", marks="start"):
+                    d_ms.append(d_phase(
+                        state, x_in, x_target, z_q, x_hat, gen,
+                        noise["d_eps"][i] if "d_eps" in noise else None,
+                        noise["z_p"][i] if "z_p" in noise else None))
             if d_ms:
                 metrics.update({k: torch.stack([m[k] for m in d_ms]).mean()
                                 for k in d_ms[0]})
 
         if adv and not a.d_reuse_posterior:
             run_d_phases(None, None)    # reference order: D, then G
-        g_metrics, z_q, x_hat = g_phase(state, x_in, x_target, beta, gen,
-                                        noise.get("eps"), noise.get("u_disp"))
+        with span("step.g_phase", marks="start"):
+            g_metrics, z_q, x_hat = g_phase(state, x_in, x_target, beta, gen,
+                                            noise.get("eps"),
+                                            noise.get("u_disp"))
         metrics.update(g_metrics)
         if adv and a.d_reuse_posterior:
             # G then D: D sees z_q (and x̂) made under the pre-update params
             run_d_phases(z_q, x_hat)
         if state.ema_model is not None:
-            with torch.no_grad():
+            with span("step.ema", marks="start"), torch.no_grad():
                 ema = list(state.ema_model.parameters())
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, state.opt.params,

@@ -43,6 +43,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from apv_tpu_torch.utils.logging import waits
+
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
@@ -70,10 +72,26 @@ def _steps(ckpt_dir: str | Path) -> list[int]:
     return sorted(set(_pt_steps(d)) | set(_orbax_steps(d)))
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def _write(path: Path, state_dict: dict) -> Path:
-    """``torch.save`` to a temporary name, then an atomic rename."""
+    """``torch.save`` to a temporary name, then an atomic rename. The save
+    copies each non-empty storage to host memory once, a synchronising
+    call from the card."""
     tmp = path.with_name(path.name + ".tmp")
-    torch.save(state_dict, tmp)
+    storages = {t.untyped_storage().data_ptr() for t in _tensors(state_dict)
+                if t.untyped_storage().nbytes()}
+    with waits("save", len(storages)):
+        torch.save(state_dict, tmp)
     os.replace(tmp, path)
     return path
 
@@ -113,8 +131,21 @@ def restore_checkpoint(ckpt_dir: str | Path, state, step: int | None = None):
     else:
         raise FileNotFoundError(f"no checkpoint of step {step} under "
                                 f"{ckpt_dir}")
-    state.load_state_dict(saved)
+    with waits("restore", _copies(state, saved)):
+        state.load_state_dict(saved)
     return state
+
+
+def _copies(state, saved: dict) -> int:
+    """The copies from host memory ``state.load_state_dict(saved)`` makes:
+    one a non-empty tensor of the state, but an accumulator the saved
+    state lacks."""
+    n = sum(1 for t in state.tensors() if t.numel())
+    for opt, key in ((state.opt, "opt"), (state.d_opt, "d_opt")):
+        if opt is not None and opt.acc is not None and "acc" not in saved[
+                key]:
+            n -= sum(1 for t in opt.acc if t.numel())
+    return n
 
 
 def import_orbax(ckpt_dir: str | Path, step: int | None = None

@@ -206,7 +206,10 @@ def _lines(cfg):
         recs = [json.loads(s) for s in f.read().splitlines()]
     # the host clock's fields differ between runs
     return [{k: v for k, v in r.items()
-             if k not in ("step_time_s", "images_per_sec_per_chip")}
+             if k not in ("step_time_s", "images_per_sec_per_chip",
+                          "host_step_ms", "sync_wait_ms", "host_lead_ms",
+                          "g_phase_self_ms", "d_phase_self_ms",
+                          "g_opt_self_ms", "d_opt_self_ms")}
             for r in recs]
 
 
