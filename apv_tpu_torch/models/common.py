@@ -20,15 +20,8 @@ import torch.nn.functional as F
 from apv_tpu_torch.core.distributions import standard_gaussian_logpdf
 from apv_tpu_torch.models.flow_prior import FlowPrior
 from apv_tpu_torch.models.gaussian_prior import GaussianPrior
-
-ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    # flax's default gelu is the tanh approximation
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "gelu_sigmoid": lambda x: x * torch.sigmoid(1.702 * x),
-    "silu": F.silu,
-    "relu": F.relu,
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.2),
-}
+from apv_tpu_torch.ops.kernels import ACTIVATIONS
+from apv_tpu_torch.ops.rmsnorm import rmsnorm_act
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -122,48 +115,67 @@ class ConvTranspose2x(nn.Module):
                                   padding=1)
 
 
-class RMSNorm(nn.Module):
-    """flax ``nn.RMSNorm`` over the channel axis: eps 1e-6, one ``scale``,
-    float32 statistics, output in ``dtype``."""
+class RMSNormAct(nn.Module):
+    """flax ``nn.RMSNorm`` over the channel axis (eps 1e-6, one ``scale``,
+    float32 statistics, output in ``dtype``) followed by the activation, as
+    one op (``ops.rmsnorm_act``): a hand-written kernel each way on the
+    card, the eager chain on the CPU."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 activation: str = "gelu"):
         super().__init__()
+        get_activation(activation)
         self.weight = nn.Parameter(torch.ones(channels))
-        self.dtype = dtype
+        self.dtype, self.activation = dtype, activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.to(torch.float32)
-        ms = x32.square().mean(dim=1, keepdim=True)
-        y = x32 * (torch.rsqrt(ms + 1e-6) * self.weight.view(1, -1, 1, 1))
-        return y.to(self.dtype)
+        # the NHWC view of a channels_last tensor, and back: no copies
+        y = rmsnorm_act(x.to(self.dtype).permute(0, 2, 3, 1), self.weight,
+                        self.activation)
+        return y.permute(0, 3, 1, 2)
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(num_groups=8)``: eps 1e-6, float32 statistics,
-    ``scale`` and ``bias``, output in ``dtype``."""
+    """flax ``nn.GroupNorm(num_groups=8)`` (eps 1e-6, float32 statistics,
+    ``scale`` and ``bias``, output in ``dtype``), then the activation."""
 
     def __init__(self, channels: int, groups: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 activation: str = "gelu"):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.groups, self.dtype = groups, dtype
+        self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.group_norm(x.to(torch.float32), self.groups, self.weight,
                          self.bias, eps=1e-6)
-        return y.to(self.dtype)
+        return self.act(y.to(self.dtype))
+
+
+class Activation(nn.Module):
+    """The activation alone (the norm 'none')."""
+
+    def __init__(self, activation: str):
+        super().__init__()
+        self.act = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(x)
 
 
 def make_norm(norm: str, channels: int, dtype: torch.dtype,
-              groups: int = 8) -> nn.Module:
-    """'group' -> GroupNorm, 'rms' -> channel RMSNorm, 'none' -> identity."""
+              activation: str, groups: int = 8) -> nn.Module:
+    """The norm followed by the activation: 'rms' -> ``RMSNormAct`` (one
+    op), 'group' -> ``GroupNorm``, 'none' -> the activation alone. The
+    norm's parameters are ``weight`` (and ``bias``) of the module itself."""
     if norm == "group":
-        return GroupNorm(channels, groups, dtype)
+        return GroupNorm(channels, groups, dtype, activation)
     if norm == "rms":
-        return RMSNorm(channels, dtype)
+        return RMSNormAct(channels, dtype, activation)
     if norm == "none":
-        return nn.Identity()
+        return Activation(activation)
     raise ValueError(f"unknown norm {norm!r} (group|rms|none)")
 
 

@@ -1,10 +1,10 @@
 """CIFAR-scale residual VAE (counterpart of ``apv_tpu/models/resnet_vae.py``).
 
 Encoder: conv stem -> [ResBlock × n, stride-2 downsample] per stage
-(32 -> 16 -> 8), then norm, activation and a float32 Gaussian head on the
-flattened map. The decoder mirrors it with stride-2 4×4 transposed convs
-(or nearest upsample + conv) and ends in a float32 likelihood head of
-(mean, log_scale) per pixel channel.
+(32 -> 16 -> 8), then norm and activation (one module, ``make_norm``) and
+a float32 Gaussian head on the flattened map. The decoder mirrors it with
+stride-2 4×4 transposed convs (or nearest upsample + conv) and ends in a
+float32 likelihood head of (mean, log_scale) per pixel channel.
 
 Public functions take and return NHWC, as ``apv_tpu`` does. Inside, tensors
 are NCHW in ``torch.channels_last`` memory, so each NHWC<->NCHW permute is
@@ -22,19 +22,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from apv_tpu_torch.models.common import (Conv, ConvTranspose2x, Dense,
-                                         PriorMixin, get_activation,
-                                         likelihood_out_params, make_norm,
-                                         make_prior)
+                                         PriorMixin, likelihood_out_params,
+                                         make_norm, make_prior)
 
 
 class ResBlock(nn.Module):
     def __init__(self, in_ch: int, width: int, dtype: torch.dtype,
                  activation: str = "gelu", norm: str = "group"):
         super().__init__()
-        self.act = get_activation(activation)
-        self.norm1 = make_norm(norm, in_ch, dtype)
+        self.norm1 = make_norm(norm, in_ch, dtype, activation)
         self.conv1 = Conv(in_ch, width, 3, dtype=dtype)
-        self.norm2 = make_norm(norm, width, dtype)
+        self.norm2 = make_norm(norm, width, dtype, activation)
         self.conv2 = Conv(width, width, 3, dtype=dtype)
         self.shortcut = Conv(in_ch, width, 1, dtype=dtype) \
             if in_ch != width else None
@@ -42,8 +40,8 @@ class ResBlock(nn.Module):
         self.branch_scale = 2.0 ** -0.5 if norm == "none" else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.act(self.norm1(x)))
-        h = self.conv2(self.act(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if self.branch_scale is not None:
             h = h * self.branch_scale
         if self.shortcut is not None:
@@ -98,8 +96,7 @@ class ResNetEncoder(nn.Module):
                 ch = widths[i + 1]
             stages.append(Stage(blocks, down))
         self.stages = nn.ModuleList(stages)
-        self.norm = make_norm(norm, widths[-1], dtype)
-        self.act = get_activation(activation)
+        self.norm = make_norm(norm, widths[-1], dtype, activation)
         down = 2 ** (len(widths) - 1)
         self.head = Dense((hh // down) * (ww // down) * widths[-1],
                           2 * z_dim, dtype=torch.float32)
@@ -110,7 +107,7 @@ class ResNetEncoder(nn.Module):
         h = self.stem(x)
         for stage in self.stages:
             h = stage(h)
-        h = self.act(self.norm(h))
+        h = self.norm(h)
         # flatten in flax's (h, w, c) order; a view in channels_last
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         out = self.head(h.to(torch.float32))
@@ -146,8 +143,7 @@ class ResNetDecoder(nn.Module):
                       else NearestUp(w, widths[i + 1], dtype))
             stages.append(Stage(blocks, up))
         self.stages = nn.ModuleList(stages)
-        self.norm = make_norm(norm, widths[-1], dtype)
-        self.act = get_activation(activation)
+        self.norm = make_norm(norm, widths[-1], dtype, activation)
         self.head = Conv(widths[-1], c * out_params, 3, dtype=torch.float32)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -157,7 +153,7 @@ class ResNetDecoder(nn.Module):
         h = h.contiguous(memory_format=torch.channels_last)
         for stage in self.stages:
             h = stage(h)
-        h = self.act(self.norm(h))
+        h = self.norm(h)
         out = self.head(h.to(torch.float32))
         return out.permute(0, 2, 3, 1)          # [B, H, W, C*out_params]
 

@@ -57,6 +57,15 @@ SIGNATURES = {
                                _I64, _I64, _I64, _I64, ctypes.c_int,
                                ctypes.POINTER(ctypes.c_int), _P),
     "apv_kl": (_P, _P, _P, _I64, _I64, _P),
+    # rmsnorm_act's rstd out (null: none), act (RMS_ACTIVATIONS' index),
+    # int* out: the kernel that ran (0 vector, 1 scalar); its backward's
+    # per-block dw partials and their capacity in rows beside dw
+    "apv_rmsnorm_act": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float,
+                        ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int), _P),
+    "apv_rmsnorm_act_bwd": (_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64,
+                            ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_int), _P),
     "apv_kl_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     # reparam's kl out (null: none) and event (Z) beside n; its backward's
     # logvar and g_kl (null: no KL term)

@@ -5,7 +5,9 @@ serving artifacts (``serving.export_scorer``).
 one node of the exported graph. Each op here is one of the four forward
 kernels on the scorer's path: ``apv::reparam``, ``apv::kl``,
 ``apv::bernoulli`` and ``apv::disc_logistic`` (the ``*_rows`` forms, with
-x at B rows beside parameters at ``samples``·B). Their CUDA
+x at B rows beside parameters at ``samples``·B), and ``apv::rmsnorm_act``,
+which ``ops.rmsnorm_act`` calls while it is traced, so the ResNet's norms
+are one node each in the scorer's and the sampler's graphs. Their CUDA
 implementations call the kernels' wrappers in ``ops/kernels.py``, which
 launch the hand-written kernel on the caller's current stream and count
 the launch in ``K.launches``, so an artifact traced on the card runs the
@@ -134,4 +136,28 @@ def _disc_logistic_fake(x, mean, log_scale, bin_size, samples):
     return mean.new_empty((mean.shape[0],), dtype=torch.float32)
 
 
-OPS = ("reparam", "kl", "bernoulli", "disc_logistic")
+# ---------------------------------------------------------------------------
+# rmsnorm_act: the ResNet's RMSNorm and activation over x's last axis
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("apv::rmsnorm_act", mutates_args=(),
+                         device_types="cpu")
+def rmsnorm_act(x: Tensor, weight: Tensor, activation: str,
+                eps: float) -> Tensor:
+    return K.rmsnorm_act_plain(x, weight, activation, eps)
+
+
+@rmsnorm_act.register_kernel("cuda")
+def _rmsnorm_act_cuda(x, weight, activation, eps):
+    return K.rmsnorm_act_cuda(x.contiguous(),
+                              weight.to(torch.float32).contiguous(),
+                              activation, eps)[0]
+
+
+@rmsnorm_act.register_fake
+def _rmsnorm_act_fake(x, weight, activation, eps):
+    K.activation_id(activation)
+    return x.new_empty(x.shape)
+
+
+OPS = ("reparam", "kl", "bernoulli", "disc_logistic", "rmsnorm_act")

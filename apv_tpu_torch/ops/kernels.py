@@ -55,6 +55,18 @@ blocks); each backward kernel replaces the jnp rule of that op's
   same shapes; dgamma and dbeta as per-row partials summed in a fixed
   order. ``groupnorm_gelu_routes`` and ``groupnorm_gelu_bwd_routes`` count
   each direction's launches by the kernel that ran.
+* ``rmsnorm_act`` (``csrc/rmsnorm_act.cu``) replaces no TPU kernel: XLA
+  fused the reference's RMSNorm and activation into their neighbours, and
+  the port's ResNet ran them as about nine eager kernels. Bound: memory,
+  x in and y out (419 MB in bf16 at the IWAE chunk's [1600·1024, 64]).
+  Design: C/8 lanes a row, 8 channels a lane in 16-byte loads, w in
+  registers, the row's sum of squares by shuffles within the lanes
+  (other widths: a scalar variant, a warp a row). ``rmsnorm_act_bwd``
+  (same file) computes the rule written out in ``rmsnorm_act_bwd_plain``
+  from x, dy and the forward's per-row rstd, dw as per-block partials
+  summed in a fixed order. ``rmsnorm_act_routes`` and
+  ``rmsnorm_act_bwd_routes`` count each direction's launches by the
+  kernel that ran.
 * ``conv3x3`` (``csrc/conv3x3.cu``) replaces
   ``scripts/conv_microbench.py::pallas_conv``. Bound: bytes at the probe's
   stage 1 (100.7 MB in bf16 with the f32 out), bf16 tensor-core operations
@@ -86,6 +98,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from apv_tpu_torch.core import distributions as D
 
@@ -94,7 +107,7 @@ launches: dict[str, int] = {
     "reparam": 0, "kl": 0, "disc_logistic": 0, "bernoulli": 0,
     "reparam_bwd": 0, "kl_bwd": 0, "bernoulli_bwd": 0,
     "disc_logistic_bwd": 0, "groupnorm_gelu": 0, "groupnorm_gelu_bwd": 0,
-    "conv3x3": 0}
+    "conv3x3": 0, "rmsnorm_act": 0, "rmsnorm_act_bwd": 0}
 # conv3x3's launches by the kernel that ran (``conv3x3_route``'s names)
 conv3x3_routes: dict[str, int] = {"wgmma": 0, "simt": 0}
 # groupnorm_gelu's and groupnorm_gelu_bwd's launches by the kernel that
@@ -103,11 +116,18 @@ conv3x3_routes: dict[str, int] = {"wgmma": 0, "simt": 0}
 GN_KERNELS = ("image", "rows")
 groupnorm_gelu_routes: dict[str, int] = dict.fromkeys(GN_KERNELS, 0)
 groupnorm_gelu_bwd_routes: dict[str, int] = dict.fromkeys(GN_KERNELS, 0)
+# rmsnorm_act's and rmsnorm_act_bwd's launches by the kernel that ran, as
+# the C entry points report it (``rmsnorm_act_rows`` or ``_rows_scalar``;
+# ``rmsnorm_act_bwd_rows`` or ``_bwd_rows_scalar``)
+RMS_KERNELS = ("vector", "scalar")
+rmsnorm_act_routes: dict[str, int] = dict.fromkeys(RMS_KERNELS, 0)
+rmsnorm_act_bwd_routes: dict[str, int] = dict.fromkeys(RMS_KERNELS, 0)
 
 
 def reset_launches() -> None:
     for counts in (launches, conv3x3_routes, groupnorm_gelu_routes,
-                   groupnorm_gelu_bwd_routes):
+                   groupnorm_gelu_bwd_routes, rmsnorm_act_routes,
+                   rmsnorm_act_bwd_routes):
         for name in counts:
             counts[name] = 0
 
@@ -635,6 +655,13 @@ def gelu_tanh(v: torch.Tensor) -> torch.Tensor:
     return 0.5 * v * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (v + 0.044715 * v ** 3)))
 
 
+def gelu_tanh_grad(v: torch.Tensor) -> torch.Tensor:
+    """d/dv of ``gelu_tanh``."""
+    th = torch.tanh(_SQRT_2_OVER_PI * (v + 0.044715 * v ** 3))
+    return 0.5 * (1.0 + th) + 0.5 * v * (1.0 - th ** 2) * _SQRT_2_OVER_PI \
+        * (1.0 + 3 * 0.044715 * v ** 2)
+
+
 def _group_shape(x: torch.Tensor, groups: int) -> tuple[int, int, int]:
     """(B, HW, C) of NHWC x; raise unless C % groups == 0."""
     if x.dim() != 4:
@@ -680,10 +707,7 @@ def groupnorm_gelu_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
     xhat2 = xhat.reshape(b, hw, c)
     g32, b32 = gamma.to(torch.float32), beta.to(torch.float32)
     y_pre = xhat2 * g32 + b32
-    th = torch.tanh(_SQRT_2_OVER_PI * (y_pre + 0.044715 * y_pre ** 3))
-    dgelu = 0.5 * (1.0 + th) + 0.5 * y_pre * (1.0 - th ** 2) \
-        * _SQRT_2_OVER_PI * (1.0 + 3 * 0.044715 * y_pre ** 2)
-    dy_pre = dy.to(torch.float32).reshape(b, hw, c) * dgelu
+    dy_pre = dy.to(torch.float32).reshape(b, hw, c) * gelu_tanh_grad(y_pre)
     dgamma = (dy_pre * xhat2).sum(dim=(0, 1))
     dbeta = dy_pre.sum(dim=(0, 1))
     dxhat = (dy_pre * g32).reshape(b, hw, groups, cg)
@@ -777,6 +801,155 @@ def groupnorm_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
         if ran.value >= 0:
             groupnorm_gelu_bwd_routes[GN_KERNELS[ran.value]] += 1
     return dx, dgamma, dbeta
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm_act: RMSNorm over the last axis followed by the activation, and
+# its rule
+# ---------------------------------------------------------------------------
+
+# The models' activations by configuration name (flax's default gelu is the
+# tanh approximation), each as the eager chain computes it.
+ACTIVATIONS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_sigmoid": lambda x: x * torch.sigmoid(1.702 * x),
+    "silu": F.silu,
+    "relu": F.relu,
+    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.2),
+}
+# the kernel's template argument for each (csrc/rmsnorm_act.cu's Act)
+RMS_ACTIVATIONS = ("silu", "gelu", "gelu_sigmoid", "relu", "leaky_relu")
+# rows of per-block dw partials the backward may use (its grid's cap)
+RMS_PARTIAL_ROWS = 2048
+
+
+def _sigmoid_grad(v: torch.Tensor, k: float) -> torch.Tensor:
+    """d/dv of v·sigmoid(k·v)."""
+    s = torch.sigmoid(k * v)
+    return s + v * k * s * (1.0 - s)
+
+
+# act'(v) of each activation, in float32
+ACTIVATION_GRADS = {
+    "gelu": gelu_tanh_grad,
+    "gelu_sigmoid": lambda v: _sigmoid_grad(v, 1.702),
+    "silu": lambda v: _sigmoid_grad(v, 1.0),
+    "relu": lambda v: (v > 0).to(v.dtype),
+    "leaky_relu": lambda v: torch.where(v > 0, 1.0, 0.2).to(v.dtype),
+}
+
+
+def activation_id(activation: str) -> int:
+    """The kernel's index of ``activation``; ValueError for a name the
+    models do not have."""
+    if activation not in RMS_ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; have "
+                         f"{sorted(RMS_ACTIVATIONS)}")
+    return RMS_ACTIVATIONS.index(activation)
+
+
+def rms_rstd(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """1/sqrt(mean(x²) + eps) over the last axis, float32, x's leading
+    shape: the residual the forward kernel writes."""
+    ms = x.to(torch.float32).square().mean(dim=-1)
+    return torch.rsqrt(ms + eps)
+
+
+def rmsnorm_act_plain(x: torch.Tensor, w: torch.Tensor, activation: str,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """act(RMSNorm(x)) over x's last axis, as the ResNet's eager chain
+    computes it: float32 statistics, n = x32·(rsqrt(ms + eps)·w) rounded
+    to x's dtype, then the activation on n in x's dtype."""
+    activation_id(activation)
+    x32 = x.to(torch.float32)
+    ms = x32.square().mean(dim=-1, keepdim=True)
+    n = x32 * (torch.rsqrt(ms + eps) * w)
+    return ACTIVATIONS[activation](n.to(x.dtype))
+
+
+def rmsnorm_act_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
+                          w: torch.Tensor, rstd: torch.Tensor,
+                          activation: str
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rule written out: (dx in x's dtype, dw float32 [C]). With xh =
+    x·rstd and n = x·(rstd·w) rounded to x's dtype: d = dy·act'(n), g =
+    d·w, dx = rstd·(g − xh·mean_C(g·xh)), dw = Σ_rows d·xh."""
+    activation_id(activation)
+    c = x.shape[-1]
+    x32, w32 = x.to(torch.float32), w.to(torch.float32)
+    r = rstd.unsqueeze(-1)
+    xh = x32 * r
+    n = (x32 * (r * w32)).to(x.dtype).to(torch.float32)
+    d = dy.to(torch.float32) * ACTIVATION_GRADS[activation](n)
+    g = d * w32
+    dx = r * (g - xh * (g * xh).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), (d * xh).reshape(-1, c).sum(dim=0)
+
+
+def _check_rms(name: str, x: torch.Tensor, w: torch.Tensor,
+               *f32: torch.Tensor) -> tuple[int, int]:
+    """(rows, C) of x [..., C] (bf16 or f32, rows contiguous in C); w [C]
+    and the rest float32; all CUDA, contiguous and without grad."""
+    _check_gn(name, x, w, *f32)
+    if x.dim() < 1 or x.shape[-1] == 0 or w.shape != x.shape[-1:]:
+        raise ValueError(f"{name}: expects x [..., C] with C > 0 and w [C], "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    return x.numel() // x.shape[-1], x.shape[-1]
+
+
+def rmsnorm_act_cuda(x: torch.Tensor, w: torch.Tensor, activation: str,
+                     eps: float = 1e-6, want_rstd: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Kernel version of ``rmsnorm_act_plain`` on x [..., C] (NHWC: one
+    pixel a row), f32 w [C] -> (y in x's dtype, rstd [...] float32 where
+    ``want_rstd``, else None). The C entry point picks the kernel by C and
+    alignment and reports it; each launch adds one to
+    ``rmsnorm_act_routes`` under the kernel that ran."""
+    act = activation_id(activation)
+    rows, c = _check_rms("rmsnorm_act", x, w)
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    rstd = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+            if want_rstd else None)
+    if rows:
+        ran = ctypes.c_int(-1)
+        _launch("rmsnorm_act", _lib().apv_rmsnorm_act, x.data_ptr(),
+                w.data_ptr(), y.data_ptr(),
+                None if rstd is None else rstd.data_ptr(), rows, c,
+                float(eps), act, int(x.dtype == torch.bfloat16),
+                ctypes.byref(ran), device=x.device)
+        rmsnorm_act_routes[RMS_KERNELS[ran.value]] += 1
+    return y, rstd
+
+
+def rmsnorm_act_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                         rstd: torch.Tensor, activation: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel version of ``rmsnorm_act_bwd_plain``: dy and x of one dtype
+    and shape, f32 w [C] and the forward's rstd -> (dx, dw float32 [C]).
+    Each launch adds one to ``rmsnorm_act_bwd_routes`` under the kernel
+    that ran."""
+    act = activation_id(activation)
+    rows, c = _check_rms("rmsnorm_act_bwd", x, w, rstd)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous() or dy.requires_grad:
+        raise ValueError("rmsnorm_act_bwd: dy must match x in shape, dtype "
+                         "and device, contiguous and without grad")
+    if rstd.shape != x.shape[:-1]:
+        raise ValueError(f"rmsnorm_act_bwd: rstd must be "
+                         f"{tuple(x.shape[:-1])}, got {tuple(rstd.shape)}")
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    partials = torch.empty((RMS_PARTIAL_ROWS, c), dtype=torch.float32,
+                           device=x.device)
+    dw = torch.empty(c, dtype=torch.float32, device=x.device)
+    ran = ctypes.c_int(-1)                # stays -1 when there is no row
+    _launch("rmsnorm_act_bwd", _lib().apv_rmsnorm_act_bwd, dy.data_ptr(),
+            x.data_ptr(), w.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), RMS_PARTIAL_ROWS, dw.data_ptr(), rows, c,
+            act, int(x.dtype == torch.bfloat16), ctypes.byref(ran),
+            device=x.device)
+    if ran.value >= 0:
+        rmsnorm_act_bwd_routes[RMS_KERNELS[ran.value]] += 1
+    return dx, dw
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,12 @@ Phases, one JSON line each:
      same bits, each held to the kernel that ran;
      conv3x3 also at two odd shapes, one for each of its routes (tensor
      cores, SIMT), each held to the kernel that ran, and on views off
-     TMA's alignment.
+     TMA's alignment; rmsnorm_act and its backward at the ResNet's three
+     stage widths at the IWAE chunk's and the train step's rows, bf16 and
+     f32, each activation at an odd row count (vector kernels) and an odd
+     width (scalar), and off 16-byte alignment (scalar), each twice for
+     the same bits, with each direction's call and device time at the six
+     stage shapes beside the plain chain's and F.rms_norm + F.silu's.
   3. scorer: the per-sample ELBO scorer of cifar_advprior_resnet at full
      width (batch 64, bf16 compute, random seeded weights) through the
      kernels, held to the same ELBO recomputed with the plain ops on the
@@ -59,7 +64,11 @@ Phases, one JSON line each:
  10. groupnorm_gelu: the fused GroupNorm + GELU op, forward and backward
      through its autograd.Function, at the flagship's stage-1 shape
      [256, 32, 32, 64] in bf16 and f32 and at an odd shape, held to
-     autograd of the plain version and to the kernels that must run.
+     autograd of the plain version and to the kernels that must run;
+     then rmsnorm_act: the ResNet's fused norm modules at the train
+     step's three stage shapes, forward and backward, one launch each
+     way a module on the vector kernels, held to autograd of the plain
+     chain.
  11. conv3x3: the conv probe (python -m apv_tpu_torch.ops.conv_probe) at its
      three shapes, bf16 and f32: the kernel's error against f32 F.conv2d,
      its chained time and cuDNN's.
@@ -178,7 +187,12 @@ Phases, one JSON line each:
      are cut to 4,096 images a split.
      NCCL refuses two ranks on one card: no run here has two cards.
 Each path runs once with the launch counters zeroed just before it and
-read just after; a kernel of the paths that did not launch fails the run
+read just after; the ResNet's fused norm must launch its forward kernel
+once a call of its module on the card and its backward once a call whose
+output receives a gradient (count_norms; in the CLI children too), and
+the scorer and IWAE phases hold its forward launches to 13 a ResNet
+encoder or decoder forward; a kernel of the paths that did not launch
+fails the run
 (OFF_PATH lists the one kernel that no path launches, and a launch of it
 fails the run too). Under the standard prior the ELBO's z and KL come
 from one reparam launch and go back through one reparam_bwd launch.
@@ -238,11 +252,15 @@ TF32_TENSOR_OPS = 495e12       # dense TF32 on the tensor cores
 # two sigmoids, expm1), 3 divides and ~23 adds, multiplies and compares.
 # groupnorm_gelu two for the statistics, three to normalize and scale and
 # ~8 for tanh-GELU; groupnorm_gelu_bwd ~25 (the GELU derivative, the four
-# products and sums of the rule, the dx affine).
+# products and sums of the rule, the dx affine). rmsnorm_act two for the
+# statistics, two to normalize, the rounding and ~6 for SiLU (an exp, an
+# add, a division); rmsnorm_act_bwd ~20 (the norm again, SiLU's
+# derivative, the rule's products and sums, dw's sum).
 OPS_PER_ELEM = {"disc_logistic": 30, "reparam": 33, "kl": 6, "bernoulli": 7,
                 "bernoulli_bwd": 5, "kl_bwd": 5, "reparam_bwd": 5,
                 "disc_logistic_bwd": 30, "groupnorm_gelu": 13,
-                "groupnorm_gelu_bwd": 25}
+                "groupnorm_gelu_bwd": 25, "rmsnorm_act": 11,
+                "rmsnorm_act_bwd": 20}
 
 REPLACES = {
     "reparam": "apv_tpu/ops/kernels.py:305",
@@ -256,6 +274,9 @@ REPLACES = {
     "groupnorm_gelu": "apv_tpu/ops/groupnorm.py:116",
     "groupnorm_gelu_bwd": "apv_tpu/ops/groupnorm.py:166",
     "conv3x3": "scripts/conv_microbench.py:67",
+    # no TPU kernel: XLA fused nn.RMSNorm and the activation after it
+    "rmsnorm_act": "none: XLA's fusion of apv_tpu/models/resnet_vae.py:38",
+    "rmsnorm_act_bwd": "none: XLA's fusion of its gradient",
 }
 # Kernels that no main path launches: kl_bwd, the backward of kl alone,
 # serves the callers that differentiate ops.kl_standard by itself; the
@@ -274,7 +295,10 @@ KERNEL_FNS = {"reparam": ("reparam_samples",), "kl": ("kl_rows",),
                                  "groupnorm_gelu_rows"),
               "groupnorm_gelu_bwd": ("groupnorm_gelu_bwd_image",
                                      "groupnorm_gelu_bwd_rows"),
-              "conv3x3": ("conv3x3_wgmma", "conv3x3_simt")}
+              "conv3x3": ("conv3x3_wgmma", "conv3x3_simt"),
+              "rmsnorm_act": ("rmsnorm_act_rows", "rmsnorm_act_rows_scalar"),
+              "rmsnorm_act_bwd": ("rmsnorm_act_bwd_rows",
+                                  "rmsnorm_act_bwd_rows_scalar")}
 SOURCES = {name: f"apv_tpu_torch/ops/csrc/{name.removesuffix('_bwd')}.cu"
            for name in REPLACES}
 
@@ -1042,6 +1066,211 @@ def gn_kernel_checks(K, card: str, rng, dev) -> dict:
     }
 
 
+# (path, rows, C): the ResNet's three stage widths at the IWAE chunk (1,600
+# rows a chunk) and the train step (batch 256), one pixel a row
+RMS_SHAPES = (("iwae", 1600 * 1024, 64), ("iwae", 1600 * 256, 128),
+              ("iwae", 1600 * 64, 256), ("train", 256 * 1024, 64),
+              ("train", 256 * 256, 128), ("train", 256 * 64, 256))
+# (rows, C, the kernel that must run) for every activation: the vector
+# path off a whole block of rows, the scalar variant at an odd width
+RMS_ODD = ((4099, 64, "vector"), (37, 24, "scalar"))
+# forward: f32 scale-relative; bf16 in ulps (rms_fwd_err); gradients
+# scale-relative
+RMS_FWD_TOL = {torch.float32: 1e-6, torch.bfloat16: 1.0}
+RMS_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def rms_inputs(rng, rows, c, dtype, dev):
+    x = torch.from_numpy((rng.normal(size=(rows, c)) * 2.0 + 0.3).astype(
+        np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.normal(size=c) * 0.5 + 1.0).astype(
+        np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(size=(rows, c)).astype(np.float32)).to(
+        dev, dtype)
+    return x, w, dy
+
+
+def bf16_neighbours(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 values next to each of ``n``'s, below and above."""
+    n = torch.where(n == 0, torch.zeros_like(n), n)          # -0 as +0
+    b = n.view(torch.int16).to(torch.int32)
+    up = torch.where(n >= 0, b + 1, b - 1)
+    dn = torch.where(n > 0, b - 1, torch.where(n == 0, -32767, b + 1))
+    return tuple(t.to(torch.int16).view(torch.bfloat16) for t in (dn, up))
+
+
+def rms_fwd_err(K, x, w, act, y) -> tuple[float, float]:
+    """(error, share of elements equal to the plain chain's) of the
+    kernel's y. f32: scale-relative. bf16: the worst element's distance,
+    in bf16 ulps of the chain's value, from the nearest of the chain's y
+    at n and at n's two bf16 neighbours (the norm n rounded to bf16; a
+    channel sum taken in another order can move n across a rounding)."""
+    want = K.rmsnorm_act_plain(x, w, act)
+    same = float((y == want).float().mean())
+    if x.dtype == torch.float32:
+        return scale_rel(y, want), same
+    x32 = x.float()
+    n = (x32 * (torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-6)
+                * w)).to(torch.bfloat16)
+    yf, best = y.float(), None
+    for cand in (n, *bf16_neighbours(n)):
+        c = K.ACTIVATIONS[act](cand).float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            c.abs().clamp_min(2.0 ** -126))) - 7)
+        d = (yf - c).abs() / ulp
+        best = d if best is None else torch.minimum(best, d)
+    return float(best.max()), same
+
+
+def device_us(fn, functions, calls: int = 20) -> float:
+    """Device µs a call of ``fn`` in the kernels named ``functions``
+    (torch.profiler over ``calls`` calls after one more)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 1):
+            fn()
+        torch.cuda.synchronize()
+    tot, n = 0.0, 0
+    for e in prof.key_averages():
+        if any(f"::{f}(" in e.key or f"::{f}<" in e.key for f in functions):
+            tot += getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0))
+            n = max(n, e.count)
+    return tot / n if n else float("nan")
+
+
+def library_rms_silu(x, w):
+    """F.rms_norm + F.silu on NHWC rows, w in x's dtype: the library's
+    version of the op (timed only)."""
+    return F.silu(F.rms_norm(x, (x.shape[-1],), w.to(x.dtype), 1e-6))
+
+
+def rms_kernel_checks(K, card: str, rng, dev) -> dict:
+    """rmsnorm_act and rmsnorm_act_bwd against their plain versions at
+    RMS_SHAPES in bf16 and f32 (SiLU, the flagship's) and at RMS_ODD with
+    every activation, each called twice for the same bits and held to
+    the kernel that must run (vector or scalar), and off 16-byte
+    alignment (scalar); then, at RMS_SHAPES in bf16, each direction's
+    call time, device time, bound, the plain version's time and the
+    library's F.rms_norm + F.silu (forward; backward on a retained
+    graph). The IWAE shapes' forward writes no rstd, as inference runs."""
+    errs = {}
+
+    def check_case(tag, x, w, dy, act, kernel):
+        K.reset_launches()
+        with torch.inference_mode():
+            yk, rk = K.rmsnorm_act_cuda(x, w, act, want_rstd=True)
+            y2, r2 = K.rmsnorm_act_cuda(x, w, act, want_rstd=True)
+            fwd, same = rms_fwd_err(K, x, w, act, yk)
+            stats = scale_rel(rk, K.rms_rstd(x))
+            ek = K.rmsnorm_act_bwd_cuda(dy, x, w, rk, act)
+            again = K.rmsnorm_act_bwd_cuda(dy, x, w, rk, act)
+            ep = K.rmsnorm_act_bwd_plain(dy, x, w, rk, act)
+        bwd = [scale_rel(a, c) for a, c in zip(ek, ep)]
+        errs[tag] = {"fwd": fwd, "fwd_equal_share": same, "rstd": stats,
+                     "dx": bwd[0], "dw": bwd[1]}
+        check(fwd <= RMS_FWD_TOL[x.dtype] and stats <= 1e-6,
+              f"rmsnorm_act {tag}: forward {fwd}, rstd {stats}")
+        check(max(bwd) <= RMS_GRAD_TOL[x.dtype],
+              f"rmsnorm_act_bwd {tag}: dx, dw scale-relative {bwd}")
+        check(torch.equal(yk, y2) and torch.equal(rk, r2),
+              f"rmsnorm_act {tag}: a second call gave other bits")
+        check(all(torch.equal(a, c) for a, c in zip(ek, again)),
+              f"rmsnorm_act_bwd {tag}: a second call gave other bits")
+        for key, name, routes in (
+                ("fwd_kernel", "rmsnorm_act", K.rmsnorm_act_routes),
+                ("bwd_kernel", "rmsnorm_act_bwd", K.rmsnorm_act_bwd_routes)):
+            ran = errs[tag][key] = dict(routes)
+            check(ran == {**dict.fromkeys(K.RMS_KERNELS, 0), kernel: 2},
+                  f"{name} {tag}: launched {ran}, expected the {kernel} "
+                  "kernel twice")
+
+    for path, rows, c in RMS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dy = rms_inputs(rng, rows, c, dtype, dev)
+            check_case(f"{path} [{rows},{c}] "
+                       f"{str(dtype).removeprefix('torch.')}",
+                       x, w, dy, "silu", "vector")
+            del x, dy
+    for rows, c, kernel in RMS_ODD:
+        for act in K.RMS_ACTIVATIONS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x, w, dy = rms_inputs(rng, rows, c, dtype, dev)
+                check_case(f"[{rows},{c}] {act} "
+                           f"{str(dtype).removeprefix('torch.')}",
+                           x, w, dy, act, kernel)
+    # views one element off 16-byte alignment take the scalar variant
+    x, w, dy = rms_inputs(rng, 4099, 64, torch.bfloat16, dev)
+    xs, dys = (torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+               .view(t.shape).copy_(t) for t in (x, dy))
+    check_case("[4099,64] silu bfloat16 off 16-byte alignment", xs, w, dys,
+               "silu", "scalar")
+
+    fwd_fns = ("rmsnorm_act_rows",)
+    bwd_fns = ("rmsnorm_act_bwd_rows", "rmsnorm_act_param_sum")
+    rows_out = []
+    for path, rows, c in RMS_SHAPES:
+        x, w, dy = rms_inputs(rng, rows, c, torch.bfloat16, dev)
+        rstd_out = path == "train"
+        n = rows * c
+        with torch.inference_mode():
+            _, rk = K.rmsnorm_act_cuda(x, w, "silu", want_rstd=True)
+
+            def fwd():
+                return K.rmsnorm_act_cuda(x, w, "silu", want_rstd=rstd_out)
+
+            def bwd():
+                return K.rmsnorm_act_bwd_cuda(dy, x, w, rk, "silu")
+            r = {"path": path, "rows": rows, "c": c, "dtype": "bfloat16",
+                 "fwd_ms": cuda_ms(fwd, 100),
+                 "fwd_device_us": device_us(fwd, fwd_fns),
+                 "fwd_plain_ms": cuda_ms(
+                     lambda: K.rmsnorm_act_plain(x, w, "silu"), 10),
+                 "fwd_library_ms": cuda_ms(
+                     lambda: library_rms_silu(x, w), 100),
+                 "bwd_ms": cuda_ms(bwd, 100),
+                 "bwd_device_us": device_us(bwd, bwd_fns),
+                 "bwd_plain_ms": cuda_ms(lambda: K.rmsnorm_act_bwd_plain(
+                     dy, x, w, rk, "silu"), 10)}
+        xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+        y_lib = library_rms_silu(xr, wr)
+        r["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y_lib, (xr, wr), dy, retain_graph=True), 50)
+        del y_lib
+        fb = bound("rmsnorm_act", card,
+                   2 * 2 * n + 4 * c + (4 * rows if rstd_out else 0), n)
+        bb = bound("rmsnorm_act_bwd", card, 3 * 2 * n + 4 * rows + 8 * c, n)
+        r.update(fwd_bound_ms=fb["bound_ms"], fwd_bound_by=fb["bound_by"],
+                 bwd_bound_ms=bb["bound_ms"], bwd_bound_by=bb["bound_by"])
+        rows_out.append(r)
+        del x, dy, rk
+    first = rows_out[0]
+    tag0 = f"iwae [{first['rows']},{first['c']}] bfloat16"
+    return {
+        "rmsnorm_act": {
+            "shape": [first["rows"], first["c"]], "dtype": "bfloat16",
+            "max_abs_err": errs[tag0]["fwd"], "errs": errs,
+            "tol_fwd": "1e-6 scale-relative (f32); 1 bf16 ulp from the "
+                       "chain at n or a bf16 neighbour of n (bf16)",
+            "ms": first["fwd_ms"], "plain_ms": first["fwd_plain_ms"],
+            "library_ms": first["fwd_library_ms"],
+            "library": "F.rms_norm + F.silu, forward",
+            "bound_ms": first["fwd_bound_ms"],
+            "bound_by": first["fwd_bound_by"], "by_shape": rows_out},
+        "rmsnorm_act_bwd": {
+            "shape": [first["rows"], first["c"]], "dtype": "bfloat16",
+            "max_abs_err": errs[tag0]["dx"],
+            "tol": "scale-relative 1e-5 (f32), 1e-2 (bf16)",
+            "ms": first["bwd_ms"], "plain_ms": first["bwd_plain_ms"],
+            "library_ms": first["bwd_library_ms"],
+            "library": "backward of F.rms_norm + F.silu on a retained graph",
+            "bound_ms": first["bwd_bound_ms"],
+            "bound_by": first["bwd_bound_by"]},
+    }
+
+
 def conv_bound(card: str, shape, dtype) -> dict:
     """Bytes (x and w in, f32 out) over the memory rate, or the least time
     of the operations, whichever is larger: 2·9·Cin per output on the bf16
@@ -1180,17 +1409,100 @@ def count_shapes(K) -> None:
     K.disc_logistic_cuda = shim("disc_logistic", K.disc_logistic_cuda)
 
 
-def path_counts(K) -> dict:
+# The ResNet's fused norm (models/common.py::RMSNormAct): one rmsnorm_act
+# launch a call of the module on a CUDA tensor, one rmsnorm_act_bwd launch
+# a call whose output receives a gradient. A shim over the module's
+# forward counts those calls into NORMS_NOW (cleared with the launch
+# counts); each path's launches of the two kernels must equal them, and
+# are then left out of the path's counts (zeroed), so the other kernels'
+# expectations stand as they were. NORM_TOTAL sums the checked launches.
+NORM_KERNELS = ("rmsnorm_act", "rmsnorm_act_bwd")
+NORMS_NOW: collections.Counter = collections.Counter()
+NORM_TOTAL: collections.Counter = collections.Counter()
+
+
+def count_norms(K) -> None:
+    """From here on (once a process), count the fused norm's module calls
+    into NORMS_NOW, which ``K.reset_launches`` clears with the counts."""
+    from apv_tpu_torch.models.common import RMSNormAct
+    from apv_tpu_torch.utils.logging import _traced
+    if getattr(RMSNormAct.forward, "counted", False):
+        return
+    real, reset = RMSNormAct.forward, K.reset_launches
+
+    def received(grad):
+        NORMS_NOW["rmsnorm_act_bwd"] += 1
+
+    def forward(self, x):
+        y = real(self, x)
+        if y.device.type == torch.device(DEVICE).type and not _traced():
+            NORMS_NOW["rmsnorm_act"] += 1
+            if y.requires_grad:
+                y.register_hook(received)
+        return y
+
+    def reset_all():
+        reset()
+        NORMS_NOW.clear()
+
+    forward.counted = True
+    RMSNormAct.forward = forward
+    K.reset_launches = reset_all
+
+
+def norm_checked(launches: dict, calls, where: str) -> dict:
+    """``launches`` with the fused norm's two kernels checked against the
+    module ``calls`` of the same path (``NORMS_NOW``'s form), added to
+    NORM_TOTAL and zeroed."""
+    got = {n: launches.get(n, 0) for n in NORM_KERNELS}
+    want = {n: calls.get(n, 0) for n in NORM_KERNELS}
+    check(got == want, f"{where}: the fused norm launched {got} for "
+          f"{want} module calls on the card")
+    NORM_TOTAL.update(got)
+    return {**launches, **dict.fromkeys(NORM_KERNELS, 0)}
+
+
+def path_counts(K, norm_calls: dict | None = None) -> dict:
     """The launch counts of the path just run (zeroed just before it), its
-    likelihood launches by shape added to PATH_SHAPES."""
+    likelihood launches by shape added to PATH_SHAPES, its fused norm's
+    checked against the module calls (``norm_calls`` where the path runs
+    the norm outside the modules: an exported artifact)."""
     PATH_SHAPES.update(SHAPES_NOW)
-    return dict(K.launches)
+    return norm_checked(dict(K.launches),
+                        NORMS_NOW if norm_calls is None else norm_calls,
+                        "path")
+
+
+def norms_a_forward(net) -> int:
+    """The fused norms one forward of ``net`` calls."""
+    from apv_tpu_torch.models.common import RMSNormAct
+    return sum(isinstance(m, RMSNormAct) for m in net.modules())
 
 
 def expected(K, **counts) -> dict:
     """A full launch-count dict: the named kernels at their counts, the
     rest at 0."""
     return {name: counts.get(name, 0) for name in K.launches}
+
+
+def norm_structure(K, phase: str, cfg, model, encodes: int,
+                   decodes: int) -> dict:
+    """The fused norm's forward launches of the path just run, against
+    the model's structure: one a norm of each encoder and decoder forward,
+    13 each for a norm=rms ResNet at the flagship's depth (three stages of
+    two blocks, two norms a block, and the trunk's last), none for the
+    other families."""
+    enc = norms_a_forward(model.encoder)
+    dec = norms_a_forward(model.decoder)
+    rms = cfg.model.family == "resnet" and cfg.model.norm == "rms"
+    check((enc, dec) == ((13, 13) if rms else (0, 0)),
+          f"{phase}: {enc} fused norms in the encoder, {dec} in the decoder")
+    want = encodes * enc + decodes * dec
+    got = K.launches["rmsnorm_act"]
+    check(got == want, f"{phase}: rmsnorm_act launched {got} times, the "
+          f"model's structure gives {want} ({encodes} encoder and "
+          f"{decodes} decoder forwards)")
+    return {"encoder_norms": enc, "decoder_norms": dec, "launches": got}
 
 
 def gen(seed: int) -> torch.Generator:
@@ -1235,6 +1547,7 @@ def scorer_phase(phase, cfg, model, d, x, dev):
     K.reset_launches()
     elbo = scorer(x, generator=gen(SEED))
     torch.cuda.synchronize()
+    norms = norm_structure(K, phase, cfg, model, 1, 1)
     launches = path_counts(K)
     recon = "bernoulli" if cfg.model.likelihood == "bernoulli" \
         else "disc_logistic"
@@ -1256,6 +1569,7 @@ def scorer_phase(phase, cfg, model, d, x, dev):
     scorer_s = (time.perf_counter() - t0) / iters
     elbo_np = elbo.double().cpu().numpy()
     emit(phase, preset=cfg.name, batch=x.shape[0], launches=launches,
+         norm_launches=norms,
          elbo_mean=float(elbo_np.mean()), elbo_std=float(elbo_np.std()),
          max_abs_err_vs_plain=err, tol=tol, log_partition=log_z,
          log_partition_se=float(log_z_se), ms_per_batch=scorer_s * 1e3,
@@ -1282,6 +1596,7 @@ def iwae_phase(phase, cfg, model, d, images, elbo_np, chunk_want, dev,
                        device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    norms = norm_structure(K, phase, cfg, model, 1, k // chunk)
     launches = path_counts(K)
     recon = "bernoulli" if cfg.model.likelihood == "bernoulli" \
         else "disc_logistic"
@@ -1304,7 +1619,8 @@ def iwae_phase(phase, cfg, model, d, images, elbo_np, chunk_want, dev,
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     emit(phase, preset=cfg.name, k=k, chunk=chunk, batch=batch,
-         launches=launches, **res, elbo_mean=float(elbo_np.mean()),
+         launches=launches, norm_launches=norms, **res,
+         elbo_mean=float(elbo_np.mean()),
          iwae_mean=float(per.mean()), wall_s_first=wall, wall_s=wall2,
          images_per_s=batch / wall2)
     return launches
@@ -1973,16 +2289,20 @@ def iwae_train_phase(arrays, tmp: str, dev):
 # ---------------------------------------------------------------------------
 
 # A child running apv_tpu_torch.cli as `python -m` does, its launch counts
-# (zeroed at its start) written to the file named by APV_LAUNCHES_OUT.
+# (zeroed at its start) and its fused norm's module calls (count_norms)
+# written to the file named by APV_LAUNCHES_OUT.
 CLI_CHILD = """\
 import json, os, runpy
+import chip_smoke
 from apv_tpu_torch.ops import kernels as K
+chip_smoke.count_norms(K)
 K.reset_launches()
 try:
     runpy.run_module("apv_tpu_torch.cli", run_name="__main__", alter_sys=True)
 finally:
     with open(os.environ["APV_LAUNCHES_OUT"], "w") as f:
-        json.dump(dict(K.launches), f)
+        json.dump({"launches": dict(K.launches),
+                   "norm_calls": dict(chip_smoke.NORMS_NOW)}, f)
 """
 
 
@@ -1994,13 +2314,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic = True
+import chip_smoke
 from apv_tpu_torch.ops import kernels as K
+chip_smoke.count_norms(K)
 K.reset_launches()
 try:
     runpy.run_module("apv_tpu_torch.cli", run_name="__main__", alter_sys=True)
 finally:
     with open(os.environ["APV_LAUNCHES_OUT"], "w") as f:
-        json.dump(dict(K.launches), f)
+        json.dump({"launches": dict(K.launches),
+                   "norm_calls": dict(chip_smoke.NORMS_NOW)}, f)
 """
 
 
@@ -2047,7 +2370,9 @@ def start_cli(args: list[str], tmp: str, *, tag: str,
 
 def finish_cli(h: dict, timeout: int = 600):
     """Wait for a child of ``start_cli`` -> (stdout, its launch counts or
-    None, wall_s). A child past ``timeout`` is killed."""
+    None, wall_s), the fused norm's launches checked against the child's
+    module calls and zeroed (norm_checked). A child past ``timeout`` is
+    killed."""
     try:
         rc = h["proc"].wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -2058,8 +2383,11 @@ def finish_cli(h: dict, timeout: int = 600):
     out, err = h["out"].read_text(), h["err"].read_text()
     check(rc == 0, f"apv-torch {' '.join(h['args'])}: exit {rc}\n"
           f"{out[-1500:]}\n{err[-3000:]}")
-    launches = (json.loads(h["counts"].read_text()) if h["counts"]
-                else None)
+    launches = None
+    if h["counts"]:
+        blob = json.loads(h["counts"].read_text())
+        launches = norm_checked(blob["launches"], blob["norm_calls"],
+                                f"apv-torch {' '.join(h['args'])[:120]}")
     return out, launches, wall
 
 
@@ -2219,18 +2547,22 @@ def dist_rank(tmp: str, device: str, k: int, chunk: int, n_k: int,
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cfg = dist_config(tmp, "dist_w2", *extra)
+    count_norms(K)
     K.reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         state = train_loop(cfg, max_steps=DIST_STEPS, device=dev)
     sync()
-    out = {"rank": rank, "train_launches": dict(K.launches),
+    out = {"rank": rank,
+           "train_launches": norm_checked(dict(K.launches), NORMS_NOW,
+                                          f"rank {rank} train"),
            "replicas_equal": replicas_equal(state)}
     K.reset_launches()
     res = evaluate_nll(dist_eval_config(n_k, *extra), state.model, state.d,
                        dist_images(), k=k, chunk=chunk, batch_size=BATCH,
                        per_sample=True, seed=SEED, device=dev)
     sync()
-    out.update(eval_launches=dict(K.launches),
+    out.update(eval_launches=norm_checked(dict(K.launches), NORMS_NOW,
+                                          f"rank {rank} IWAE"),
                per_sample=res["per_sample"].tolist(),
                log_partition=res["log_partition"])
     if rank == 0:
@@ -2305,7 +2637,8 @@ def distributed_phase(tmp: str, dev, h: dict) -> dict:
     with deterministic_cudnn(), contextlib.redirect_stdout(io.StringIO()):
         ref = train_loop(cfg_ref, max_steps=DIST_STEPS, device=dev)
     torch.cuda.synchronize()
-    add("(a) without a group", dict(K.launches), per_run)
+    add("(a) without a group",
+        norm_checked(dict(K.launches), NORMS_NOW, "(a)"), per_run)
     K.reset_launches()
     fns = make_train_fns(cfg_a, device=dev)
     child = restore_checkpoint(Path(h["w1"]) / "dist_w1" / "checkpoints",
@@ -2336,7 +2669,7 @@ def distributed_phase(tmp: str, dev, h: dict) -> dict:
                        dist_images(), k=k, chunk=chunk, batch_size=BATCH,
                        per_sample=True, seed=SEED, device=dev)
     torch.cuda.synchronize()
-    add("(c) one process", dict(K.launches),
+    add("(c) one process", norm_checked(dict(K.launches), NORMS_NOW, "(c)"),
         expected(K, reparam=k // chunk, disc_logistic=k // chunk))
     want = np.asarray(res["per_sample"])
     got = np.asarray(ranks[0]["per_sample"])
@@ -3079,17 +3412,18 @@ def export_phase(cfg, tmp: str, dev, child: dict) -> dict:
         secs[key] = time.perf_counter() - t0
         return out
 
-    def score(tag, art, ref, x, seed, want_launches, plain):
+    def score(tag, art, ref, x, seed, want_launches, plain, norms=0):
         """One artifact call with the counters zeroed around it (after a
         warm-up call), held to ``ref`` (make_scorer, the same key: the
         same kernels, expected bit-equal) and to ``plain`` (the plain
-        ops, at scorer_phase's bar)."""
+        ops, at scorer_phase's bar); ``norms``: the fused norm's forward
+        launches the graph must make (its apv::rmsnorm_act nodes)."""
         art(x, torch.tensor(seed))                         # warm up
         torch.cuda.synchronize()
         K.reset_launches()
         got = art(x, torch.tensor(seed))
         torch.cuda.synchronize()
-        per_call[tag] = counts = path_counts(K)
+        per_call[tag] = counts = path_counts(K, {"rmsnorm_act": norms})
         for name in launches:
             launches[name] += counts[name]
         check(counts == want_launches, f"{tag} artifact: launches {counts}")
@@ -3140,12 +3474,15 @@ def export_phase(cfg, tmp: str, dev, child: dict) -> dict:
         x_all = torch.from_numpy(images["image"].astype(np.float32)
                                  / 255.0).to(dev)
         outs = {}
+        enc_norms = norms_a_forward(fresh.ema_model.encoder)
+        dec_norms = norms_a_forward(fresh.ema_model.decoder)
         for b in EXPORT_BATCHES:
             x, seed = x_all[:b], SEED + b
             outs[b] = score(f"scorer_b{b}", scorer, ref, x, seed,
                             expected(K, reparam=1, kl=1, disc_logistic=1),
                             plain_elbo(cfg, fresh.ema_model, d, x, log_z,
-                                       seed, plain_z=True))
+                                       seed, plain_z=True),
+                            norms=enc_norms + dec_norms)
         x64, seed_t = x_all[:64], torch.tensor(SEED)
         ms["scorer_artifact"] = cuda_ms(lambda: scorer(x64, seed_t), 10)
         ms["scorer_in_process"] = cuda_ms(lambda: ref(x64, key=(SEED, 0)),
@@ -3158,9 +3495,10 @@ def export_phase(cfg, tmp: str, dev, child: dict) -> dict:
         K.reset_launches()
         a, a8 = s32(torch.tensor(SEED)), s8(torch.tensor(SEED))
         torch.cuda.synchronize()
-        sampling = path_counts(K)
+        sampling = path_counts(K, {"rmsnorm_act": 2 * dec_norms})
         check(sampling == expected(K), f"sampler artifacts launched "
-              f"{sampling}: their path holds no kernel")
+              f"{sampling}: their path holds no kernel but the decoder's "
+              "norms")
         check(tuple(a.shape) == (cfg.eval.batch_size, 32, 32, 3)
               and bool(((a >= 0) & (a <= 1)).all())
               and torch.equal(s32(torch.tensor(SEED)), a)
@@ -3286,6 +3624,73 @@ def groupnorm_phase(dev) -> dict:
          tol_fwd="1e-5 (f32), 2^-7 (bf16) x max(max|y|, 1)",
          tol_grad="scale-relative 1e-4 (f32), 1e-2 (bf16)",
          fwd_bwd_ms_bf16=fwd_bwd)
+    return launches
+
+
+def rmsnorm_phase(dev) -> dict:
+    """The ResNet's fused norm modules (RMSNormAct, SiLU, bf16) at the
+    train step's three stage shapes on channels_last activations, forward
+    and backward through the op's autograd.Function with the counters
+    zeroed around them: one launch each way a module, on the vector
+    kernels; values and gradients held to autograd of the plain chain on
+    the same NHWC views."""
+    from apv_tpu_torch.models.common import RMSNormAct
+    from apv_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(SEED + 35)
+    cases = []
+    for _, rows, c in RMS_SHAPES[3:]:
+        side = int(math.isqrt(rows // 256))
+        x, w, dy = rms_inputs(rng, rows, c, torch.bfloat16, dev)
+        m = RMSNormAct(c, torch.bfloat16, "silu").to(dev)
+        with torch.no_grad():
+            m.weight.copy_(w)
+        to_nchw = lambda t, c=c, side=side: t.view(256, side, side, c) \
+            .permute(0, 3, 1, 2)                            # channels_last
+        cases.append((m, to_nchw(x), to_nchw(dy)))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    outs = []
+    for m, x, dy in cases:
+        xr = x.detach().requires_grad_(True)
+        y = m(xr)
+        outs.append((y.detach(), torch.autograd.grad(y, (xr, m.weight),
+                                                     dy)))
+    torch.cuda.synchronize()
+    fwd_kernels = dict(K.rmsnorm_act_routes)
+    bwd_kernels = dict(K.rmsnorm_act_bwd_routes)
+    raw = {n: K.launches[n] for n in NORM_KERNELS}
+    launches = path_counts(K)
+    check(raw == dict.fromkeys(NORM_KERNELS, len(cases)) and launches
+          == expected(K), f"rmsnorm_act launches {raw}, the rest {launches}")
+    check(fwd_kernels == bwd_kernels == {"vector": len(cases), "scalar": 0},
+          f"rmsnorm_act kernels {fwd_kernels}, backward {bwd_kernels}")
+    errs = {}
+    for (m, x, dy), (y, grads) in zip(cases, outs):
+        check(y.is_contiguous(memory_format=torch.channels_last),
+              "rmsnorm_act: the module's output is not channels_last")
+        xp = x.detach().requires_grad_(True)
+        wp = m.weight.detach().clone().requires_grad_(True)
+        y_p = K.rmsnorm_act_plain(xp.permute(0, 2, 3, 1), wp, "silu")
+        ref = torch.autograd.grad(y_p, (xp, wp), dy.permute(0, 2, 3, 1))
+        fwd, _ = rms_fwd_err(K, x.permute(0, 2, 3, 1), wp.detach(), "silu",
+                             y.permute(0, 2, 3, 1))
+        grad = max(scale_rel(a, c) for a, c in zip(grads, ref))
+        tag = f"{list(x.shape)} bfloat16"
+        errs[tag] = {"fwd_ulps": fwd, "grad_scale_rel": grad}
+        check(fwd <= RMS_FWD_TOL[torch.bfloat16] and grad
+              <= RMS_GRAD_TOL[torch.bfloat16], f"rmsnorm_act {tag}: "
+              f"forward {fwd} ulps, gradients {grad}")
+        check(all(bool(torch.isfinite(t).all()) for t in (y, *grads)),
+              f"rmsnorm_act {tag}: not finite")
+    m, x, dy = cases[0]
+    xr = x.detach().requires_grad_(True)
+    fwd_bwd = cuda_ms(lambda: torch.autograd.grad(m(xr), (xr, m.weight),
+                                                  dy), 50)
+    emit("rmsnorm_act", launches=raw, fwd_kernels=fwd_kernels,
+         bwd_kernels=bwd_kernels, errs=errs,
+         tol_fwd="1 bf16 ulp from the chain at n or a neighbour of n",
+         tol_grad="scale-relative 1e-2 (bf16), against autograd of the "
+                  "plain chain", fwd_bwd_ms_bf16=fwd_bwd)
     return launches
 
 
@@ -3584,11 +3989,14 @@ def main(argv: list[str]) -> int:
     krng = np.random.default_rng(SEED + 30)
     kres.update(gn_kernel_checks(K, card, krng, dev))
     kres.update(conv_kernel_checks(K, card, krng, dev))
+    kres.update(rms_kernel_checks(K, card, np.random.default_rng(SEED + 34),
+                                  dev))
     for name, r in kres.items():
         emit("kernel", name=name, **{"library_ms": None, **r})
 
     # 3-4. scorer and IWAE of the CIFAR flagship at full width
     count_shapes(K)
+    count_norms(K)
     cfg = get_preset("cifar_advprior_resnet")
     model = build_model(cfg.model, device=dev, seed=SEED)
     d = make_latent_d(cfg.adversarial, cfg.model.z_dim, device=dev,
@@ -3635,6 +4043,7 @@ def main(argv: list[str]) -> int:
         # 10-13. the fused op, the conv probe, then config 5 on the
         # step-48 checkpoint
         path_launches["groupnorm_gelu"] = groupnorm_phase(dev)
+        path_launches["rmsnorm_act"] = rmsnorm_phase(dev)
         path_launches["conv3x3"] = conv_phase(dev)
         path_launches["sample"] = sample_phase(tmp, dev)
         path_launches["ood"] = ood_phase(tmp, dev)
@@ -3704,6 +4113,7 @@ def main(argv: list[str]) -> int:
 
     total = {n: sum(pl[n] for pl in path_launches.values())
              for n in K.launches}
+    total.update({n: NORM_TOTAL[n] for n in NORM_KERNELS})
     for name, n in total.items():
         check((n > 0) != (name in OFF_PATH), f"{name}: {n} launches on "
               f"the main paths, {'none' if name in OFF_PATH else 'some'} "

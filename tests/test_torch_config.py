@@ -92,4 +92,5 @@ def test_ops_module_imports_without_cuda_or_nvcc():
                                      "bernoulli", "reparam_bwd", "kl_bwd",
                                      "bernoulli_bwd", "disc_logistic_bwd",
                                      "groupnorm_gelu", "groupnorm_gelu_bwd",
-                                     "conv3x3"}
+                                     "conv3x3", "rmsnorm_act",
+                                     "rmsnorm_act_bwd"}

@@ -191,7 +191,8 @@ def test_scorer_artifact_equals_make_scorer(scorers, name):
 
 def test_scorer_graphs_hold_the_four_kernel_ops(scorers):
     """What makes a trace on the card launch the kernels: the graph calls
-    ``torch.ops.apv.*`` (the custom ops), one node each."""
+    ``torch.ops.apv.*`` (the custom ops), one node each; the ResNet's
+    ``norm=rms`` norms are ``apv::rmsnorm_act`` nodes beside the four."""
     from apv_tpu_torch.ops import export_ops  # noqa: F401  the ops' schemas
     seen = set()
     for *_, path in scorers.values():
@@ -199,7 +200,8 @@ def test_scorer_graphs_hold_the_four_kernel_ops(scorers):
         seen |= {str(n.target).split(".")[1] for n in ep.graph.nodes
                  if n.op == "call_function" and str(n.target).startswith(
                      "apv.")}
-    assert seen == {"reparam", "kl", "bernoulli", "disc_logistic"}
+    assert seen == {"reparam", "kl", "bernoulli", "disc_logistic",
+                    "rmsnorm_act"}
 
 
 def test_pinned_scorer_batch(tmp_path):
