@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from apv_tpu_torch.utils.config import (Config, apply_overrides,
-                                        config_from_dict, get_preset)
+                                        config_from_dict, get_preset,
+                                        refuse_hierarchical)
 from apv_tpu_torch.utils.device import resolve_device
 
 _PRIORS = ("auto", "standard", "expost", "expost_gmm", "expost_flow")
@@ -180,6 +181,7 @@ def evaluate(config: str | Config = "iwae_eval", *,
     for an ex-post prior) without ``per_sample``, which only the returned
     dict holds.
     """
+    refuse_hierarchical(_resolve(config, overrides).model, "evaluate")
     from apv_tpu_torch.eval.run import (eval_arrays, evaluate_nll,
                                         posterior_activity)
 
@@ -349,6 +351,7 @@ def sample(config: str | Config = "mnist_vae", *,
     a temperature other than 1 carry suffixes (``samples_expost_flow.png``,
     ``samples_T0.7.png``).
     """
+    refuse_hierarchical(_resolve(config, overrides).model, "sample")
     from apv_tpu_torch.sampling.run import generate_samples, save_image_grid
 
     if prior not in _PRIORS:
@@ -417,6 +420,7 @@ def visualize(config: str | Config = "mnist_vae", *,
     (``latent_scatter.png``, at least 256 points; ``refine`` MALA steps on
     the shaped-prior draws, refused without a latent D; returns the
     projected clouds)."""
+    refuse_hierarchical(_resolve(config, overrides).model, "visualize")
     from apv_tpu_torch.eval.run import _prep_eval_batch, eval_arrays
     from apv_tpu_torch.sampling.run import (latent_interpolate,
                                             reconstruct_images,
@@ -490,6 +494,7 @@ def ood_score(config: str | Config = "ood_suite", *,
     the ``ood.reverse_of`` checkpoint when set); ``score='model_ratio'``
     loads the ``ood.baseline_of`` checkpoint as the denominator;
     ``score='pixel_d'`` scores with a biadversarial checkpoint's pixel D."""
+    refuse_hierarchical(_resolve(config, overrides).model, "ood_score")
     from apv_tpu_torch.eval.ood import ood_both, ood_scores
 
     dev = resolve_device(device)
@@ -536,6 +541,7 @@ def export_artifact(config: str | Config = "mnist_vae", *,
     a trained prior's base draw; ``quantize='int8'`` stores int8 kernels.
     The scorer takes none of these and refuses each (``temperature`` too,
     which the reference ignores without a word)."""
+    refuse_hierarchical(_resolve(config, overrides).model, "export_artifact")
     from apv_tpu_torch import serving
 
     if what not in _WHATS:

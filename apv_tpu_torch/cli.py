@@ -183,8 +183,8 @@ def main(argv: list[str] | None = None) -> int:
                          indent=2))
         return 0
     if args.command == "presets":
-        from apv_tpu_torch.utils.config import PRESETS
-        for name, factory in PRESETS.items():
+        from apv_tpu_torch.utils.config import PORT_PRESETS, PRESETS
+        for name, factory in {**PRESETS, **PORT_PRESETS}.items():
             doc = ((factory.__doc__ or "").strip().splitlines() or [""])[0]
             print(f"{name:24s} {doc}")
         return 0

@@ -39,7 +39,7 @@ from apv_tpu_torch.data.preprocess import (normalize_center, static_binarize,
 from apv_tpu_torch.eval.iwae_eval import estimate_log_partition
 from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.parallel.mesh import make_grid_2d
-from apv_tpu_torch.utils.config import Config
+from apv_tpu_torch.utils.config import Config, refuse_hierarchical
 from apv_tpu_torch.utils.device import resolve_device
 from apv_tpu_torch.utils.logging import (invocation, read, span, upload,
                                          waits)
@@ -209,6 +209,7 @@ def evaluate_nll(cfg: Config, model, d, images_u8: np.ndarray, *,
     ``eval.readback`` (the scores and log Z read back), with device
     markers at the start of each batch and chunk and around log Z.
     """
+    refuse_hierarchical(cfg.model, "evaluate_nll")
     if prior_moments is not None and use_adversarial_prior:
         raise ValueError("prior_moments (ex-post prior) and "
                          "use_adversarial_prior are mutually exclusive: "

@@ -71,6 +71,11 @@ SIGNATURES = {
     # logvar and g_kl (null: no KL term)
     "apv_reparam": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P),
     "apv_reparam_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # the learned-prior variant: q, p, z, kl, images, per_image, zdim, key;
+    # its backward: g (null: none), z, q, p, g_kl (null: none), dq, dp
+    "apv_reparam_prior": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P),
+    "apv_reparam_prior_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                              _P),
 }
 
 build_seconds: float | None = None   # wall time of this process's build

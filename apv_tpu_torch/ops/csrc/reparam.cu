@@ -389,3 +389,168 @@ extern "C" int apv_reparam_bwd(const float* g, const float* z, const float* mean
     }
     return apv::launch_status();
 }
+
+// The learned-prior variant (VDVAE's 43 layers): one layer's posterior
+// and prior come as the branches' outputs q and p, [B, 2Z, H, W] in
+// channels_last memory (the means in channels 0..Z-1, the log-sigmas in
+// Z..2Z-1 of each pixel's 2Z), and are read in place: no slice is copied.
+//     z[b, c, h, w] = qm + exp(qs) * eps,   eps from the stream above
+//     kl[b] = sum over c, h, w of -1/2 + ps - qs
+//                                 + 1/2 (e^{2 qs} + (qm - pm)^2) e^{-2 ps}
+// z is written [B, Z, H, W] in channels_last memory, element e of that
+// memory taking the stream's draw e: the stream of reparam_sample, so a
+// key gives the plain version's draws (kernels.py, reparam_prior_plain).
+// Z % 4 == 0, so a quad of z lies in one pixel: four channels of qm, qs,
+// pm and ps are each one float4 load.
+//
+// Bound: memory. At r = 32, B = 128 it reads 33.6 MB and writes 8.4 MB;
+// the 42 layers at r <= 16 are a few MB or less and sit near the launch
+// floor. Design: a block an image (128 blocks at B = 128), 256 threads
+// striding over the image's quads four at a time, so that each thread has
+// 16 loads of 16 bytes in flight; the image's KL summed in registers, then
+// by shuffles and a fixed-order pass over the warps' partials:
+// deterministic, no atomics, and no second launch for the per-image sum.
+//
+// Backward, from g (z's gradient, z's layout; null: none) and g_kl [B]
+// (null: none), with d = qm - pm and v = e^{-2 ps}:
+//     dqm = g + g_kl d v            dqs = g (z - qm) + g_kl (e^{2 qs} v - 1)
+//     dpm = -g_kl d v               dps = g_kl (1 - (e^{2 qs} + d^2) v)
+// (z - qm = e^{qs} eps). Elementwise: a thread a quad, dq and dp written in
+// q's layout. Bound: memory, 6 reads and 4 writes of [B, Z, H, W].
+namespace {
+
+constexpr int kPriorThreads = 256;
+
+__device__ __forceinline__ float4 ld4(const float* __restrict__ p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float get(const float4& v, int j) {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// A block an image; per_image = Z * H * W elements of z.
+template <typename Index>
+__global__ void __launch_bounds__(kPriorThreads)
+reparam_samples(const float* __restrict__ q, const float* __restrict__ p,
+                float* __restrict__ z, float* __restrict__ kl, Index per_image,
+                int zdim, uint2 key, uint2 offset) {
+    const Index b = blockIdx.x;
+    const Index quads = per_image / 4;
+    const Index ld = 2 * static_cast<Index>(zdim);
+    float acc = 0.0f;
+#pragma unroll 4
+    for (Index k = threadIdx.x; k < quads; k += kPriorThreads) {
+        const Index e0 = b * per_image + 4 * k;       // in z's memory
+        const Index pix = e0 / static_cast<Index>(zdim);
+        const Index c = e0 - pix * static_cast<Index>(zdim);
+        const float* qp = q + pix * ld + c;
+        const float* pp = p + pix * ld + c;
+        const float4 qm = ld4(qp), qs = ld4(qp + zdim);
+        const float4 pm = ld4(pp), ps = ld4(pp + zdim);
+        const uint64_t ctr = e0 / 4;
+        const uint4 bits = philox4x32_10(
+            make_uint4(static_cast<uint32_t>(ctr), static_cast<uint32_t>(ctr >> 32),
+                       offset.x, offset.y), key);
+        float eps[4], out[4];
+        box_muller(bits.x, bits.y, eps[0], eps[1]);
+        box_muller(bits.z, bits.w, eps[2], eps[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float m = get(qm, j), s = get(qs, j);
+            const float d = m - get(pm, j), sp = get(ps, j);
+            out[j] = m + expf(s) * eps[j];
+            acc += -0.5f + sp - s + 0.5f * (expf(2.0f * s) + d * d) * expf(-2.0f * sp);
+        }
+        *reinterpret_cast<float4*>(z + e0) = make_float4(out[0], out[1], out[2], out[3]);
+    }
+    __shared__ float partial[kPriorThreads / 32];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kPriorThreads / 32; ++w) sum += partial[w];
+        kl[b] = sum;
+    }
+}
+
+// A thread a quad of z's memory.
+template <typename Index>
+__global__ void __launch_bounds__(kPriorThreads)
+reparam_bwd_sum(const float* __restrict__ g, const float* __restrict__ z,
+                const float* __restrict__ q, const float* __restrict__ p,
+                const float* __restrict__ g_kl, float* __restrict__ dq,
+                float* __restrict__ dp, Index total, Index per_image, int zdim) {
+    const Index e0 = (static_cast<Index>(blockIdx.x) * kPriorThreads + threadIdx.x) * 4;
+    if (e0 >= total) return;
+    const Index pix = e0 / static_cast<Index>(zdim);
+    const Index c = e0 - pix * static_cast<Index>(zdim);
+    const Index at = pix * 2 * static_cast<Index>(zdim) + c;
+    const float4 qm = ld4(q + at), qs = ld4(q + at + zdim);
+    const float4 pm = ld4(p + at), ps = ld4(p + at + zdim);
+    const float4 zv = ld4(z + e0);
+    const float4 gv = g != nullptr ? ld4(g + e0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float gk = g_kl != nullptr ? g_kl[e0 / per_image] : 0.0f;
+    float o[4][4];   // dqm, dqs, dpm, dps
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const float m = get(qm, j), s = get(qs, j), gz = get(gv, j);
+        const float d = m - get(pm, j), v = expf(-2.0f * get(ps, j));
+        const float e2 = expf(2.0f * s);
+        o[0][j] = gz + gk * (d * v);
+        o[1][j] = gz * (get(zv, j) - m) + gk * (e2 * v - 1.0f);
+        o[2][j] = -(gk * (d * v));
+        o[3][j] = gk * (1.0f - (e2 + d * d) * v);
+    }
+    *reinterpret_cast<float4*>(dq + at) = make_float4(o[0][0], o[0][1], o[0][2], o[0][3]);
+    *reinterpret_cast<float4*>(dq + at + zdim) = make_float4(o[1][0], o[1][1], o[1][2], o[1][3]);
+    *reinterpret_cast<float4*>(dp + at) = make_float4(o[2][0], o[2][1], o[2][2], o[2][3]);
+    *reinterpret_cast<float4*>(dp + at + zdim) = make_float4(o[3][0], o[3][1], o[3][2], o[3][3]);
+}
+
+}  // namespace
+
+// q, p: [images, 2 zdim, H, W] channels_last; z: [images, zdim, H, W]
+// channels_last; kl: [images]. per_image = zdim * H * W, zdim % 4 == 0.
+extern "C" int apv_reparam_prior(const float* q, const float* p, float* z, float* kl,
+                                 int64_t images, int64_t per_image, int64_t zdim,
+                                 uint64_t seed, uint64_t offset, void* stream) {
+    if (images <= 0 || per_image <= 0) return 0;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+    const uint2 ctr = make_uint2(static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+    const int zd = static_cast<int>(zdim);
+    if (2 * images * per_image < (int64_t{1} << 31)) {
+        reparam_samples<uint32_t><<<static_cast<unsigned>(images), kPriorThreads, 0, s>>>(
+            q, p, z, kl, static_cast<uint32_t>(per_image), zd, key, ctr);
+    } else {
+        reparam_samples<uint64_t><<<static_cast<unsigned>(images), kPriorThreads, 0, s>>>(
+            q, p, z, kl, static_cast<uint64_t>(per_image), zd, key, ctr);
+    }
+    return apv::launch_status();
+}
+
+// g: null (z had no gradient) or z's layout; g_kl: null or [images].
+extern "C" int apv_reparam_prior_bwd(const float* g, const float* z, const float* q,
+                                     const float* p, const float* g_kl, float* dq,
+                                     float* dp, int64_t images, int64_t per_image,
+                                     int64_t zdim, void* stream) {
+    const int64_t total = images * per_image;
+    if (total <= 0) return 0;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const int zd = static_cast<int>(zdim);
+    const unsigned blocks = static_cast<unsigned>((total / 4 + kPriorThreads - 1) / kPriorThreads);
+    if (2 * total < (int64_t{1} << 31)) {
+        reparam_bwd_sum<uint32_t><<<blocks, kPriorThreads, 0, s>>>(
+            g, z, q, p, g_kl, dq, dp, static_cast<uint32_t>(total),
+            static_cast<uint32_t>(per_image), zd);
+    } else {
+        reparam_bwd_sum<uint64_t><<<blocks, kPriorThreads, 0, s>>>(
+            g, z, q, p, g_kl, dq, dp, static_cast<uint64_t>(total),
+            static_cast<uint64_t>(per_image), zd);
+    }
+    return apv::launch_status();
+}

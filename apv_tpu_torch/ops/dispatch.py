@@ -91,6 +91,32 @@ class _PosteriorFn(torch.autograd.Function):
         return dmean, dlogvar, None, None, None
 
 
+class _PriorPosteriorFn(torch.autograd.Function):
+    """z and the per-image KL to a learned prior of one VDVAE layer, from
+    the branches' outputs q and p read in place: the reparam kernel's
+    learned-prior launch, and one launch of its backward for the gradients
+    of q and p (None where an output gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, p, seed, offset):
+        q, p = q.detach(), p.detach()
+        z, kl = K.reparam_prior_cuda(q, p, seed, offset)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(z, q, p)
+        return z, kl
+
+    @staticmethod
+    def backward(ctx, g, g_kl):
+        if g is None and g_kl is None:
+            return None, None, None, None
+        z, q, p = ctx.saved_tensors
+        dq, dp = K.reparam_prior_bwd_cuda(
+            None if g is None else g.contiguous(
+                memory_format=torch.channels_last),
+            z.detach(), q, p, None if g_kl is None else g_kl.contiguous())
+        return dq, dp, None, None
+
+
 class _KLFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mean, logvar):
@@ -215,6 +241,43 @@ def reparam_kl(mean: torch.Tensor, logvar: torch.Tensor, *,
     z, kl = _PosteriorFn.apply(mean.contiguous(), logvar.contiguous(), 1,
                                *K.draw_key(generator))
     return z[0], kl
+
+
+def reparam_prior_kl(q: torch.Tensor, p: torch.Tensor, *,
+                     generator: torch.Generator | None = None,
+                     eps: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z, kl) of one layer of a hierarchical VAE: q and p [B, 2Z, H, W]
+    are its posterior's and learned prior's (mean, log-sigma) along the
+    channels; z = qm + e^qs·eps [B, Z, H, W] and kl [B] the per-image sum
+    of KL( N(qm, e^qs) || N(pm, e^ps) ).
+
+    eps is drawn in the order of z's channels_last memory from
+    ``reparam_sample``'s Philox stream and key (one key from
+    ``generator``). On the CPU the plain version, which autograd
+    differentiates; ``eps`` [B, Z, H, W] injects the noise there. On CUDA
+    one launch each way, reading q and p in place when they are float32
+    in channels_last memory (else from a copy in that layout); ``eps`` is
+    refused there."""
+    if q.shape != p.shape or q.dim() != 4 or q.shape[1] % 2:
+        raise ValueError(f"reparam_prior_kl: q {tuple(q.shape)} and p "
+                         f"{tuple(p.shape)} must be alike [B, 2Z, H, W]")
+    if _on_cpu("reparam_prior_kl", q, p):
+        if eps is not None:
+            want = (q.shape[0], q.shape[1] // 2) + tuple(q.shape[2:])
+            if tuple(eps.shape) != want:
+                raise ValueError(f"reparam_prior_kl: eps has shape "
+                                 f"{tuple(eps.shape)}, expected {want}")
+            return K.reparam_prior_from_eps(q, p, eps)
+        return K.reparam_prior_plain(q, p, *K.draw_key(generator))
+    if eps is not None:
+        raise ValueError("reparam_prior_kl: eps is accepted only for CPU "
+                         "tensors; on CUDA the kernel draws the noise")
+    cl = torch.channels_last
+    return _PriorPosteriorFn.apply(
+        q.to(torch.float32).contiguous(memory_format=cl),
+        p.to(torch.float32).contiguous(memory_format=cl),
+        *K.draw_key(generator))
 
 
 def kl_standard(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

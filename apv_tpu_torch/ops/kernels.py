@@ -43,7 +43,15 @@ blocks); each backward kernel replaces the jnp rule of that op's
   and, given the KL's row gradient, ``_kl_bwd`` with the add that joins
   them: a float4 of each output a thread, the sample count a template
   argument up to 8, deterministic, no atomics, the separate kernels'
-  bits.
+  bits. Its learned-prior variant (a second template of each
+  ``__global__``, counted as ``reparam`` and ``reparam_bwd``) serves the
+  ``vdvae`` family's layers (no TPU kernel: the reference has no such
+  family): ``reparam_prior_cuda`` reads a layer's posterior and prior
+  branch outputs q and p [B, 2Z, H, W] (channels_last: means then
+  log-sigmas along the channels) in place, draws z [B, Z, H, W] from the
+  same stream and sums the KL to N(pm, e^ps) per image, a block an image;
+  ``reparam_prior_bwd_cuda`` gives dq and dp in q's layout, a quad a
+  thread. Bound: memory (42 MB at the 32×32 layers of batch 128).
 * ``groupnorm_gelu`` (``csrc/groupnorm_gelu.cu``) replaces
   ``apv_tpu/ops/groupnorm.py::_fwd`` / ``_gn_gelu_kernel``. Bound: memory,
   x in and y out (67.1 MB in bf16 at [256, 32, 32, 64]). Design: a
@@ -639,6 +647,142 @@ def reparam_bwd_cuda(g: torch.Tensor | None, z: torch.Tensor,
                 dlogvar.data_ptr(), 0 if g is None else g.shape[0],
                 mean.numel(), event, device=mean.device)
     return dmean, dlogvar
+
+
+# ---------------------------------------------------------------------------
+# reparam under a learned prior: VDVAE's layers
+# ---------------------------------------------------------------------------
+# q and p are one layer's posterior and prior branch outputs [B, 2Z, H, W]
+# (channels_last, float32): channels 0..Z-1 the means, Z..2Z-1 the
+# log-sigmas. z is [B, Z, H, W] in channels_last memory, drawn in the order
+# of that memory from ``reparam_plain``'s stream; kl is the per-image sum
+# of the elementwise KL( N(qm, e^qs) || N(pm, e^ps) ).
+
+def _split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    z = t.shape[1] // 2
+    return t[:, :z].to(torch.float32), t[:, z:].to(torch.float32)
+
+
+def prior_kl_terms(qm: torch.Tensor, qs: torch.Tensor, pm: torch.Tensor,
+                   ps: torch.Tensor) -> torch.Tensor:
+    """Elementwise KL( N(qm, e^qs) || N(pm, e^ps) ) from log-sigmas."""
+    d = qm - pm
+    return (-0.5 + ps - qs
+            + 0.5 * (torch.exp(2.0 * qs) + d * d) * torch.exp(-2.0 * ps))
+
+
+def prior_noise(zshape, seed: int, offset: int, device) -> torch.Tensor:
+    """The stream's draws for z of shape ``zshape`` (B, Z, H, W), laid out
+    as its channels_last memory."""
+    b, z, h, w = zshape
+    eps = philox_normals(b * z * h * w, seed, offset, device)
+    return eps.reshape(b, h, w, z).permute(0, 3, 1, 2)
+
+
+def reparam_prior_from_eps(q: torch.Tensor, p: torch.Tensor,
+                           eps: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z, kl): z = qm + e^qs·eps and the per-image KL sum [B]."""
+    (qm, qs), (pm, ps) = _split(q), _split(p)
+    z = qm + torch.exp(qs) * eps
+    return z, prior_kl_terms(qm, qs, pm, ps).sum(dim=(1, 2, 3))
+
+
+def reparam_prior_plain(q: torch.Tensor, p: torch.Tensor, seed: int,
+                        offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``reparam_prior_from_eps`` on the draws of the key (seed, offset)."""
+    zshape = (q.shape[0], q.shape[1] // 2) + tuple(q.shape[2:])
+    return reparam_prior_from_eps(q, p, prior_noise(zshape, seed, offset,
+                                                    q.device))
+
+
+def reparam_prior_bwd_plain(g: torch.Tensor | None, z: torch.Tensor,
+                            q: torch.Tensor, p: torch.Tensor,
+                            g_kl: torch.Tensor | None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rule of ``reparam_prior_plain``: g [B, Z, H, W] (z's gradient)
+    and g_kl [B] -> (dq, dp) of q's and p's shape. ``g`` or ``g_kl`` None:
+    that output had no gradient."""
+    (qm, qs), (pm, ps) = _split(q), _split(p)
+    d, inv = qm - pm, torch.exp(-2.0 * ps)
+    zero = torch.zeros_like(qm)
+    gz = zero if g is None else g.to(torch.float32)
+    gk = zero if g_kl is None else g_kl.to(torch.float32)[:, None, None,
+                                                            None]
+    dqm = gz + gk * (d * inv)
+    dqs = gz * (z - qm) + gk * (torch.exp(2.0 * qs) * inv - 1.0)
+    dpm = -(gk * (d * inv))
+    dps = gk * (1.0 - (torch.exp(2.0 * qs) + d * d) * inv)
+    return torch.cat([dqm, dqs], dim=1), torch.cat([dpm, dps], dim=1)
+
+
+def _check_prior(name: str, *tensors: torch.Tensor) -> None:
+    """[B, 2Z, H, W] float32 CUDA tensors in channels_last memory, Z a
+    multiple of 4, alike in shape and device."""
+    if any(t.requires_grad for t in tensors):
+        _check_each(name, *tensors)          # raises the common message
+    first = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: CUDA kernel got a tensor on "
+                             f"{t.device}; the plain version takes CPU ones")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expects float32, got {t.dtype}")
+        if (t.dim() != 4 or t.shape != first.shape or t.device != first.device
+                or not t.is_contiguous(memory_format=torch.channels_last)):
+            raise ValueError(f"{name}: expects alike [B, 2Z, H, W] tensors "
+                             f"in channels_last memory, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if first.shape[1] % 8:
+        raise ValueError(f"{name}: 2Z = {first.shape[1]} channels; the "
+                         "kernel takes Z a multiple of 4")
+
+
+def reparam_prior_cuda(q: torch.Tensor, p: torch.Tensor, seed: int,
+                       offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel version of ``reparam_prior_plain``: one launch of the reparam
+    kernel's learned-prior variant (counted as ``reparam``) reads q and p
+    in place and writes z and the per-image KL."""
+    _check_prior("reparam", q, p)
+    b, c, h, w = q.shape
+    z = torch.empty((b, c // 2, h, w), dtype=torch.float32, device=q.device,
+                    memory_format=torch.channels_last)
+    kl = torch.zeros(b, dtype=torch.float32, device=q.device) if \
+        z.numel() == 0 else torch.empty(b, dtype=torch.float32,
+                                        device=q.device)
+    if z.numel():
+        _launch("reparam", _lib().apv_reparam_prior, q.data_ptr(),
+                p.data_ptr(), z.data_ptr(), kl.data_ptr(), b,
+                z.numel() // b, c // 2, seed, offset, device=q.device)
+    return z, kl
+
+
+def reparam_prior_bwd_cuda(g: torch.Tensor | None, z: torch.Tensor,
+                           q: torch.Tensor, p: torch.Tensor,
+                           g_kl: torch.Tensor | None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel version of ``reparam_prior_bwd_plain``: one launch (counted
+    as ``reparam_bwd``) gives dq and dp in q's layout."""
+    _check_prior("reparam_bwd", q, p)
+    b, c, h, w = q.shape
+    zshape = (b, c // 2, h, w)
+    for t in (z,) + (() if g is None else (g,)):
+        _check_each("reparam_bwd", t.permute(0, 2, 3, 1))
+        if tuple(t.shape) != zshape or t.device != q.device:
+            raise ValueError(f"reparam_bwd: z and its gradient must be "
+                             f"{zshape} on {q.device}, got "
+                             f"{tuple(t.shape)}@{t.device}")
+    if g_kl is not None:
+        _check_row_grad("reparam_bwd", g_kl, q)
+    dq = torch.empty_like(q, memory_format=torch.channels_last)
+    dp = torch.empty_like(p, memory_format=torch.channels_last)
+    if q.numel():
+        _launch("reparam_bwd", _lib().apv_reparam_prior_bwd,
+                None if g is None else g.data_ptr(), z.data_ptr(),
+                q.data_ptr(), p.data_ptr(),
+                None if g_kl is None else g_kl.data_ptr(), dq.data_ptr(),
+                dp.data_ptr(), b, z.numel() // b, c // 2, device=q.device)
+    return dq, dp
 
 
 # ---------------------------------------------------------------------------

@@ -196,12 +196,13 @@ def _group_means(records: list[dict], dev) -> list[dict]:
             if torch.is_tensor(v)]
     if not keys:
         return records
-    stacked = torch.stack([records[i][k].detach().to(dev, torch.float32)
-                           for i, k in keys])
+    flat = [records[i][k].detach().to(dev, torch.float32).reshape(-1)
+            for i, k in keys]
+    stacked = torch.cat(flat)
     multihost.average_([stacked])
     out = [dict(r) for r in records]
-    for (i, k), v in zip(keys, stacked):
-        out[i][k] = v
+    for (i, k), v in zip(keys, stacked.split([t.numel() for t in flat])):
+        out[i][k] = v.reshape(records[i][k].shape)
     return out
 
 

@@ -80,6 +80,14 @@ def constant(value: float) -> Callable[[int], float]:
     return lambda count: value
 
 
+def warmup_constant(peak_value: float,
+                    warmup_steps: int) -> Callable[[int], float]:
+    """VDVAE's ``linear_warmup``: peak·count/warmup up to the warmup, then
+    the peak."""
+    return lambda count: (peak_value if count > warmup_steps
+                          else peak_value * count / warmup_steps)
+
+
 class ClippedAdam:
     """Global-norm clip then Adam, over ``params`` in place, with gradient
     accumulation over ``every_k`` calls (see module docstring).
@@ -152,6 +160,10 @@ class ClippedAdam:
             torch._foreach_add_(self.params, m_hat)
         self.count = t
 
+    def tensors(self) -> list[torch.Tensor]:
+        """The state's tensors: moments, then the accumulator."""
+        return self.mu + self.nu + (self.acc or [])
+
     def state_dict(self) -> dict:
         """The update count and both moments (tensors on their device);
         with accumulation also the running mean and its micro-step."""
@@ -188,3 +200,103 @@ class ClippedAdam:
                                  f"past this optimizer's window of "
                                  f"{self.every_k}")
             self.mini_step = mini
+
+
+class SkippingAdamW:
+    """VDVAE's update (``train.py`` of github.com/openai/vdvae): the global
+    norm n of the gradients; each scaled by min(1, c/(n + 1e-6)) (PyTorch's
+    ``clip_grad_norm_``); then ``torch.optim.AdamW``'s step, decoupled
+    weight decay p ← p·(1 − lr·wd) first, unless n ≥ ``skip_threshold``
+    or a loss term is NaN. The defaults are the published CIFAR-10
+    setting's (wd 0.01, threshold 400). A skipped update leaves the parameters, both
+    moments, the update count and the Polyak average (``ema_``) as they
+    were.
+
+    The test is made on the device, so no step waits for it: the update is
+    PyTorch's fused AdamW kernel, which reads the count of applied updates
+    (its bias corrections) from a device tensor and returns untouched when
+    its ``found_inf`` flag is set. The learning rate's schedule reads
+    ``count``, the host's count of calls (iterations), as the published
+    scheduler steps on every iteration, skipped or not. ``applied`` (the
+    device count of applied updates) and ``skipped`` (of skipped ones)
+    are part of the state. ``step(grads, terms)`` returns the unclipped
+    norm, a 0-dim device tensor."""
+
+    def __init__(self, params: Sequence[torch.Tensor],
+                 lr: Callable[[int], float], *, clip_norm: float,
+                 skip_threshold: float = 400.0, weight_decay: float = 0.01,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.clip_norm = lr, clip_norm
+        self.skip_threshold, self.weight_decay = skip_threshold, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.mini_step, self.acc = 0, None      # no accumulation
+        dev = self.params[0].device
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.applied = torch.zeros((), dtype=torch.float32, device=dev)
+        self.skipped = torch.zeros((), dtype=torch.float32, device=dev)
+        self.skip = torch.zeros((), dtype=torch.float32, device=dev)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor],
+             terms: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        """Clip, test and (unless skipped) update; ``terms`` are the loss
+        terms whose NaN skips the update."""
+        # the fused update takes each gradient in its parameter's strides
+        grads = [g if g.stride() == p.stride() else
+                 torch.empty_like(p).copy_(g)
+                 for g, p in zip(grads, self.params)]
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        factor = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
+        torch._foreach_mul_(grads, factor)
+        ok = norm < self.skip_threshold
+        for t in terms:
+            ok = ok & ~torch.isnan(t)
+        torch.sub(1.0, ok.to(torch.float32), out=self.skip)
+        self.applied.add_(1.0 - self.skip)
+        self.skipped.add_(self.skip)
+        # the count of applied updates, read by every parameter's update
+        steps = [self.applied] * len(self.params)
+        torch._fused_adamw_(
+            self.params, grads, self.mu, self.nu, [], steps,
+            lr=self.lr(self.count), beta1=self.b1, beta2=self.b2,
+            weight_decay=self.weight_decay, eps=self.eps, amsgrad=False,
+            maximize=False, found_inf=self.skip)
+        self.count += 1
+        return norm
+
+    @torch.no_grad()
+    def ema_(self, ema: Sequence[torch.Tensor], decay: float) -> None:
+        """e ← e + (1 − decay)·(θ − e) after an applied update; e as it
+        was after a skipped one."""
+        ema = list(ema)
+        delta = torch._foreach_sub(self.params, ema)
+        torch._foreach_mul_(delta, (1.0 - self.skip) * (1.0 - decay))
+        torch._foreach_add_(ema, delta)
+
+    def tensors(self) -> list[torch.Tensor]:
+        return self.mu + self.nu + [self.applied, self.skipped]
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu), "applied": self.applied,
+                "skipped": self.skipped}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: dict) -> None:
+        """Copy a ``state_dict`` in place; a state saved without the device
+        counts (``ClippedAdam``'s) applied every update it counted."""
+        for name in ("mu", "nu"):
+            mine, theirs = getattr(self, name), saved[name]
+            if len(mine) != len(theirs) or any(
+                    a.shape != b.shape for a, b in zip(mine, theirs)):
+                raise ValueError(f"SkippingAdamW: saved {name} does not "
+                                 "match this optimizer's parameters")
+            for a, b in zip(mine, theirs):
+                a.copy_(b)
+        self.count = int(saved["count"])
+        self.applied.fill_(float(saved.get("applied", self.count)))
+        self.skipped.fill_(float(saved.get("skipped", 0.0)))

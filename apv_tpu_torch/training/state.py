@@ -26,14 +26,14 @@ import dataclasses
 
 import torch.nn as nn
 
-from apv_tpu_torch.training.optim import ClippedAdam
+from apv_tpu_torch.training.optim import ClippedAdam, SkippingAdamW
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
     model: nn.Module                   # VAE (encoder + decoder)
-    opt: ClippedAdam
+    opt: ClippedAdam | SkippingAdamW
     d: nn.Module | None                # latent D, or {latent, pixel}; or None
     d_opt: ClippedAdam | None
     seed: int                          # per-step noise = f(seed, step)
@@ -55,14 +55,14 @@ class TrainState:
     def tensors(self) -> list:
         """Every tensor of the state, in one order: the parameters and
         buffers of the VAE, D and the EMA shadow, then both optimizers'
-        moments and accumulators (the tensors share storage with the
-        state's)."""
+        moments and accumulators (and the skipping optimizer's device
+        counts; the tensors share storage with the state's)."""
         mods = [m for m in (self.model, self.d, self.ema_model)
                 if m is not None]
         out = [t for m in mods for t in m.state_dict().values()]
         for o in (self.opt, self.d_opt):
             if o is not None:
-                out += o.mu + o.nu + (o.acc or [])
+                out += o.tensors()
         return out
 
     def load_state_dict(self, saved: dict) -> None:

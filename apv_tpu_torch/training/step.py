@@ -69,6 +69,18 @@ so the averaged gradient is the global batch's. With more than one rank
 the rank is folded into each step's generator (and the eval step's), so
 the ranks draw distinct noise; a group of one draws what no group draws.
 
+The hierarchical family (``model.family='vdvae'``, the port's own) has
+no single encode -> z -> decode: its step feeds the uint8 levels at
+VDVAE's scaling (``models/vdvae.prepare``), runs the model's encoder,
+top-down pass and mixture head, each layer drawing its z and KL from its
+own key of the step's generator (``ops.reparam_prior_kl``) in layer
+order, and takes the loss distortion + Σ_layers KL (per dimension under
+``mean_per_dim``). Its optimizer is VDVAE's skipping AdamW
+(``optim.SkippingAdamW``), whose skip is decided on the device; the
+cumulative count of skipped updates is read back with each logged record
+(``skipped_updates``), and a record carries the batch mean of each
+layer's KL (``kl_layers``).
+
 The combinations the reference refuses raise ``ValueError``.
 """
 
@@ -84,11 +96,13 @@ from apv_tpu_torch.core import distributions as D
 from apv_tpu_torch.data.preprocess import (normalize_center,
                                            uniform_dequantize, unpack_bits)
 from apv_tpu_torch.models import (build_model, latent_d_params,
-                                  make_discriminators)
+                                  make_discriminators, vdvae)
 from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.training import losses as L
-from apv_tpu_torch.training.optim import (ClippedAdam, constant,
-                                          cosine_decay, warmup_cosine_decay)
+from apv_tpu_torch.training.optim import (ClippedAdam, SkippingAdamW,
+                                          constant, cosine_decay,
+                                          warmup_constant,
+                                          warmup_cosine_decay)
 from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
@@ -103,18 +117,24 @@ class TrainFns(NamedTuple):
     device: torch.device
 
 
-def _make_optimizer(cfg: Config, params) -> ClippedAdam:
+def _make_optimizer(cfg: Config, params) -> ClippedAdam | SkippingAdamW:
     """Clip-by-global-norm then Adam on a warmup-cosine schedule from 0:
     the first update has lr 0. Warmup stays under half the run, so short
-    runs still get a valid schedule; decay_steps includes the warmup."""
+    runs still get a valid schedule; decay_steps includes the warmup.
+    The vdvae family takes VDVAE's skipping AdamW instead, on its linear
+    warmup to a constant rate."""
     t = cfg.train
+    if cfg.model.family == "vdvae":
+        lr = warmup_constant(t.lr, max(1, t.lr_warmup_steps))
+        return SkippingAdamW(params, lr, clip_norm=t.grad_clip_norm,
+                             b2=t.adam_b2)
     updates_total = max(1, t.steps // t.grad_accum)
     warmup = max(1, min(t.lr_warmup_steps // t.grad_accum,
                         updates_total // 2))
     lr = warmup_cosine_decay(0.0, t.lr, warmup,
                              max(updates_total, warmup + 1), t.lr_end_value)
     return ClippedAdam(params, lr, clip_norm=t.grad_clip_norm,
-                       every_k=t.grad_accum)
+                       b2=t.adam_b2, every_k=t.grad_accum)
 
 
 D_LR_SCHEDULES = ("constant", "cosine", "floor_adaptive")
@@ -249,6 +269,16 @@ def _check_knobs(cfg: Config) -> None:
     if t.grad_accum < 1:
         raise ValueError(f"train.grad_accum must be >= 1, got "
                          f"{t.grad_accum}")
+    if cfg.model.family == "vdvae" and (
+            a.enabled or t.objective != "elbo" or prior != "standard"
+            or t.free_bits > 0.0 or cfg.data.dequantize
+            or cfg.data.binarize or t.grad_accum > 1):
+        raise ValueError("the vdvae family trains its own ELBO on uint8 "
+                         "levels with its skipping AdamW: no adversarial D, "
+                         "objective 'elbo', its learned priors only "
+                         "(model.prior 'standard'), no free bits, no "
+                         "dequantization or binarization, no gradient "
+                         "accumulation")
 
 
 def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
@@ -392,6 +422,7 @@ def make_train_fns(cfg: Config, *, device=None,
     noise_gen = torch.Generator(device=dev)
 
     ema_decay = cfg.train.ema_decay
+    hier = cfg.model.family == "vdvae"
     throttle = adv and a.d_lr_schedule == "floor_adaptive"
     sync = multihost.active()          # average gradients over the group
     fold = (multihost.process_index() if multihost.process_count() > 1
@@ -491,6 +522,53 @@ def make_train_fns(cfg: Config, *, device=None,
             state.d_opt.step(grads, scales)
         return {k: v.detach() for k, v in metrics.items()}
 
+    def hier_terms(model, batch, gen, eps):
+        """The hierarchical family's pass -> (loss, distortion and rate
+        per image, the layers' KLs [L, B]), in nats."""
+        x_in, x_target = vdvae.prepare(batch["image"])
+        distortion, kls = model(x_in, x_target, generator=gen, eps=eps)
+        kls = torch.stack(kls)
+        rate = kls.sum(dim=0)
+        loss = (distortion + rate).mean() * _loss_scale(cfg)
+        return loss, distortion, rate, kls
+
+    def hier_step(state: TrainState, batch: dict, noise: dict):
+        """The vdvae family's step: its top-down pass, the loss (distortion
+        + Σ_layers KL, per dimension under ``mean_per_dim``), and the
+        optimizer, skipping on the device where it skips."""
+        gen = step_generator(state.seed, state.step, fold)
+        with span("step.g_phase", marks="start"):
+            loss, distortion, rate, kls = hier_terms(
+                state.model, batch, gen, noise.get("eps"))
+            grads = torch.autograd.grad(loss, state.opt.params)
+            if sync:
+                multihost.average_(list(grads))
+            with span("step.g_opt"):
+                grad_norm = state.opt.step(grads, (distortion.mean(),
+                                                   rate.mean()))
+        dims = float(np.prod(cfg.model.image_shape))
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+                   "distortion": distortion.detach().mean() / dims,
+                   "rate": rate.detach().mean() / dims,
+                   "elbo": -(distortion + rate).detach().mean(),
+                   "kl_layers": kls.detach().mean(dim=1),
+                   "skipped_updates": state.opt.skipped.clone()}
+        return metrics
+
+    def update_ema(state: TrainState) -> None:
+        """The Polyak average after the step's update (one the skipping
+        optimizer skipped leaves it as it was)."""
+        if state.ema_model is None:
+            return
+        with span("step.ema", marks="start"), torch.no_grad():
+            ema = list(state.ema_model.parameters())
+            if isinstance(state.opt, SkippingAdamW):
+                state.opt.ema_(ema, ema_decay)
+            else:
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, state.opt.params,
+                                    alpha=1.0 - ema_decay)
+
     def train_step(state: TrainState, batch: dict, *,
                    noise: dict | None = None):
         """One step on a batch of device tensors, in place.
@@ -499,11 +577,17 @@ def make_train_fns(cfg: Config, *, device=None,
         dequantization, ``eps`` [B, Z] for the G phase ([k, B, Z] under
         the IWAE objective), ``u_disp`` [B, Z] for the flow dispersion
         penalty, ``z_p`` [n_critic, B, Z] for the critic steps and, with
-        ``d_reuse_posterior=False``, ``d_eps`` [n_critic, B, Z]."""
+        ``d_reuse_posterior=False``, ``d_eps`` [n_critic, B, Z]; under the
+        vdvae family ``eps``, a list of each layer's [B, Z, r, r]."""
         if noise is not None and dev.type != "cpu":
             raise ValueError("train_step: noise is accepted only on the CPU; "
                              "on CUDA the kernels draw it")
         noise = noise or {}
+        if hier:
+            metrics = hier_step(state, batch, noise)
+            update_ema(state)
+            state.step += 1
+            return state, metrics
         gen = step_generator(state.seed, state.step, fold)
         x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen),
                                        noise.get("u"))
@@ -532,20 +616,23 @@ def make_train_fns(cfg: Config, *, device=None,
         if adv and a.d_reuse_posterior:
             # G then D: D sees z_q (and x̂) made under the pre-update params
             run_d_phases(z_q, x_hat)
-        if state.ema_model is not None:
-            with span("step.ema", marks="start"), torch.no_grad():
-                ema = list(state.ema_model.parameters())
-                torch._foreach_mul_(ema, ema_decay)
-                torch._foreach_add_(ema, state.opt.params,
-                                    alpha=1.0 - ema_decay)
+        update_ema(state)
         metrics["beta"] = beta
         state.step += 1
         return state, metrics
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         """Single-sample ELBO on a batch; deterministic in (seed, batch).
-        With a trained prior the KL is the MC log q(z|x) − log p_θ(z)."""
+        With a trained prior the KL is the MC log q(z|x) − log p_θ(z); the
+        hierarchical family's is the sum of its layers' KLs."""
         gen = step_generator(state.seed, 0x7FFFFFFF, fold)
+        if hier:
+            with torch.no_grad():
+                _, distortion, rate, _ = hier_terms(state.model, batch, gen,
+                                                    None)
+            return {"valid_elbo": -(distortion + rate).mean(),
+                    "valid_recon": -distortion.mean(),
+                    "valid_kl": rate.mean()}
         x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen))
         model = state.model
         with torch.no_grad():

@@ -63,6 +63,13 @@ class ModelConfig:
     prior: str = "standard"
     prior_flow_layers: int = 6                 # prior='flow' only
     prior_flow_hidden: int = 64
+    # family 'vdvae' only (models/vdvae.py; the port's own: the reference
+    # has no such family): VDVAE's encoder and decoder block strings and
+    # the bottleneck's share of the width; its width is widths[0], its
+    # latent channels z_dim, its mixture's logistics mix_components.
+    enc_blocks: str = ""
+    dec_blocks: str = ""
+    bottleneck_multiple: float = 0.25
 
 
 @dataclass(frozen=True)
@@ -192,6 +199,9 @@ class TrainConfig:
     steps_per_call: int = 1
     eval_every: int = 1_000            # periodic validation (0 = off)
     valid_fraction: float = 0.05       # carved from the train split
+    # Adam's second-moment decay: the port's own knob (the reference has
+    # none; its default is the reference's behaviour).
+    adam_b2: float = 0.999
 
 
 @dataclass(frozen=True)
@@ -439,6 +449,35 @@ def _cifar_flow() -> Config:
         adversarial=AdversarialConfig(enabled=False))
 
 
+def _vdvae_cifar10() -> Config:
+    """VDVAE on CIFAR-10 (Child 2021, arXiv 2011.10650), the settings of
+    github.com/openai/vdvae ``hps.py`` preset ``cifar10`` as read (width
+    384, zdim 16, the block strings, 10 logistics; AdamW lr 2e-4, wd 0.01,
+    betas (0.9, 0.9), 100 warmup iterations, clip 200, skip at 400, EMA
+    0.9999; the family's update, ``SkippingAdamW``, holds wd and the skip
+    threshold), at 128 images a card (the published 16 a process was sized
+    for a V100). No adversarial D: the published model has none. steps
+    caps the run (the published loop counts epochs)."""
+    return Config(
+        name="vdvae_cifar10",
+        model=ModelConfig(
+            family="vdvae", z_dim=16, widths=(384,),
+            likelihood="pixelcnn_mix", mix_components=10,
+            image_shape=(32, 32, 3), activation="gelu_erf",
+            enc_blocks="32x11,32d2,16x6,16d2,8x6,8d2,4x3,4d4,1x3",
+            dec_blocks="1x1,4m1,4x2,8m4,8x5,16m8,16x10,32m16,32x21",
+            bottleneck_multiple=0.25),
+        adversarial=AdversarialConfig(enabled=False),
+        train=TrainConfig(batch_size=128, steps=1_000_000, lr=2e-4,
+                          lr_warmup_steps=100, adam_b2=0.9,
+                          grad_clip_norm=200.0, ema_decay=0.9999,
+                          loss_reduction="mean_per_dim", steps_per_call=8,
+                          eval_every=0),
+        data=DataConfig(dataset="cifar10", binarize=False, dequantize=False,
+                        device_resident=True),
+    )
+
+
 PRESETS = {
     "mnist_vae": _mnist_vae,
     "mnist_advprior": _mnist_advprior,
@@ -450,11 +489,33 @@ PRESETS = {
 }
 
 
-def get_preset(name: str) -> Config:
-    if name not in PRESETS:
-        raise ValueError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
-    return PRESETS[name]()
+# The port's presets beyond the reference's (which ``PRESETS`` mirrors).
+PORT_PRESETS = {
+    "vdvae_cifar10": _vdvae_cifar10,
+}
 
+
+def get_preset(name: str) -> Config:
+    factory = PRESETS.get(name) or PORT_PRESETS.get(name)
+    if factory is None:
+        raise ValueError(f"unknown preset {name!r}; have "
+                         f"{sorted(PRESETS) + sorted(PORT_PRESETS)}")
+    return factory()
+
+
+# Entry points that the hierarchical family does not serve yet.
+HIERARCHICAL = ("vdvae",)
+
+
+def refuse_hierarchical(model_cfg, what: str) -> None:
+    """Raise for ``what`` (an entry point) on a family that has no single
+    encode -> z -> decode: the IWAE scorer, sampling, the OOD scores, the
+    latent views and export are written for one Gaussian latent."""
+    if model_cfg.family in HIERARCHICAL:
+        raise NotImplementedError(
+            f"{what} is not implemented for the {model_cfg.family!r} family "
+            "(a hierarchy of latents, no single encode -> z -> decode); "
+            "train_loop trains it and validates its ELBO")
 
 # ---------------------------------------------------------------------------
 # Dot-path CLI overrides

@@ -100,7 +100,7 @@ def _traced() -> bool:
 
 class _Span:
     __slots__ = ("rec", "name", "unit", "marks", "start", "child", "rf",
-                 "outer_unit", "live")
+                 "outer_unit", "live", "first")
 
     def __init__(self, rec, name, unit, marks):
         self.rec, self.name, self.unit, self.marks = rec, name, unit, marks
@@ -125,16 +125,20 @@ class _Span:
             self.start = (before + time.time_ns()) // 2
         else:
             self.start = time.time_ns()
+        self.first = None
         if self.marks and rec.stream is not None:
-            rec.mark()
+            self.first = rec.mark()
         return self
 
     def __exit__(self, *exc):
         if not self.live:
             return False
         rec = self.rec
-        if self.marks == "both" and rec.stream is not None:
-            rec.mark()
+        if self.marks in ("both", "timed") and rec.stream is not None:
+            last = rec.mark()
+            if self.marks == "timed" and self.first is not None \
+                    and last is not None:
+                rec.timed.append((self.first, last, self.name))
         if self.rf is not None:
             # the profiler takes the range's end late in its exit
             self.rf.__exit__(*exc)
@@ -255,6 +259,10 @@ class Recorder:
         self._pool: list = []
         self._made = 0
         self._pending: list = []              # (event, host ns, unit)
+        # a "timed" span's (start, end) markers not yet resolved, and the
+        # device ns between them by span name: [count, ns]
+        self.timed: list = []
+        self.device_ns: dict[str, list] = {}
         self._cal = None                      # (event, host ns), stream idle
         self._spare = None
 
@@ -263,16 +271,19 @@ class Recorder:
     def span(self, name: str, *, unit=None, marks: str | None = None):
         """A span of ``name``; ``unit`` (an index) makes it a unit of its
         own, whose markers share one smallest lead; ``marks`` 'start' or
-        'both' records a device marker at its start (and end)."""
+        'both' records a device marker at its start (and end); 'timed'
+        records both and adds the device time between them to the name's
+        (``device_ns``, resolved at the next synchronising call)."""
         return _Span(self, name, unit, marks)
 
-    def read(self, value) -> float:
-        """``float(value)``, a synchronising call when ``value`` is a
-        tensor."""
+    def read(self, value) -> float | list[float]:
+        """``float(value)`` (a list of floats for a tensor of more than one
+        element), a synchronising call when ``value`` is a tensor."""
         if not isinstance(value, torch.Tensor):
             return float(value)
         with _Wait(self, "read", 1, value.is_cuda):
-            return float(value)
+            return float(value) if value.numel() == 1 else \
+                value.reshape(-1).tolist()
 
     def waits(self, site: str, n: int = 1):
         """Count ``n`` synchronising calls of ``site`` inside the block and
@@ -309,11 +320,13 @@ class Recorder:
         """Markers off; the unresolved ones go back to the pool."""
         self._pool.extend(ev for ev, _, _ in self._pending)
         self._pending.clear()
+        self.timed.clear()
         self.stream = None
 
-    def mark(self) -> None:
+    def mark(self):
+        """Record a marker; its event, or None where none was recorded."""
         if self._cal is None:            # nothing yet to hold it to
-            return
+            return None
         if self._pool:
             ev = self._pool.pop()
         elif self._made < POOL:
@@ -321,10 +334,11 @@ class Recorder:
             self._made += 1
         else:
             self.drops += 1
-            return
+            return None
         h = time.time_ns()
         ev.record(self.stream)
         self._pending.append((ev, h, self.unit))
+        return ev
 
     def calibrate(self) -> None:
         """After a wait for the device, whose stream is now idle: put the
@@ -332,6 +346,11 @@ class Recorder:
         event."""
         if self._pending and not self._pending[-1][0].query():
             return                       # the device has not reached them
+        for first, last, name in self.timed:
+            t = self.device_ns.setdefault(name, [0, 0])
+            t[0] += 1
+            t[1] += round(first.elapsed_time(last) * 1e6)
+        self.timed.clear()
         if self._cal is not None:
             cal, h0 = self._cal
             for ev, h, unit in self._pending:
@@ -393,6 +412,7 @@ class MetricLogger:
                             trace_steps[1] + trace_offset)
         self.trace_cuda = trace_cuda
         self._prof = None
+        self._last_device: dict[str, int] = {}
 
     def maybe_trace(self, step: int, stride: int = 1) -> None:
         """Start or stop the window before the call of ``stride`` steps
@@ -449,6 +469,8 @@ class MetricLogger:
         else:
             RECORDER.take_leads("loop.step")   # the loop's start
             self._last_snap = RECORDER.snapshot()
+            self._last_device = {k: v[1] for k, v in
+                                 RECORDER.device_ns.items()}
         self._last_time, self._last_step = now, step
         self._write(record)
 
@@ -469,6 +491,10 @@ class MetricLogger:
             return {}
         out = {"host_step_ms": delta("loop.step", 1) / 1e6 / steps,
                "sync_wait_ms": (sync_ns - sync_ns0) / 1e6 / steps}
+        device = {k: v[1] for k, v in RECORDER.device_ns.items()}
+        device0, self._last_device = self._last_device, device
+        device_ms = {k: (ns - device0.get(k, 0)) / 1e6
+                     for k, ns in device.items() if ns > device0.get(k, 0)}
         if leads:
             out["host_lead_ms"] = statistics.median(leads) / 1e6
         self_ms = {name: delta(name, 2) / 1e6 / steps for name in STEP_SELF
@@ -481,7 +507,10 @@ class MetricLogger:
                 "step_ms": delta("loop.step", 1) / 1e6,
                 "syncs": syncs - syncs0, "sync_wait_ms": (sync_ns - sync_ns0)
                 / 1e6, "self_ms": {n: v * steps for n, v in self_ms.items()},
-                "leads_ms": [x / 1e6 for x in leads]})
+                "leads_ms": [x / 1e6 for x in leads],
+                "span_ms": {n: delta(n, 1) / 1e6 for n in spans
+                            if delta(n, 0)},
+                "device_ms": device_ms})
         return out
 
     def log_now(self, step: int, metrics: dict) -> None:
@@ -495,7 +524,8 @@ class MetricLogger:
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
         parts = [f"step {record['step']}"] + [
-            f"{k}={v:.4g}" for k, v in record.items() if k != "step"]
+            f"{k}={v:.4g}" for k, v in record.items()
+            if k != "step" and not isinstance(v, list)]
         print("  ".join(parts), flush=True)
 
     def write_json(self, name: str, obj) -> None:

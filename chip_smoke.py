@@ -6,6 +6,8 @@
     python3 chip_smoke.py --quality-gate       # also the 3k-step CIFAR gate
     python3 chip_smoke.py --biadv-seeds 24     # phase 18's gradient check at
                                                # 24 seeds, nothing else
+    python3 chip_smoke.py --prior-kl-only [--parent-csrc DIR]
+                                               # phase 24 alone
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -186,6 +188,17 @@ Phases, one JSON line each:
      runs' loggers (calls of one step, each logged). The synthetic sets
      are cut to 4,096 images a split.
      NCCL refuses two ranks on one card: no run here has two cards.
+ 24. prior_kl: the reparam kernel's learned-prior variant (VDVAE's
+     layers) at the vdvae cell's shapes, z [128, 16, r, r] for r = 1, 4,
+     8, 16 and 32, reading q and p [128, 32, r, r] in place, each way
+     against its plain version (z, the per-image KL; dq and dp given z's
+     gradient and the KL's, each alone and both): one launch each way,
+     counted under reparam and reparam_bwd, each with its device time
+     from the profiler and its share of the bytes' least time. With
+     --parent-csrc DIR (another checkout's ops/csrc) the N(0, I)
+     instances (apv_reparam with and without its KL blocks at the train
+     step's S = 1 and the IWAE objective's S = 5, apv_reparam_bwd with and
+     without the KL term) give that build's bits.
 Each path runs once with the launch counters zeroed just before it and
 read just after; the ResNet's fused norm must launch its forward kernel
 once a call of its module on the card and its backward once a call whose
@@ -3697,6 +3710,126 @@ def rmsnorm_phase(dev) -> dict:
 PROBE_BENCH = {"n_iter": 10, "windows": 2, "reps": 2}
 
 
+PRIOR_KL_RES = (1, 4, 8, 16, 32)      # VDVAE's decoder resolutions
+PRIOR_KL_BATCH, PRIOR_KL_Z = 128, 16
+# scale-relative: the kernel and the plain version compute each element
+# with the same formula; expf, sincosf and logf differ from torch's by an
+# ulp or two, and the KL's per-image sum runs in another order (measured
+# 7e-8 to 2e-7 on an H100)
+PRIOR_KL_TOL = 1e-5
+
+
+def kernel_device_us(fn, name: str, iters: int = 20) -> float:
+    """Mean device µs of the kernels whose name holds ``name`` over
+    ``iters`` calls of ``fn``, from the profiler's device events (the
+    kernel's launches one by one, where ``device_us`` reads the
+    profiler's averages by key)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type.name == "CUDA" and name in e.name]
+    return sum(times) / len(times) if times else float("nan")
+
+
+def parent_bits(K, csrc: Path, dev) -> dict:
+    """The N(0, I) reparam instances of this build against ``csrc``'s,
+    bit for bit, on the same inputs and keys."""
+    from apv_tpu_torch.ops import _build
+    names = ("apv_reparam", "apv_reparam_bwd")
+    sig = {n: _build.SIGNATURES[n] for n in names}
+    libs = {"this": _build.library(), "parent": _build.load(
+        _build.build(csrc, ROOT / ".bench_cache" / "parent_kernels"), sig)}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = torch.Generator(device=dev).manual_seed(SEED + 41)
+    out = {}
+    for samples, kl in ((1, True), (5, False), (1, False)):
+        b, z = 256, 128
+        mean = torch.randn(b, z, generator=rng, device=dev)
+        logvar = 0.5 * torch.randn(b, z, generator=rng, device=dev)
+        g = torch.randn(samples, b, z, generator=rng, device=dev)
+        g_kl = torch.randn(b, generator=rng, device=dev)
+        got = {}
+        for who, lib in libs.items():
+            zs = torch.empty(samples, b, z, device=dev)
+            kls = torch.empty(b, device=dev) if kl else None
+            lib.apv_reparam(mean.data_ptr(), logvar.data_ptr(), zs.data_ptr(),
+                            None if kls is None else kls.data_ptr(), samples,
+                            b * z, z if kl else 0, 12345, 678, stream)
+            dm, dl = torch.empty_like(mean), torch.empty_like(mean)
+            lib.apv_reparam_bwd(g.data_ptr(), zs.data_ptr(), mean.data_ptr(),
+                                logvar.data_ptr() if kl else None,
+                                g_kl.data_ptr() if kl else None,
+                                dm.data_ptr(), dl.data_ptr(), samples, b * z,
+                                z if kl else 0, stream)
+            got[who] = [zs, dm, dl] + ([kls] if kl else [])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got["this"],
+                                                     got["parent"]))
+        tag = f"S={samples}{' +kl' if kl else ''}"
+        check(same, f"prior_kl: the N(0, I) reparam at {tag} differs from "
+                    f"the parent's build")
+        out[tag] = same
+    return out
+
+
+def prior_kl_phase(dev, parent_csrc: Path | None = None) -> dict:
+    """Phase 24 (module docstring); returns the launch counts of one layer
+    each way."""
+    from apv_tpu_torch.ops import kernels as K
+    cl = torch.channels_last
+    rng = torch.Generator(device=dev).manual_seed(SEED + 40)
+    b, zd = PRIOR_KL_BATCH, PRIOR_KL_Z
+    rows, launches = {}, None
+    for r in PRIOR_KL_RES:
+        q = (0.5 * torch.randn(b, 2 * zd, r, r, generator=rng, device=dev)
+             ).contiguous(memory_format=cl)
+        p = (0.5 * torch.randn(b, 2 * zd, r, r, generator=rng, device=dev)
+             ).contiguous(memory_format=cl)
+        g = torch.randn(b, zd, r, r, generator=rng, device=dev).contiguous(
+            memory_format=cl)
+        g_kl = torch.randn(b, generator=rng, device=dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        z, kl = K.reparam_prior_cuda(q, p, 31, 41)
+        grads = {case: K.reparam_prior_bwd_cuda(gz, z, q, p, gk)
+                 for case, gz, gk in (("both", g, g_kl), ("z", g, None),
+                                      ("kl", None, g_kl))}
+        torch.cuda.synchronize()
+        launches = dict(K.launches)
+        check(launches == expected(K, reparam=1, reparam_bwd=3),
+              f"prior_kl r={r}: launches {launches}")
+        check(z.is_contiguous(memory_format=cl) and z.shape == (b, zd, r, r),
+              f"prior_kl r={r}: z {tuple(z.shape)} {z.stride()}")
+        zp, klp = K.reparam_prior_plain(q, p, 31, 41)
+        errs = {"z": scale_rel(z, zp), "kl": scale_rel(kl, klp)}
+        for case, gz, gk in (("both", g, g_kl), ("z", g, None),
+                             ("kl", None, g_kl)):
+            want = K.reparam_prior_bwd_plain(gz, z, q, p, gk)
+            errs[f"dq_{case}"] = scale_rel(grads[case][0], want[0])
+            errs[f"dp_{case}"] = scale_rel(grads[case][1], want[1])
+        check(max(errs.values()) <= PRIOR_KL_TOL,
+              f"prior_kl r={r}: {errs}")
+        n = z.numel()
+        fwd_us = kernel_device_us(
+            lambda: K.reparam_prior_cuda(q, p, 31, 41), "reparam_samples")
+        bwd_us = kernel_device_us(
+            lambda: K.reparam_prior_bwd_cuda(g, z, q, p, g_kl),
+            "reparam_bwd_sum")
+        bw = mem_bw(torch.cuda.get_device_name(dev))
+        rows[r] = {"errs": errs, "fwd_us": fwd_us, "bwd_us": bwd_us,
+                   "fwd_bytes_share": 4 * (5 * n + b) / bw / (fwd_us * 1e-6),
+                   "bwd_bytes_share": 4 * (10 * n + b) / bw
+                   / (bwd_us * 1e-6)}
+    bits = parent_bits(K, parent_csrc, dev) if parent_csrc else None
+    emit("prior_kl", shapes=rows, parent_bits=bits)
+    return launches
+
+
 def conv_phase(dev) -> dict:
     """The probe's path: ``conv_probe.run`` at its three shapes, bf16 and
     f32, with the counters zeroed around it; the kernel's error against
@@ -3947,6 +4080,11 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--quality-gate", action="store_true",
                     help="also run the 3k-step CIFAR gate and IWAE k=100 "
                          "on 512 test images (a few minutes)")
+    ap.add_argument("--prior-kl-only", action="store_true",
+                    help="phase 24 alone, after the build")
+    ap.add_argument("--parent-csrc", type=Path, default=None,
+                    help="with --prior-kl-only: hold the N(0, I) reparam "
+                         "instances to the bits of this ops/csrc's build")
     ap.add_argument("--biadv-seeds", type=int, default=0, metavar="N",
                     help="instead of the paths: train the biadversarial "
                          "flagship as phase 18 does and run its gradient "
@@ -3982,6 +4120,10 @@ def main(argv: list[str]) -> int:
          load_s=time.perf_counter() - t0)
     if args.biadv_seeds:
         return biadv_seeds(args.biadv_seeds, dev)
+    if args.prior_kl_only:
+        prior_kl_phase(dev, args.parent_csrc)
+        emit("ok", ok=True)
+        return 0
 
     # 2. kernels
     with torch.inference_mode():
@@ -4045,6 +4187,7 @@ def main(argv: list[str]) -> int:
         path_launches["groupnorm_gelu"] = groupnorm_phase(dev)
         path_launches["rmsnorm_act"] = rmsnorm_phase(dev)
         path_launches["conv3x3"] = conv_phase(dev)
+        path_launches["prior_kl"] = prior_kl_phase(dev)
         path_launches["sample"] = sample_phase(tmp, dev)
         path_launches["ood"] = ood_phase(tmp, dev)
         if args.profile is not None:

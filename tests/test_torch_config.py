@@ -17,11 +17,30 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "apv_tpu"}
 
 
+def _shared(port: dict, ref: dict) -> dict:
+    """The port's config tree cut to the reference's fields, after holding
+    the port's own fields (the vdvae family's and Adam's second-moment decay)
+    at their defaults: a reference preset behaves alike on both sides."""
+    out = {}
+    for key, value in port.items():
+        if key not in ref:
+            section = {"enc_blocks", "dec_blocks", "bottleneck_multiple",
+                       "adam_b2"}
+            assert key in section, key
+            defaults = {**dataclasses.asdict(tcfg.ModelConfig()),
+                        **dataclasses.asdict(tcfg.TrainConfig())}
+            assert value == defaults[key], (key, value)
+            continue
+        out[key] = (_shared(value, ref[key]) if isinstance(value, dict)
+                    else value)
+    return out
+
+
 @pytest.mark.parametrize("name", sorted(jcfg.PRESETS))
 def test_presets_equal(name):
     assert sorted(tcfg.PRESETS) == sorted(jcfg.PRESETS)
-    assert dataclasses.asdict(tcfg.get_preset(name)) == \
-        dataclasses.asdict(jcfg.get_preset(name))
+    j = dataclasses.asdict(jcfg.get_preset(name))
+    assert _shared(dataclasses.asdict(tcfg.get_preset(name)), j) == j
 
 
 def test_overrides_and_json_round_trip_equal():
@@ -30,9 +49,10 @@ def test_overrides_and_json_round_trip_equal():
                  "eval.max_examples=32"]
     t = tcfg.apply_overrides(tcfg.get_preset("iwae_eval"), overrides)
     j = jcfg.apply_overrides(jcfg.get_preset("iwae_eval"), overrides)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert t.to_json() == j.to_json()
+    jd = dataclasses.asdict(j)
+    assert _shared(dataclasses.asdict(t), jd) == jd
     import json
+    assert _shared(json.loads(t.to_json()), jd) == json.loads(j.to_json())
     assert dataclasses.asdict(tcfg.config_from_dict(json.loads(j.to_json()))) \
         == dataclasses.asdict(t)
 
