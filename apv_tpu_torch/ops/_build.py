@@ -67,13 +67,16 @@ SIGNATURES = {
                             ctypes.c_int, ctypes.c_int,
                             ctypes.POINTER(ctypes.c_int), _P),
     "apv_kl_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    # reparam's kl out (null: none) and event (Z) beside n; its backward's
-    # logvar and g_kl (null: no KL term)
-    "apv_reparam": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P),
+    # reparam's kl out (null: none) and event (Z) beside n, and after the
+    # key's seed and offset its device copy (null: the values); its
+    # backward's logvar and g_kl (null: no KL term)
+    "apv_reparam": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P, _P),
     "apv_reparam_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    # the learned-prior variant: q, p, z, kl, images, per_image, zdim, key;
-    # its backward: g (null: none), z, q, p, g_kl (null: none), dq, dp
-    "apv_reparam_prior": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P),
+    # the learned-prior variant: q, p, z, kl, images, per_image, zdim, key
+    # (seed, offset, device copy); its backward: g (null: none), z, q, p,
+    # g_kl (null: none), dq, dp
+    "apv_reparam_prior": (_P, _P, _P, _P, _I64, _I64, _I64, _U64, _U64, _P,
+                          _P),
     "apv_reparam_prior_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _P),
 }

@@ -11,7 +11,11 @@
 // words into four normals by Box-Muller, for output elements 4q .. 4q+3.
 // The wrapper draws (seed, offset) from the caller's torch.Generator, so a
 // fixed generator seed gives a fixed z and successive calls differ. The
-// plain PyTorch version in ops/kernels.py computes the same stream.
+// plain PyTorch version in ops/kernels.py computes the same stream. The
+// key comes by value, or from device memory: a train step captured in a
+// CUDA graph (training/graph.py) launches the kernel with a pointer into
+// its static inputs, which each replay's key is written to, since a value
+// passed at capture would be frozen into every replay.
 //
 // Bound on an H100: the launch. The OOD chunk [50, 64, 128] writes 1.64 MB
 // (0.49 us at 3.35 TB/s) and the train step's [256, 128] 0.13 MB, while a
@@ -127,6 +131,23 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
     n1 = r * s;
 }
 
+// The key (seed, offset) of a launch: read from ``dev`` ([seed, offset],
+// 16 bytes of device memory) where it is set, else the values. Every
+// thread of a launch reads the same two words.
+struct Key {
+    const uint64_t* dev;
+    uint64_t seed, offset;
+};
+
+// -> (seed_lo, seed_hi) and (offset_lo, offset_hi)
+__device__ __forceinline__ void unpack_key(const Key& k, uint2& key, uint2& ctr) {
+    const auto* dev = reinterpret_cast<const unsigned long long*>(k.dev);
+    const uint64_t seed = dev != nullptr ? __ldg(dev) : k.seed;
+    const uint64_t offset = dev != nullptr ? __ldg(dev + 1) : k.offset;
+    key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+    ctr = make_uint2(static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+}
+
 constexpr int kVecLoad = 1;   // n % 4 == 0, mean and logvar 16-byte aligned
 constexpr int kVecStore = 2;  // z 16-byte aligned
 
@@ -136,8 +157,8 @@ constexpr int kVecStore = 2;  // z 16-byte aligned
 template <typename Index, bool kKl>
 __global__ void __launch_bounds__(kSampleThreads)
 reparam_samples(const float* __restrict__ mean, const float* __restrict__ logvar,
-                float* __restrict__ z, Index n, Index total, uint2 key,
-                uint2 offset, int flags, float* __restrict__ kl,
+                float* __restrict__ z, Index n, Index total, Key k,
+                int flags, float* __restrict__ kl,
                 unsigned sample_blocks, int64_t rows, int64_t event) {
     if (kKl && blockIdx.x >= sample_blocks) {   // uniform within the block
         const int64_t row = static_cast<int64_t>(blockIdx.x - sample_blocks) * kKlRows
@@ -152,6 +173,8 @@ reparam_samples(const float* __restrict__ mean, const float* __restrict__ logvar
     const Index q = static_cast<Index>(blockIdx.x) * kSampleThreads + threadIdx.x;
     const Index e0 = 4 * q;
     if (e0 >= total) return;
+    uint2 key, offset;
+    unpack_key(k, key, offset);
     const uint64_t q64 = q;
     const uint4 bits = philox4x32_10(
         make_uint4(static_cast<uint32_t>(q64), static_cast<uint32_t>(q64 >> 32),
@@ -316,50 +339,51 @@ void launch_bwd(const float* g, const float* z, const float* mean,
 
 template <typename Index, bool kKl>
 void launch_sample_grid(const float* mean, const float* logvar, float* z, float* kl,
-                    int64_t total, int64_t n, uint2 key, uint2 ctr, int flags,
+                    int64_t total, int64_t n, Key key, int flags,
                     unsigned sample_blocks, int64_t rows, int64_t event,
                     cudaStream_t stream) {
     const unsigned kl_blocks = kKl ? static_cast<unsigned>((rows + kKlRows - 1) / kKlRows) : 0;
     reparam_samples<Index, kKl><<<sample_blocks + kl_blocks, kSampleThreads, 0, stream>>>(
-        mean, logvar, z, static_cast<Index>(n), static_cast<Index>(total), key, ctr,
+        mean, logvar, z, static_cast<Index>(n), static_cast<Index>(total), key,
         flags, kl, sample_blocks, rows, event);
 }
 
 template <typename Index>
 void launch_samples(const float* mean, const float* logvar, float* z, float* kl,
-                    int64_t total, int64_t n, uint2 key, uint2 ctr, int flags,
+                    int64_t total, int64_t n, Key key, int flags,
                     unsigned sample_blocks, int64_t rows, int64_t event,
                     cudaStream_t stream) {
     if (kl != nullptr) {
-        launch_sample_grid<Index, true>(mean, logvar, z, kl, total, n, key, ctr, flags,
+        launch_sample_grid<Index, true>(mean, logvar, z, kl, total, n, key, flags,
                                         sample_blocks, rows, event, stream);
     } else {
-        launch_sample_grid<Index, false>(mean, logvar, z, kl, total, n, key, ctr, flags,
+        launch_sample_grid<Index, false>(mean, logvar, z, kl, total, n, key, flags,
                                          sample_blocks, rows, event, stream);
     }
 }
 
 }  // namespace
 
-// kl: null, or [n / event] per-row KLs written by the same launch.
+// kl: null, or [n / event] per-row KLs written by the same launch. key:
+// null (the key is seed and offset), or the device's [seed, offset].
 extern "C" int apv_reparam(const float* mean, const float* logvar, float* z,
                            float* kl, int64_t samples, int64_t n, int64_t event,
-                           uint64_t seed, uint64_t offset, void* stream) {
+                           uint64_t seed, uint64_t offset, const uint64_t* key,
+                           void* stream) {
     const int64_t total = samples * n;
     if (total <= 0) return 0;
     const int64_t quads = (total + 3) / 4;
     const unsigned blocks = static_cast<unsigned>((quads + kSampleThreads - 1) / kSampleThreads);
     const auto s = static_cast<cudaStream_t>(stream);
-    const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
-    const uint2 ctr = make_uint2(static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+    const Key k{key, seed, offset};
     const int flags = (n % 4 == 0 && apv::aligned16(mean) && apv::aligned16(logvar) ? kVecLoad : 0)
                     | (apv::aligned16(z) ? kVecStore : 0);
     const int64_t rows = kl != nullptr ? n / event : 0;
     if (total < (int64_t{1} << 31)) {
-        launch_samples<uint32_t>(mean, logvar, z, kl, total, n, key, ctr, flags, blocks,
+        launch_samples<uint32_t>(mean, logvar, z, kl, total, n, k, flags, blocks,
                                  rows, event, s);
     } else {
-        launch_samples<uint64_t>(mean, logvar, z, kl, total, n, key, ctr, flags, blocks,
+        launch_samples<uint64_t>(mean, logvar, z, kl, total, n, k, flags, blocks,
                                  rows, event, s);
     }
     return apv::launch_status();
@@ -434,8 +458,10 @@ template <typename Index>
 __global__ void __launch_bounds__(kPriorThreads)
 reparam_samples(const float* __restrict__ q, const float* __restrict__ p,
                 float* __restrict__ z, float* __restrict__ kl, Index per_image,
-                int zdim, uint2 key, uint2 offset) {
+                int zdim, Key k) {
     const Index b = blockIdx.x;
+    uint2 key, offset;
+    unpack_key(k, key, offset);
     const Index quads = per_image / 4;
     const Index ld = 2 * static_cast<Index>(zdim);
     float acc = 0.0f;
@@ -515,20 +541,21 @@ reparam_bwd_sum(const float* __restrict__ g, const float* __restrict__ z,
 
 // q, p: [images, 2 zdim, H, W] channels_last; z: [images, zdim, H, W]
 // channels_last; kl: [images]. per_image = zdim * H * W, zdim % 4 == 0.
+// key: null (the key is seed and offset), or the device's [seed, offset].
 extern "C" int apv_reparam_prior(const float* q, const float* p, float* z, float* kl,
                                  int64_t images, int64_t per_image, int64_t zdim,
-                                 uint64_t seed, uint64_t offset, void* stream) {
+                                 uint64_t seed, uint64_t offset, const uint64_t* key,
+                                 void* stream) {
     if (images <= 0 || per_image <= 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
-    const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
-    const uint2 ctr = make_uint2(static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+    const Key k{key, seed, offset};
     const int zd = static_cast<int>(zdim);
     if (2 * images * per_image < (int64_t{1} << 31)) {
         reparam_samples<uint32_t><<<static_cast<unsigned>(images), kPriorThreads, 0, s>>>(
-            q, p, z, kl, static_cast<uint32_t>(per_image), zd, key, ctr);
+            q, p, z, kl, static_cast<uint32_t>(per_image), zd, k);
     } else {
         reparam_samples<uint64_t><<<static_cast<unsigned>(images), kPriorThreads, 0, s>>>(
-            q, p, z, kl, static_cast<uint64_t>(per_image), zd, key, ctr);
+            q, p, z, kl, static_cast<uint64_t>(per_image), zd, k);
     }
     return apv::launch_status();
 }

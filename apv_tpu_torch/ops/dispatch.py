@@ -197,8 +197,9 @@ def reparam_sample(mean: torch.Tensor, logvar: torch.Tensor,
 
     ``samples=None`` draws one z of mean's shape; ``samples=S`` draws
     [S, *mean.shape]. The noise comes from ``generator`` (a CPU
-    ``torch.Generator``) through the kernel's Philox stream, on either
-    device. ``eps`` injects the noise instead and is accepted only for CPU
+    ``torch.Generator``, or the train step's ``K.StepKeys``, whose key the
+    kernel reads on the device) through the kernel's Philox stream, on
+    either device. ``eps`` injects the noise instead and is accepted only for CPU
     tensors (the parity tests hand in JAX's draws), so the card's path can
     never skip its kernel.
     """

@@ -38,7 +38,10 @@ blocks); each backward kernel replaces the jnp rule of that op's
   16-byte store; mean and logvar are read as [B, Z] for all S samples.
   ``reparam_kl_cuda`` launches the same kernel with KL blocks after the
   sample blocks: z and the per-row KL in one launch (counted as
-  ``reparam``; ``kl`` counts the standalone kernel only).
+  ``reparam``; ``kl`` counts the standalone kernel only). A key is two
+  ints (seed, offset) passed by value, or an int64 device tensor
+  [seed, offset] that the kernel reads (``StepKeys``: the train step's
+  keys, which a captured step's replays rewrite in place).
   ``reparam_bwd`` (same file) replaces ``_reparam_bwd`` + ``_unbroadcast``
   and, given the KL's row gradient, ``_kl_bwd`` with the add that joins
   them: a float4 of each output a thread, the sample count a template
@@ -132,10 +135,17 @@ rmsnorm_act_routes: dict[str, int] = dict.fromkeys(RMS_KERNELS, 0)
 rmsnorm_act_bwd_routes: dict[str, int] = dict.fromkeys(RMS_KERNELS, 0)
 
 
+# every host counter of the wrappers (the launches and the routes), which
+# a replayed train step advances by what its capture counted
+# (``training/graph.py``); a harness that counts the step's calls of its
+# own adds its dict here, so that replays advance it too
+COUNTERS = [launches, conv3x3_routes, groupnorm_gelu_routes,
+            groupnorm_gelu_bwd_routes, rmsnorm_act_routes,
+            rmsnorm_act_bwd_routes]
+
+
 def reset_launches() -> None:
-    for counts in (launches, conv3x3_routes, groupnorm_gelu_routes,
-                   groupnorm_gelu_bwd_routes, rmsnorm_act_routes,
-                   rmsnorm_act_bwd_routes):
+    for counts in COUNTERS:
         for name in counts:
             counts[name] = 0
 
@@ -520,10 +530,32 @@ def philox_normals(total: int, seed: int | torch.Tensor, offset: int,
     return out.permute(1, 0, 2).reshape(-1)[:total]
 
 
-def draw_key(generator: torch.Generator | None) -> tuple[int, int]:
+class StepKeys:
+    """The reparameterization keys of one train step, drawn ahead on the
+    host in the step's order (``training/step.py``): the rows [seed,
+    offset] of an int64 tensor on the step's device. Handed to an op in a
+    generator's place, each of its draws takes the next row, which the
+    kernel reads on the device."""
+
+    def __init__(self, keys: torch.Tensor):
+        self.keys, self.taken = keys, 0
+
+    def next(self) -> torch.Tensor:
+        if self.taken >= self.keys.shape[0]:
+            raise RuntimeError(f"the step drew more than its "
+                               f"{self.keys.shape[0]} reparameterization "
+                               "keys")
+        self.taken += 1
+        return self.keys[self.taken - 1]
+
+
+def draw_key(generator: torch.Generator | StepKeys | None
+             ) -> tuple[int, int] | tuple[torch.Tensor, None]:
     """(seed, offset) for one reparam call, from one ``torch.randint`` on
     the caller's generator, on the generator's device (``None``: torch's
-    default CPU generator)."""
+    default CPU generator); from ``StepKeys``, (its next key, None)."""
+    if isinstance(generator, StepKeys):
+        return generator.next(), None
     dev = generator.device if generator is not None else "cpu"
     seed, offset = torch.randint(0, 2 ** 63 - 1, (2,), generator=generator,
                                  dtype=torch.int64, device=dev).tolist()
@@ -537,9 +569,34 @@ def reparam_from_eps(mean: torch.Tensor, logvar: torch.Tensor,
         0.5 * logvar.to(torch.float32)) * eps
 
 
+def _key_ints(seed, offset) -> tuple[int, int]:
+    """The key as ints: ``seed`` and ``offset``, or the words of ``seed``,
+    a key tensor [seed, offset] (``offset`` None)."""
+    if torch.is_tensor(seed) and offset is None:
+        seed, offset = seed.tolist()
+    return seed, offset
+
+
+def _key_args(name: str, seed, offset, device: torch.device
+              ) -> tuple[int, int, int | None]:
+    """A kernel's key arguments (seed, offset, device pointer or None):
+    the ints by value, or a key tensor [seed, offset] on ``device`` (then
+    ``offset`` is None) by its address."""
+    if not torch.is_tensor(seed):
+        return seed, offset, None
+    if (offset is not None or seed.device != device
+            or seed.dtype != torch.int64 or tuple(seed.shape) != (2,)
+            or not seed.is_contiguous()):
+        raise ValueError(f"{name}: a key tensor is an int64 [seed, offset] "
+                         f"on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return 0, 0, seed.data_ptr()
+
+
 def reparam_plain(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
                   seed: int, offset: int) -> torch.Tensor:
     """[samples, *mean.shape] draws, the same stream as ``reparam_cuda``."""
+    seed, offset = _key_ints(seed, offset)
     eps = philox_normals(samples * mean.numel(), seed, offset, mean.device)
     return reparam_from_eps(mean, logvar,
                             eps.reshape((samples,) + tuple(mean.shape)))
@@ -561,11 +618,12 @@ def _reparam_launch(mean: torch.Tensor, logvar: torch.Tensor, samples: int,
         kl = (torch.empty if z.numel() else torch.zeros)(
             mean.shape[0], dtype=torch.float32, device=mean.device)
         event = mean.numel() // max(mean.shape[0], 1)
+    key = _key_args("reparam", seed, offset, mean.device)
     if z.numel():
         _launch("reparam", _lib().apv_reparam, mean.data_ptr(),
                 logvar.data_ptr(), z.data_ptr(),
                 None if kl is None else kl.data_ptr(), samples,
-                mean.numel(), event, seed, offset, device=mean.device)
+                mean.numel(), event, *key, device=mean.device)
     return z, kl
 
 
@@ -691,6 +749,7 @@ def reparam_prior_from_eps(q: torch.Tensor, p: torch.Tensor,
 def reparam_prior_plain(q: torch.Tensor, p: torch.Tensor, seed: int,
                         offset: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``reparam_prior_from_eps`` on the draws of the key (seed, offset)."""
+    seed, offset = _key_ints(seed, offset)
     zshape = (q.shape[0], q.shape[1] // 2) + tuple(q.shape[2:])
     return reparam_prior_from_eps(q, p, prior_noise(zshape, seed, offset,
                                                     q.device))
@@ -744,6 +803,7 @@ def reparam_prior_cuda(q: torch.Tensor, p: torch.Tensor, seed: int,
     kernel's learned-prior variant (counted as ``reparam``) reads q and p
     in place and writes z and the per-image KL."""
     _check_prior("reparam", q, p)
+    key = _key_args("reparam", seed, offset, q.device)
     b, c, h, w = q.shape
     z = torch.empty((b, c // 2, h, w), dtype=torch.float32, device=q.device,
                     memory_format=torch.channels_last)
@@ -753,7 +813,7 @@ def reparam_prior_cuda(q: torch.Tensor, p: torch.Tensor, seed: int,
     if z.numel():
         _launch("reparam", _lib().apv_reparam_prior, q.data_ptr(),
                 p.data_ptr(), z.data_ptr(), kl.data_ptr(), b,
-                z.numel() // b, c // 2, seed, offset, device=q.device)
+                z.numel() // b, c // 2, *key, device=q.device)
     return z, kl
 
 

@@ -7,7 +7,10 @@ gathers its rows on the card, so a step's host-to-device payload is its
 int64 indices. ``train.steps_per_call = k`` cuts k batches per loop
 iteration, copies them in one transfer and runs the k steps back to back;
 metrics are read back from the card only at logged steps, after the
-iteration.
+iteration. On a CUDA device without a process group and without gradient
+accumulation, the invocation's first step runs eagerly and every later
+one replays a CUDA graph captured of the second (``training/graph.py``):
+the host then launches one graph a step, not its several hundred kernels.
 
 Without ``arrays=`` the train set comes from the dataset loaders
 (``data/datasets.py``, their deterministic synthetic fallback where no
@@ -56,12 +59,15 @@ copied), ``loop.step`` (one ``train_step``; inside it ``step.d_phase``,
 ``step.g_phase``, the optimizers ``step.d_opt`` and ``step.g_opt``, and
 ``step.ema``), ``loop.readback`` (a logged record's read-back),
 ``loop.validate`` and ``loop.save``; on the card, device markers at each
-step's start and end and at each phase's start; and the synchronising
+step's start and end and at each phase's start (a replayed step has only
+its own two: its phases run inside the graph); and the synchronising
 calls counted where they are made (the models' upload, the resident train
 set's and each valid batch's, each metric read back, a checkpoint's
 restore and save). Each logged record after the first adds, per step of
 its interval, ``host_step_ms``, ``sync_wait_ms``, ``host_lead_ms`` (on
-the card) and the phases' and optimizers' self ms. Only while a profiler
+the card) and the phases' and optimizers' self ms; its interval in the
+invocation's summary also counts the ``captures`` and ``replayed_steps``
+of the captured step. Only while a profiler
 runs (``trace_dir``) is each span also a ``record_function`` range: the
 trace names the loop's spans.
 """
@@ -83,6 +89,7 @@ from apv_tpu_torch.data.pipeline import (Batcher, prefetch_to_device,
                                          stack_batches)
 from apv_tpu_torch.data.preprocess import pack_bits, static_binarize
 from apv_tpu_torch.parallel import multihost
+from apv_tpu_torch.training.graph import StepRunner, capturable
 from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.training.step import make_train_fns
 from apv_tpu_torch.utils import checkpoint as ckpt
@@ -110,17 +117,6 @@ def load_train_arrays(cfg: Config) -> tuple[dict[str, np.ndarray],
     if cfg.train.eval_every <= 0 or n_valid < 1:
         return {key: images}, None
     return {key: images[:-n_valid]}, {key: images[-n_valid:]}
-
-
-def make_resident_step(base_fn):
-    """Wrap a (state, batch) -> (state, metrics) step to take an index
-    batch ``{"_index": [B]}`` plus a dataset dict resident on the card: the
-    rows are gathered on the device."""
-    def _resident_step(state, idx_batch, dataset):
-        idx = idx_batch["_index"]
-        rows = {k: v.index_select(0, idx) for k, v in dataset.items()}
-        return base_fn(state, rows)
-    return _resident_step
 
 
 class _CallBoundaryInterrupt:
@@ -277,19 +273,24 @@ def _train_loop(cfg: Config, max_steps, arrays, resume, overwrite, trace_dir,
     if cfg.data.device_resident:
         n_rows = len(next(iter(train_arrays.values())))
         dataset = _upload(train_arrays, dev)
-        resident = make_resident_step(fns.train_step)
 
-        def step_fn(s, b):
-            return resident(s, b, dataset)
+        def rows_of(b):
+            """An index batch ``{"_index": [B]}``'s rows, gathered on the
+            card from the resident train set."""
+            return {kk: v.index_select(0, b["_index"])
+                    for kk, v in dataset.items()}
 
         batcher = Batcher({"_index": np.arange(n_rows, dtype=np.int64)},
                           cfg.train.batch_size, seed=cfg.train.seed,
                           host_shard=multihost.host_shard())
     else:
-        step_fn = fns.train_step
+        def rows_of(b):
+            return b
+
         batcher = Batcher(train_arrays, cfg.train.batch_size,
                           seed=cfg.train.seed,
                           host_shard=multihost.host_shard())
+    step_fn = StepRunner(fns, capturable(cfg, dev))
     calls = prefetch_to_device(stack_batches(batcher.iter_from(start), k),
                                dev)
     valid_batches = _valid_batches(cfg, valid_arrays, dev)
@@ -332,8 +333,8 @@ def _train_loop(cfg: Config, max_steps, arrays, resume, overwrite, trace_dir,
                 in_call = True
                 for i in range(k):
                     with span("loop.step", unit=base + i, marks="both"):
-                        state, m = step_fn(state, {
-                            kk: v[i] for kk, v in stacked.items()})
+                        state, m = step_fn(state, rows_of({
+                            kk: v[i] for kk, v in stacked.items()}))
                     step_metrics.append(m)
                 in_call = False
                 logged = [(base + i, m) for i, m in enumerate(step_metrics)
@@ -379,6 +380,7 @@ def _train_loop(cfg: Config, max_steps, arrays, resume, overwrite, trace_dir,
                   "resume with --resume", flush=True)
         raise
     finally:
+        step_fn.close()
         logger.close()
     multihost.barrier()
     return state

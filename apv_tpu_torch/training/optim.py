@@ -12,8 +12,13 @@ eps))`` applied in place:
   v̂ = v/(1−b2^(count+1)); the learning rate is read at the count before
   its increment, as ``scale_by_learning_rate`` reads its schedule.
 
-The count, the learning rate and the bias corrections are host numbers,
-so a step never waits for the device; the clip factor stays on the device.
+The count is a host number, and so are the learning rate and the bias
+corrections that follow from it: a step never waits for the device. A
+call reads them from a small float32 device tensor (``step(hyper=)``),
+which the train step fills from ``hyper()``, the host's numbers of its
+next calls, as it fills its other per-step inputs; a step captured in a
+CUDA graph (``training/graph.py``) then reads each replay's. A call
+handed none makes its own. The clip factor stays on the device.
 
 With ``every_k = k > 1`` it is ``optax.MultiSteps(chain, every_k_schedule=k)``
 (``use_grad_mean=True``): each call folds its gradients into optax's
@@ -88,11 +93,20 @@ def warmup_constant(peak_value: float,
                           else peak_value * count / warmup_steps)
 
 
+def own_hyper(opt, device: torch.device) -> torch.Tensor:
+    """The numbers of ``opt``'s next call as a float32 tensor on
+    ``device``, for a call that was handed none."""
+    return torch.tensor(opt.hyper(1)[0], dtype=torch.float32).to(
+        device, non_blocking=True)
+
+
 class ClippedAdam:
     """Global-norm clip then Adam, over ``params`` in place, with gradient
     accumulation over ``every_k`` calls (see module docstring).
     ``step(grads)`` returns the global norm of this call's gradients,
     unclipped, as a 0-dim device tensor."""
+
+    HYPER = 3        # lr, 1 − b1^t, 1 − b2^t
 
     def __init__(self, params: Sequence[torch.Tensor],
                  lr: Callable[[int], float], *, clip_norm: float,
@@ -104,19 +118,39 @@ class ClippedAdam:
         self.every_k = every_k
         self.count = 0
         self.mini_step = 0
+        self._hyper = None                  # the applying call's numbers
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if every_k > 1 else None)
 
+    def hyper(self, calls: int = 1) -> list[list[float]]:
+        """The host numbers of the next ``calls`` calls, in order: the
+        learning rate and bias corrections lr(count), 1 − b1^(count+1) and
+        1 − b2^(count+1) of the update each applies (a call that only
+        folds its gradients in, those of the next update)."""
+        out, count, mini = [], self.count, self.mini_step
+        for _ in range(calls):
+            out.append([self.lr(count), 1.0 - self.b1 ** (count + 1),
+                        1.0 - self.b2 ** (count + 1)])
+            if mini < self.every_k - 1:
+                mini += 1
+            else:
+                mini, count = 0, count + 1
+        return out
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
-             scales: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
+             scales: Sequence[torch.Tensor] | None = None,
+             hyper: torch.Tensor | None = None) -> torch.Tensor:
         """Fold in one call's gradients; on an applying call, update the
         parameters, each update times its entry of ``scales`` (0-dim
-        device tensors, one per parameter) when given. Returns this call's
-        gradient norm."""
+        device tensors, one per parameter) when given. ``hyper``: this
+        call's ``hyper()`` numbers, float32 on the parameters' device.
+        Returns this call's gradient norm."""
         grads = list(grads)
+        self._hyper = (own_hyper(self, self.params[0].device) if hyper is None
+                       else hyper)
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if self.acc is not None:
@@ -136,7 +170,8 @@ class ClippedAdam:
 
     def _apply(self, grads: list[torch.Tensor], norm: torch.Tensor,
                scales: Sequence[torch.Tensor] | None) -> None:
-        """Clip by ``norm``, the global norm of ``grads``, then Adam."""
+        """Clip by ``norm``, the global norm of ``grads``, then Adam with
+        the learning rate and bias corrections of the call's ``hyper``."""
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                              self.clip_norm / norm)
         grads = torch._foreach_mul(grads, factor)
@@ -144,21 +179,18 @@ class ClippedAdam:
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        t = self.count + 1
-        m_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** t)
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** t)
+        lr, bc1, bc2 = self._hyper.unbind()
+        m_hat = torch._foreach_div(self.mu, bc1)
+        denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(m_hat, denom)
-        if scales is None:
-            torch._foreach_add_(self.params, m_hat,
-                                alpha=-self.lr(self.count))
-        else:
-            # optax's order: the update −lr·u, then the throttle
-            torch._foreach_mul_(m_hat, -self.lr(self.count))
+        # the update −lr·u, then (optax's order) the throttle
+        torch._foreach_mul_(m_hat, lr)
+        if scales is not None:
             torch._foreach_mul_(m_hat, list(scales))
-            torch._foreach_add_(self.params, m_hat)
-        self.count = t
+        torch._foreach_sub_(self.params, m_hat)
+        self.count += 1
 
     def tensors(self) -> list[torch.Tensor]:
         """The state's tensors: moments, then the accumulator."""
@@ -220,7 +252,10 @@ class SkippingAdamW:
     scheduler steps on every iteration, skipped or not. ``applied`` (the
     device count of applied updates) and ``skipped`` (of skipped ones)
     are part of the state. ``step(grads, terms)`` returns the unclipped
-    norm, a 0-dim device tensor."""
+    norm, a 0-dim device tensor; ``hyper`` is the call's learning rate,
+    as ``ClippedAdam``'s (module docstring)."""
+
+    HYPER = 1        # lr
 
     def __init__(self, params: Sequence[torch.Tensor],
                  lr: Callable[[int], float], *, clip_norm: float,
@@ -239,11 +274,19 @@ class SkippingAdamW:
         self.skipped = torch.zeros((), dtype=torch.float32, device=dev)
         self.skip = torch.zeros((), dtype=torch.float32, device=dev)
 
+    def hyper(self, calls: int = 1) -> list[list[float]]:
+        """The learning rates lr(count) of the next ``calls`` calls."""
+        return [[self.lr(self.count + i)] for i in range(calls)]
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
-             terms: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+             terms: Sequence[torch.Tensor] = (),
+             hyper: torch.Tensor | None = None) -> torch.Tensor:
         """Clip, test and (unless skipped) update; ``terms`` are the loss
-        terms whose NaN skips the update."""
+        terms whose NaN skips the update; ``hyper`` this call's
+        ``hyper()``, float32 on the parameters' device."""
+        if hyper is None:
+            hyper = own_hyper(self, self.params[0].device)
         # the fused update takes each gradient in its parameter's strides
         grads = [g if g.stride() == p.stride() else
                  torch.empty_like(p).copy_(g)
@@ -262,7 +305,7 @@ class SkippingAdamW:
         steps = [self.applied] * len(self.params)
         torch._fused_adamw_(
             self.params, grads, self.mu, self.nu, [], steps,
-            lr=self.lr(self.count), beta1=self.b1, beta2=self.b2,
+            lr=hyper[0], beta1=self.b1, beta2=self.b2,
             weight_decay=self.weight_decay, eps=self.eps, amsgrad=False,
             maximize=False, found_inf=self.skip)
         self.count += 1

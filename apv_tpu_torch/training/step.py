@@ -17,12 +17,25 @@ Noise: step ``t`` of a run with seed ``s`` draws everything from a CPU
 ``torch.Generator`` seeded by (s, t) alone, the counterpart of
 ``fold_in(rng, step)``: never the global generator, so a step can be
 replayed. The draws come in a fixed order: the dequantization u, then the
-G phase's ε (k of them a row under the IWAE objective), then the flow
-dispersion penalty's base draw u (the reference's ``fold_in(key, 1)``;
-drawn only when the penalty is on), then the critic's z_p (the u's and z_p
-on the device, from a device generator reseeded from the step's
-generator). On CPU tensors ``train_step`` also takes the noise injected
-(``noise=``), which the parity tests use to hand the port JAX's draws.
+G phase's ε (one reparameterization key, k samples a row under the IWAE
+objective), then the flow dispersion penalty's base draw u (the
+reference's ``fold_in(key, 1)``; drawn only when the penalty is on), then
+the critic's z_p (the u's and z_p on the device, from a device generator
+reseeded from the step's generator); with ``d_reuse_posterior=False``
+each critic step's key and z_p come first. The vdvae family draws one key
+a layer, in layer order. On CPU tensors ``train_step`` also takes the
+noise injected (``noise=``), which the parity tests use to hand the port
+JAX's draws.
+
+A step is ``draw`` then ``run``. ``draw`` takes every number the host
+chooses for the step, in that order: the device draws, and one int64
+block, written through pinned memory (``HostBlock``), of the keys (which
+the reparam kernels read on the device) and the float32 numbers β and,
+for each optimizer call, its learning rate and bias corrections
+(``hyper``). ``run`` is the device work on them and advances the host's
+counts. It reads no host number that changes from step to step, so the
+loop can capture it in a CUDA graph once and replay it
+(``training/graph.py``); the eager step is the same ``draw`` and ``run``.
 
 The model's prior: the flow takes the single-sample MC KL log q(z|x) −
 log p_θ(z), the Gaussian base the analytic KL against (μ, 2·log σ), the
@@ -97,6 +110,7 @@ from apv_tpu_torch.data.preprocess import (normalize_center,
                                            uniform_dequantize, unpack_bits)
 from apv_tpu_torch.models import (build_model, latent_d_params,
                                   make_discriminators, vdvae)
+from apv_tpu_torch.ops import kernels as K
 from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.training import losses as L
 from apv_tpu_torch.training.optim import (ClippedAdam, SkippingAdamW,
@@ -106,7 +120,7 @@ from apv_tpu_torch.training.optim import (ClippedAdam, SkippingAdamW,
 from apv_tpu_torch.training.state import TrainState
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
-from apv_tpu_torch.utils.logging import span
+from apv_tpu_torch.utils.logging import span, waits
 
 
 class TrainFns(NamedTuple):
@@ -115,6 +129,61 @@ class TrainFns(NamedTuple):
     train_step: Callable[..., tuple[TrainState, dict]]
     eval_step: Callable[[TrainState, dict], dict]
     device: torch.device
+    # train_step's two parts: (state, batch, *, noise=None, out=None) ->
+    # the step's inputs, and (state, batch, inputs) -> (state, metrics)
+    draw: Callable[..., dict]
+    run: Callable[[TrainState, dict, dict], tuple[TrainState, dict]]
+
+
+def host_words(keys: list, numbers: list[float]) -> np.ndarray:
+    """A step's block as int64 words: the keys' (seed, offset) pairs,
+    then the numbers as float32, two a word."""
+    f = np.zeros(2 * ((len(numbers) + 1) // 2), np.float32)
+    f[:len(numbers)] = numbers
+    return np.concatenate([np.asarray(keys, np.int64).reshape(-1),
+                           f.view(np.int64)])
+
+
+class HostBlock:
+    """A step's block of host numbers on its way to the device. On a CUDA
+    device through pinned memory with ``non_blocking=True``: one slot per
+    step of a call (``train.steps_per_call``), each taken again only once
+    the device has read it (its copy's event; the host waits there, a
+    synchronising call, where it runs that far ahead), so the host never
+    overwrites a slot that a queued step has not read."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device, self.slots = device, max(1, slots)
+        self.pinned = self.host = None
+        self.events: list = []
+        self.at = 0
+
+    def put(self, words: np.ndarray, out: torch.Tensor | None = None
+            ) -> torch.Tensor:
+        """``words`` on the device: in ``out`` (in place) or a new
+        tensor."""
+        if self.device.type != "cuda":
+            t = torch.from_numpy(words)
+            return t if out is None else out.copy_(t)
+        if self.pinned is None:
+            self.pinned = torch.empty((self.slots, words.size),
+                                      dtype=torch.int64, pin_memory=True)
+            self.host = self.pinned.numpy()
+            self.events = [None] * self.slots
+        i, self.at = self.at, (self.at + 1) % self.slots
+        ev = self.events[i]
+        if ev is not None and not ev.query():
+            with waits("staging", idle=False):
+                ev.synchronize()
+        self.host[i] = words
+        if out is None:
+            out = torch.empty(words.size, dtype=torch.int64,
+                              device=self.device)
+        out.copy_(self.pinned[i], non_blocking=True)
+        if ev is None:
+            ev = self.events[i] = torch.cuda.Event()
+        ev.record()
+        return out
 
 
 def _make_optimizer(cfg: Config, params) -> ClippedAdam | SkippingAdamW:
@@ -420,10 +489,13 @@ def make_train_fns(cfg: Config, *, device=None,
     gauss_prior = cfg.model.prior == "gaussian"
     trainable_prior = cfg.model.prior in ("gaussian", "flow")
     noise_gen = torch.Generator(device=dev)
+    staging = HostBlock(dev, cfg.train.steps_per_call)
 
     ema_decay = cfg.train.ema_decay
     hier = cfg.model.family == "vdvae"
     throttle = adv and a.d_lr_schedule == "floor_adaptive"
+    penalty = (cfg.model.prior == "flow"
+               and cfg.train.flow_dispersion_penalty > 0.0)
     sync = multihost.active()          # average gradients over the group
     fold = (multihost.process_index() if multihost.process_count() > 1
             else None)                 # the rank in each step's generator
@@ -443,53 +515,115 @@ def make_train_fns(cfg: Config, *, device=None,
             d=d, d_opt=_make_d_optimizer(cfg, d.parameters()) if adv else None,
             seed=seed, ema_model=ema)
 
-    def device_gen(gen: torch.Generator) -> torch.Generator:
-        """The device generator, reseeded from the step's generator."""
-        return noise_gen.manual_seed(int(torch.randint(0, 2 ** 63 - 1, (1,),
-                                                       generator=gen)))
+    def host_seed(gen: torch.Generator) -> int:
+        """One draw of the step's generator, the seed of a device draw."""
+        return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=gen))
 
-    def normal(shape, gen: torch.Generator) -> torch.Tensor:
-        """N(0, I) on the device, seeded from the step's generator."""
-        return torch.randn(shape, generator=device_gen(gen), device=dev)
+    def fill(t: torch.Tensor | None, shape, seed: int,
+             normal: bool) -> torch.Tensor:
+        """``t`` (or a new float32 tensor of ``shape``) filled with the
+        draw of the device generator reseeded with ``seed``: N(0, I) or
+        U[0, 1), the bits of ``torch.randn``/``torch.rand``."""
+        if t is None:
+            t = torch.empty(shape, dtype=torch.float32, device=dev)
+        g = noise_gen.manual_seed(seed)
+        return t.normal_(generator=g) if normal else t.uniform_(generator=g)
 
     def uniform_fn(gen: torch.Generator) -> Callable:
         """shape -> U[0, 1) on the device, seeded from the step's
         generator when called."""
-        return lambda shape: torch.rand(shape, generator=device_gen(gen),
-                                        device=dev)
+        return lambda shape: fill(None, shape, host_seed(gen), False)
 
-    def g_phase(state, x_in, x_target, beta, gen, eps, u_disp):
+    def draw(state: TrainState, batch: dict, *, noise: dict | None = None,
+             out: dict | None = None) -> dict:
+        """The step's inputs that the host chooses (module docstring), for
+        ``run``: the device draws, and the block of the reparameterization
+        keys and the numbers β and each optimizer call's ``hyper``, in
+        the step's order from its generator. ``noise`` entries are taken
+        as they are and not drawn; ``out`` (a captured step's static
+        inputs, the dict an earlier ``draw`` returned) is written in
+        place."""
+        noise, out = noise or {}, out or {}
+        gen = step_generator(state.seed, state.step, fold)
+        keys: list = []
+        u_seed = disp_seed = None
+        zp_seeds: list = []
+        critic = range(a.n_critic if adv else 0)
+        if hier:
+            if "eps" not in noise:      # one key a layer, in layer order
+                keys = [K.draw_key(gen)
+                        for _ in state.model.decoder.dec_blocks]
+        else:
+            if (cfg.data.dequantize and "image_packed" not in batch
+                    and "u" not in noise):
+                u_seed = host_seed(gen)
+            if adv and not a.d_reuse_posterior:    # D's phases come first
+                for _ in critic:
+                    if "d_eps" not in noise:
+                        keys.append(K.draw_key(gen))
+                    if "z_p" not in noise:
+                        zp_seeds.append(host_seed(gen))
+            if "eps" not in noise:
+                keys.append(K.draw_key(gen))
+            if penalty and "u_disp" not in noise:
+                disp_seed = host_seed(gen)
+            if adv and a.d_reuse_posterior and "z_p" not in noise:
+                zp_seeds = [host_seed(gen) for _ in critic]
+        hyper = [] if hier else [_beta(cfg, state.step)]
+        hyper += state.opt.hyper()[0]
+        if adv:
+            for h in state.d_opt.hyper(a.n_critic):
+                hyper += h
+        inputs = dict(noise)
+        rows = next(iter(batch.values())).shape[0]
+        z = cfg.model.z_dim
+        if u_seed is not None:
+            inputs["u"] = fill(out.get("u"), batch["image"].shape, u_seed,
+                               False)
+        if zp_seeds:
+            inputs["z_p"] = out.get("z_p")
+            if inputs["z_p"] is None:
+                inputs["z_p"] = torch.empty((len(zp_seeds), rows, z),
+                                            device=dev)
+            for t, sd in zip(inputs["z_p"], zp_seeds):
+                fill(t, None, sd, True)
+        if disp_seed is not None:
+            inputs["u_disp"] = fill(out.get("u_disp"), (rows, z), disp_seed,
+                                    True)
+        block = staging.put(host_words(keys, hyper), out.get("block"))
+        n = 2 * len(keys)
+        inputs.update(block=block, keys=block[:n].view(len(keys), 2),
+                      hyper=block[n:].view(torch.float32)[:len(hyper)])
+        return inputs
+
+    def g_phase(state, x_in, x_target, beta, keys, eps, u_disp, hyper):
         lat = latent_d_params(a.variant, state.d)
         px = state.d["pixel"] if biadv else None
         if cfg.train.objective == "iwae":
             loss, aux, z = g_objective_iwae(cfg, state.model, lat, x_in,
-                                            x_target, beta, generator=gen,
+                                            x_target, beta, generator=keys,
                                             eps=eps, px=px)
         else:
             loss, aux, z = g_objective(
                 cfg, state.model, lat, x_in, x_target, beta,
-                generator=gen, eps=eps,
-                draw_u=lambda shape: (u_disp if u_disp is not None
-                                      else normal(shape, gen)), px=px)
+                generator=keys, eps=eps, draw_u=lambda shape: u_disp, px=px)
         x_hat = aux.pop("x_hat", None)
         grads = torch.autograd.grad(loss, state.opt.params)
         if sync:
             multihost.average_(list(grads))
         with span("step.g_opt"):
-            grad_norm = state.opt.step(grads)
+            grad_norm = state.opt.step(grads, hyper=hyper)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
         return metrics, z.detach(), x_hat
 
-    def d_phase(state, x_in, x_target, z_q, x_hat, gen, d_eps, z_p):
+    def d_phase(state, x_in, x_target, z_q, x_hat, keys, d_eps, z_p, hyper):
         if z_q is None:
             # posterior samples with no gradient into the VAE
             with torch.no_grad():
                 mean, logvar = state.model.encode(x_in)
-                z_q = ops.reparam_sample(mean, logvar, generator=gen,
+                z_q = ops.reparam_sample(mean, logvar, generator=keys,
                                          eps=d_eps)
-        if z_p is None:
-            z_p = normal(z_q.shape, gen)
         if gauss_prior:
             # D separates q(z) from the model's own base N(μ, σ): the shaped
             # prior is p*(z) ∝ N(μ, σ)·e^{D(z)}; the base trains in G only
@@ -519,12 +653,13 @@ def make_train_fns(cfg: Config, *, device=None,
             else:
                 scales = [f] * len(grads)
         with span("step.d_opt"):
-            state.d_opt.step(grads, scales)
+            state.d_opt.step(grads, scales, hyper=hyper)
         return {k: v.detach() for k, v in metrics.items()}
 
     def hier_terms(model, batch, gen, eps):
         """The hierarchical family's pass -> (loss, distortion and rate
-        per image, the layers' KLs [L, B]), in nats."""
+        per image, the layers' KLs [L, B]), in nats; ``gen`` gives the
+        layers' keys."""
         x_in, x_target = vdvae.prepare(batch["image"])
         distortion, kls = model(x_in, x_target, generator=gen, eps=eps)
         kls = torch.stack(kls)
@@ -532,20 +667,21 @@ def make_train_fns(cfg: Config, *, device=None,
         loss = (distortion + rate).mean() * _loss_scale(cfg)
         return loss, distortion, rate, kls
 
-    def hier_step(state: TrainState, batch: dict, noise: dict):
+    def hier_step(state: TrainState, batch: dict, inputs: dict,
+                  keys: K.StepKeys):
         """The vdvae family's step: its top-down pass, the loss (distortion
         + Σ_layers KL, per dimension under ``mean_per_dim``), and the
         optimizer, skipping on the device where it skips."""
-        gen = step_generator(state.seed, state.step, fold)
         with span("step.g_phase", marks="start"):
             loss, distortion, rate, kls = hier_terms(
-                state.model, batch, gen, noise.get("eps"))
+                state.model, batch, keys, inputs.get("eps"))
             grads = torch.autograd.grad(loss, state.opt.params)
             if sync:
                 multihost.average_(list(grads))
             with span("step.g_opt"):
-                grad_norm = state.opt.step(grads, (distortion.mean(),
-                                                   rate.mean()))
+                grad_norm = state.opt.step(
+                    grads, (distortion.mean(), rate.mean()),
+                    hyper=inputs["hyper"])
         dims = float(np.prod(cfg.model.image_shape))
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "distortion": distortion.detach().mean() / dims,
@@ -569,9 +705,67 @@ def make_train_fns(cfg: Config, *, device=None,
                 torch._foreach_add_(ema, state.opt.params,
                                     alpha=1.0 - ema_decay)
 
+    def flat_step(state: TrainState, batch: dict, inputs: dict,
+                  keys: K.StepKeys) -> dict:
+        """The encode -> z -> decode families' step: D's phases and G's in
+        the reference's order, then the EMA."""
+        x_in, x_target = prepare_batch(cfg, batch, None, inputs.get("u"))
+        hyper = inputs["hyper"]
+        beta = hyper[0]
+        g_end = 1 + state.opt.HYPER
+        metrics: dict = {}
+
+        def run_d_phases(z_q, x_hat):
+            d_ms, n = [], ClippedAdam.HYPER
+            for i in range(a.n_critic):
+                with span("step.d_phase", marks="start"):
+                    d_ms.append(d_phase(
+                        state, x_in, x_target, z_q, x_hat, keys,
+                        inputs["d_eps"][i] if "d_eps" in inputs else None,
+                        inputs["z_p"][i],
+                        hyper[g_end + n * i:g_end + n * (i + 1)]))
+            if d_ms:
+                metrics.update({k: torch.stack([m[k] for m in d_ms]).mean()
+                                for k in d_ms[0]})
+
+        if adv and not a.d_reuse_posterior:
+            run_d_phases(None, None)    # reference order: D, then G
+        with span("step.g_phase", marks="start"):
+            g_metrics, z_q, x_hat = g_phase(state, x_in, x_target, beta, keys,
+                                            inputs.get("eps"),
+                                            inputs.get("u_disp"),
+                                            hyper[1:g_end])
+        metrics.update(g_metrics)
+        if adv and a.d_reuse_posterior:
+            # G then D: D sees z_q (and x̂) made under the pre-update params
+            run_d_phases(z_q, x_hat)
+        update_ema(state)
+        metrics["beta"] = beta
+        return metrics
+
+    def run(state: TrainState, batch: dict, inputs: dict):
+        """One step on a batch of device tensors and ``draw``'s inputs, in
+        place: the device work, and the host's counts (the state's step,
+        the optimizers' counts) advanced -> (state, metrics). It reads no
+        host number that changes from step to step, so a CUDA graph
+        captured of it replays any step whose inputs it is handed."""
+        keys = K.StepKeys(inputs["keys"])
+        if hier:
+            metrics = hier_step(state, batch, inputs, keys)
+            update_ema(state)
+        else:
+            metrics = flat_step(state, batch, inputs, keys)
+        if keys.taken != keys.keys.shape[0]:
+            raise RuntimeError(f"the step drew {keys.taken} of its "
+                               f"{keys.keys.shape[0]} reparameterization "
+                               "keys")
+        state.step += 1
+        return state, metrics
+
     def train_step(state: TrainState, batch: dict, *,
                    noise: dict | None = None):
-        """One step on a batch of device tensors, in place.
+        """One step on a batch of device tensors, in place: ``draw`` then
+        ``run``.
 
         ``noise`` (CPU tensors only): ``u`` [B, H, W, C] for the
         dequantization, ``eps`` [B, Z] for the G phase ([k, B, Z] under
@@ -582,44 +776,7 @@ def make_train_fns(cfg: Config, *, device=None,
         if noise is not None and dev.type != "cpu":
             raise ValueError("train_step: noise is accepted only on the CPU; "
                              "on CUDA the kernels draw it")
-        noise = noise or {}
-        if hier:
-            metrics = hier_step(state, batch, noise)
-            update_ema(state)
-            state.step += 1
-            return state, metrics
-        gen = step_generator(state.seed, state.step, fold)
-        x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen),
-                                       noise.get("u"))
-        beta = _beta(cfg, state.step)
-        metrics: dict = {}
-
-        def run_d_phases(z_q, x_hat):
-            d_ms = []
-            for i in range(a.n_critic):
-                with span("step.d_phase", marks="start"):
-                    d_ms.append(d_phase(
-                        state, x_in, x_target, z_q, x_hat, gen,
-                        noise["d_eps"][i] if "d_eps" in noise else None,
-                        noise["z_p"][i] if "z_p" in noise else None))
-            if d_ms:
-                metrics.update({k: torch.stack([m[k] for m in d_ms]).mean()
-                                for k in d_ms[0]})
-
-        if adv and not a.d_reuse_posterior:
-            run_d_phases(None, None)    # reference order: D, then G
-        with span("step.g_phase", marks="start"):
-            g_metrics, z_q, x_hat = g_phase(state, x_in, x_target, beta, gen,
-                                            noise.get("eps"),
-                                            noise.get("u_disp"))
-        metrics.update(g_metrics)
-        if adv and a.d_reuse_posterior:
-            # G then D: D sees z_q (and x̂) made under the pre-update params
-            run_d_phases(z_q, x_hat)
-        update_ema(state)
-        metrics["beta"] = beta
-        state.step += 1
-        return state, metrics
+        return run(state, batch, draw(state, batch, noise=noise))
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         """Single-sample ELBO on a batch; deterministic in (seed, batch).
@@ -651,4 +808,4 @@ def make_train_fns(cfg: Config, *, device=None,
                 "valid_recon": recon.mean(), "valid_kl": kl.mean()}
 
     return TrainFns(init_fn=init_fn, train_step=train_step,
-                    eval_step=eval_step, device=dev)
+                    eval_step=eval_step, device=dev, draw=draw, run=run)

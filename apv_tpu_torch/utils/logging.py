@@ -52,11 +52,18 @@ aggregates only, in memory:
   smallest lead; once that reads 0, the unit's later markers are not
   timed. A marker asked for while the pool is empty is dropped and
   counted (``drops``) until the next synchronising call frees the pool.
+* the captured step (``training/graph.py``): ``captures`` counts the
+  train steps captured in a CUDA graph, ``replayed_steps`` the steps run
+  by replaying one (``GRAPH_COUNTS``). While a step is captured
+  (``with quiet():``) no span opens and no marker is recorded: its work
+  is dispatched again by each replay, not by the host, so the spans
+  inside the step (the phases, the optimizers, ``model.*``) are not
+  timed on a replayed step; the loop's own spans around it are.
 * ``with invocation(kind, device):`` wraps one ``train_loop`` or
   ``evaluate_nll`` call; on exit its summary (the spans, synchronising
-  calls, drops and unit leads of the call, flagged ``profiled`` where a
-  profiler ran during it) joins the last ``KEEP``, which ``summaries()``
-  returns.
+  calls, drops, unit leads and captured-step counts of the call, flagged
+  ``profiled`` where a profiler ran during it) joins the last ``KEEP``,
+  which ``summaries()`` returns.
 
 ``MetricLogger.log`` reads the metrics back inside a ``loop.readback``
 span, and adds to each record that has ``step_time_s``, per step over the
@@ -65,13 +72,15 @@ same interval: ``host_step_ms`` (the ``loop.step`` spans' host time),
 median of the steps' smallest leads; only with markers, on the card) and
 the self time of the phases and optimizers that ran,
 ``g_phase_self_ms``, ``d_phase_self_ms``, ``g_opt_self_ms`` and
-``d_opt_self_ms``. The interval (those numbers in ms, ``steps`` and each
-step's lead) joins the open ``train_loop`` invocation's ``intervals``.
+``d_opt_self_ms``. The interval (those numbers in ms, ``steps``, each
+step's lead and the captured step's ``captures`` and ``replayed_steps``)
+joins the open ``train_loop`` invocation's ``intervals``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
 import statistics
@@ -85,6 +94,7 @@ from apv_tpu_torch.parallel import multihost
 
 POOL = 1024          # CUDA timing events held for device markers
 KEEP = 256           # invocation summaries kept
+GRAPH_COUNTS = ("captures", "replayed_steps")    # of the captured step
 
 # the train step's spans whose self time a record carries, and its field
 STEP_SELF = {"step.g_phase": "g_phase_self_ms",
@@ -106,7 +116,7 @@ class _Span:
         self.rec, self.name, self.unit, self.marks = rec, name, unit, marks
 
     def __enter__(self):
-        self.live = not _traced()
+        self.live = not (_traced() or self.rec.capturing)
         if not self.live:
             return self
         rec = self.rec
@@ -165,7 +175,8 @@ class _Wait:
         self.rec, self.site, self.n, self.idle = rec, site, n, idle
 
     def __enter__(self):
-        self.start = None if _traced() else time.time_ns()
+        self.start = (None if _traced() or self.rec.capturing
+                      else time.time_ns())
         return self
 
     def __exit__(self, *exc):
@@ -195,6 +206,7 @@ class _Invocation:
         self.base = rec.snapshot()
         self.base_sites = {k: v[0] for k, v in rec.sites.items()}
         self.base_other = (rec.drops, rec.profiled)
+        self.base_graph = dict(rec.graph)
         self.summary = {"kind": self.kind, "device": str(self.device),
                         "profiled": torch.autograd._profiler_enabled(),
                         "intervals": []}
@@ -222,6 +234,7 @@ class _Invocation:
                            for k, v in rec.sites.items()
                            if v[0] > self.base_sites.get(k, 0)}
         s["drops"] = rec.drops - self.base_other[0]
+        s.update({k: v - self.base_graph[k] for k, v in rec.graph.items()})
         s["profiled"] = (s["profiled"] or rec.profiled > self.base_other[1]
                          or torch.autograd._profiler_enabled())
         # the unit leads no interval took, in ms by span name in unit order
@@ -249,6 +262,8 @@ class Recorder:
         self.syncs = self.sync_ns = 0
         self.drops = 0
         self.profiled = 0                     # spans opened under a profiler
+        self.graph = dict.fromkeys(GRAPH_COUNTS, 0)
+        self.capturing = False                # a step is being captured
         self.summaries: collections.deque = collections.deque(maxlen=KEEP)
         self.leads: dict[tuple, int] = {}     # unit -> smallest lead, ns
         self.stack: list[_Span] = []
@@ -285,13 +300,29 @@ class Recorder:
             return float(value) if value.numel() == 1 else \
                 value.reshape(-1).tolist()
 
-    def waits(self, site: str, n: int = 1):
+    def waits(self, site: str, n: int = 1, idle: bool = True):
         """Count ``n`` synchronising calls of ``site`` inside the block and
-        the host time it takes."""
-        return _Wait(self, site, n, True)
+        the host time it takes; ``idle``: the device has run dry when the
+        block ends (a wait for part of the queued work has not)."""
+        return _Wait(self, site, n, idle)
 
     def invocation(self, kind: str, device):
         return _Invocation(self, kind, device)
+
+    @contextlib.contextmanager
+    def quiet(self):
+        """No span and no marker inside the block: a step being
+        captured."""
+        self.capturing = True
+        try:
+            yield
+        finally:
+            self.capturing = False
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the captured step's count ``name``
+        (``GRAPH_COUNTS``)."""
+        self.graph[name] += n
 
     def snapshot(self) -> tuple:
         """(span totals, synchronising calls, their ns): a copy."""
@@ -407,6 +438,7 @@ class MetricLogger:
         self._last_time = time.perf_counter()
         self._last_step = None
         self._last_snap = None
+        self._last_graph = None
         self.trace_dir = None if trace_dir is None else Path(trace_dir)
         self.trace_steps = (trace_steps[0] + trace_offset,
                             trace_steps[1] + trace_offset)
@@ -469,6 +501,7 @@ class MetricLogger:
         else:
             RECORDER.take_leads("loop.step")   # the loop's start
             self._last_snap = RECORDER.snapshot()
+            self._last_graph = dict(RECORDER.graph)
             self._last_device = {k: v[1] for k, v in
                                  RECORDER.device_ns.items()}
         self._last_time, self._last_step = now, step
@@ -480,6 +513,8 @@ class MetricLogger:
         (spans, syncs, sync_ns), (spans0, syncs0, sync_ns0) = (
             RECORDER.snapshot(), self._last_snap)
         self._last_snap = (spans, syncs, sync_ns)
+        graph0, self._last_graph = self._last_graph, dict(RECORDER.graph)
+        graph = {k: v - graph0[k] for k, v in self._last_graph.items()}
         leads = RECORDER.take_leads("loop.step")
 
         def delta(name, i):
@@ -510,7 +545,7 @@ class MetricLogger:
                 "leads_ms": [x / 1e6 for x in leads],
                 "span_ms": {n: delta(n, 1) / 1e6 for n in spans
                             if delta(n, 0)},
-                "device_ms": device_ms})
+                "device_ms": device_ms, **graph})
         return out
 
     def log_now(self, step: int, metrics: dict) -> None:

@@ -8,6 +8,7 @@
                                                # 24 seeds, nothing else
     python3 chip_smoke.py --prior-kl-only [--parent-csrc DIR]
                                                # phase 24 alone
+    python3 chip_smoke.py --graph-step-only    # phase 25 alone
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -199,6 +200,15 @@ Phases, one JSON line each:
      instances (apv_reparam with and without its KL blocks at the train
      step's S = 1 and the IWAE objective's S = 5, apv_reparam_bwd with and
      without the KL term) give that build's bits.
+ 25. graph_step: the train step captured in a CUDA graph and replayed
+     (training/graph.py) against the eager step, for the flagship (from
+     step 10, inside β's and the learning rate's warm-ups) and VDVAE, at
+     their cells' full sizes: GRAPH_K + 1 steps from one state each way
+     under deterministic cuDNN (the runner's first step is eager, the
+     rest replays), whose state, host counts, metrics and launch and
+     route counts must be equal bit for bit; then GRAPH_TIMED steps each
+     way timed (steps a second), the peak of device memory each way and
+     the capture's wall.
 Each path runs once with the launch counters zeroed just before it and
 read just after; the ResNet's fused norm must launch its forward kernel
 once a call of its module on the card and its backward once a call whose
@@ -226,6 +236,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -1418,6 +1429,7 @@ def count_shapes(K) -> None:
         return run
 
     K.reset_launches = reset_both
+    K.COUNTERS.append(SHAPES_NOW)          # a replayed step's launches too
     K.bernoulli_cuda = shim("bernoulli", K.bernoulli_cuda)
     K.disc_logistic_cuda = shim("disc_logistic", K.disc_logistic_cuda)
 
@@ -1461,6 +1473,7 @@ def count_norms(K) -> None:
     forward.counted = True
     RMSNormAct.forward = forward
     K.reset_launches = reset_all
+    K.COUNTERS.append(NORMS_NOW)           # a replayed step's calls too
 
 
 def norm_checked(launches: dict, calls, where: str) -> dict:
@@ -3736,12 +3749,22 @@ def kernel_device_us(fn, name: str, iters: int = 20) -> float:
     return sum(times) / len(times) if times else float("nan")
 
 
+def _reparam_params(csrc: Path) -> int:
+    """The parameters of ``apv_reparam`` in ``csrc``'s reparam.cu."""
+    text = (csrc / "reparam.cu").read_text()
+    head = text[text.index('extern "C" int apv_reparam('):]
+    return head[:head.index(")")].count(",") + 1
+
+
 def parent_bits(K, csrc: Path, dev) -> dict:
     """The N(0, I) reparam instances of this build against ``csrc``'s,
-    bit for bit, on the same inputs and keys."""
+    bit for bit, on the same inputs and keys (passed by value; a build
+    whose entry point also takes the key's device copy gets null)."""
     from apv_tpu_torch.ops import _build
     names = ("apv_reparam", "apv_reparam_bwd")
     sig = {n: _build.SIGNATURES[n] for n in names}
+    if _reparam_params(csrc) < len(sig["apv_reparam"]):
+        sig["apv_reparam"] = sig["apv_reparam"][:-2] + sig["apv_reparam"][-1:]
     libs = {"this": _build.library(), "parent": _build.load(
         _build.build(csrc, ROOT / ".bench_cache" / "parent_kernels"), sig)}
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -3757,9 +3780,11 @@ def parent_bits(K, csrc: Path, dev) -> dict:
         for who, lib in libs.items():
             zs = torch.empty(samples, b, z, device=dev)
             kls = torch.empty(b, device=dev) if kl else None
+            key = ((None,) if len(lib.apv_reparam.argtypes)
+                   == len(_build.SIGNATURES["apv_reparam"]) else ())
             lib.apv_reparam(mean.data_ptr(), logvar.data_ptr(), zs.data_ptr(),
                             None if kls is None else kls.data_ptr(), samples,
-                            b * z, z if kl else 0, 12345, 678, stream)
+                            b * z, z if kl else 0, 12345, 678, *key, stream)
             dm, dl = torch.empty_like(mean), torch.empty_like(mean)
             lib.apv_reparam_bwd(g.data_ptr(), zs.data_ptr(), mean.data_ptr(),
                                 logvar.data_ptr() if kl else None,
@@ -4070,6 +4095,157 @@ def quality_gate(dev, tmp: str) -> None:
 # main
 # ---------------------------------------------------------------------------
 
+GRAPH_K = 10         # replayed steps held to eager ones
+GRAPH_TIMED = 40     # steps timed each way
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def graph_batches(cfg, n: int, dev) -> list[dict]:
+    """``n`` batches of ``cfg``'s train step on the card: uint8 levels, or
+    bit-packed binarized rows for the packed configs."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    b = cfg.train.batch_size
+    h, w, c = cfg.model.image_shape
+    if cfg.data.binarize and cfg.data.bit_pack:
+        shape, key = (b, -(-h * w * c // 8)), "image_packed"
+    else:
+        shape, key = (b, h, w, c), "image"
+    return [{key: torch.randint(0, 256, shape, generator=g, device=dev,
+                                dtype=torch.uint8)} for _ in range(n)]
+
+
+def graph_state(fns, cfg, start: int, plant=None):
+    """A fresh state of ``cfg`` with its step and optimizer counts at
+    ``start`` (moments zero); ``plant(state)`` alters it."""
+    st = fns.init_fn(cfg.train.seed)
+    st.step = start
+    for o in (st.opt, st.d_opt):
+        if o is not None:
+            o.load_state_dict({"count": start, "mu": o.mu, "nu": o.nu})
+    if plant is not None:
+        plant(st)
+    return st
+
+
+def graph_pair(cfg, dev, start: int, k: int = GRAPH_K, plant=None) -> dict:
+    """``k`` + 1 steps of ``cfg`` from one state at step ``start``, eagerly
+    and through ``StepRunner`` (its first step eager, the others
+    replayed), under deterministic cuDNN. Returns whether the states
+    (every tensor, bit for bit, and the host counts), each step's metrics
+    and the kernel wrappers' counters agree, and what differs."""
+    from apv_tpu_torch.ops import kernels as K
+    from apv_tpu_torch.training.graph import StepRunner
+    from apv_tpu_torch.training.step import make_train_fns
+    fns = make_train_fns(cfg, device=dev)
+    batches = graph_batches(cfg, k + 1, dev)
+    runs = {}
+    for way in ("eager", "replay"):
+        st = graph_state(fns, cfg, start, plant)
+        torch.cuda.synchronize()
+        before = [dict(c) for c in K.COUNTERS]
+        runner = StepRunner(fns, capture=way == "replay")
+        ms = []
+        with deterministic_cudnn():
+            for b in batches:
+                st, m = runner(st, b)
+                ms.append({n: v.clone() for n, v in m.items()})
+        torch.cuda.synchronize()
+        launched = [{n: c[n] - b0.get(n, 0) for n in c}
+                    for c, b0 in zip(K.COUNTERS, before)]
+        runs[way] = (st, ms, launched, runner.eager)
+        runner.close()
+    (sa, ma, la, ea), (sb, mb, lb, eb) = runs["eager"], runs["replay"]
+    counts = [(o, a) for o in ("opt", "d_opt") for a in ("count",
+                                                         "mini_step")]
+
+    def host(st):
+        return [st.step] + [getattr(getattr(st, o), a) for o, a in counts
+                            if getattr(st, o) is not None]
+    tensors = [i for i, (x, y) in enumerate(zip(sa.tensors(), sb.tensors()))
+               if not same_bits(x, y)]
+    metrics = sorted({n for x, y in zip(ma, mb) for n in x
+                      if n not in y or not same_bits(x[n], y[n])})
+    out = {"tensors": len(sa.tensors()), "tensors_differ": tensors,
+           "host_counts": [host(sa), host(sb)], "metrics_differ": metrics,
+           "launches": la[0], "launches_equal": la == lb,
+           "eager_steps": [ea, eb],
+           "skipped": [float(st.opt.skipped) for st in (sa, sb)]
+           if hasattr(sa.opt, "skipped") else None}
+    out["bits_equal"] = (not tensors and not metrics and la == lb
+                         and host(sa) == host(sb) and ea == k + 1
+                         and eb == 1)
+    return out
+
+
+def graph_timing(cfg, dev, start: int, steps: int = GRAPH_TIMED) -> dict:
+    """``steps`` steps of ``cfg`` each way after a warm-up, timed on the
+    host clock to the device's end: steps a second eagerly and by replay,
+    the peak of device memory each way, and the capture's wall (from its
+    start to the end of its device work)."""
+    from apv_tpu_torch.training.graph import StepRunner
+    from apv_tpu_torch.training.step import make_train_fns
+    fns = make_train_fns(cfg, device=dev)
+    batches = graph_batches(cfg, 4, dev)
+    out = {}
+    for way in ("eager", "replay"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = graph_state(fns, cfg, start)
+        runner = StepRunner(fns, capture=way == "replay")
+        st, _ = runner(st, batches[0])             # eager either way
+        if way == "replay":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner._capture(st, batches[1])
+            torch.cuda.synchronize()
+            out["capture_s"] = time.perf_counter() - t0
+        for i in range(3):
+            st, _ = runner(st, batches[i % 4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            st, m = runner(st, batches[i % 4])
+        torch.cuda.synchronize()
+        out[f"{way}_steps_s"] = steps / (time.perf_counter() - t0)
+        out[f"{way}_memory_peak_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+        check(math.isfinite(float(m["loss"])),
+              f"graph_step: a {way} step's loss is {float(m['loss'])}")
+        runner.close()
+        del st, m, runner
+    out["replay_over_eager"] = out["replay_steps_s"] / out["eager_steps_s"]
+    return out
+
+
+def graph_step_phase(dev) -> dict:
+    """Phase 25 (module docstring); returns the launch counts of one
+    flagship step."""
+    from apv_tpu_torch import apply_overrides, get_preset
+    rows, launches = {}, None
+    for name, start in (("cifar_advprior_resnet", 10),
+                        ("vdvae_cifar10", 10)):
+        cfg = apply_overrides(get_preset(name), ["train.steps=100000"])
+        pair = graph_pair(cfg, dev, start)
+        check(pair["bits_equal"], f"graph_step {name}: replayed steps "
+              f"differ from eager ones: {pair}")
+        rows[name] = {"pair": pair, **graph_timing(cfg, dev, start)}
+        if launches is None:
+            launches = {n: v // (GRAPH_K + 1)
+                        for n, v in pair["launches"].items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("graph_step", cases=rows)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -4085,6 +4261,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--parent-csrc", type=Path, default=None,
                     help="with --prior-kl-only: hold the N(0, I) reparam "
                          "instances to the bits of this ops/csrc's build")
+    ap.add_argument("--graph-step-only", action="store_true",
+                    help="phase 25 alone, after the build")
     ap.add_argument("--biadv-seeds", type=int, default=0, metavar="N",
                     help="instead of the paths: train the biadversarial "
                          "flagship as phase 18 does and run its gradient "
@@ -4122,6 +4300,10 @@ def main(argv: list[str]) -> int:
         return biadv_seeds(args.biadv_seeds, dev)
     if args.prior_kl_only:
         prior_kl_phase(dev, args.parent_csrc)
+        emit("ok", ok=True)
+        return 0
+    if args.graph_step_only:
+        graph_step_phase(dev)
         emit("ok", ok=True)
         return 0
 
@@ -4188,6 +4370,7 @@ def main(argv: list[str]) -> int:
         path_launches["rmsnorm_act"] = rmsnorm_phase(dev)
         path_launches["conv3x3"] = conv_phase(dev)
         path_launches["prior_kl"] = prior_kl_phase(dev)
+        path_launches["graph_step"] = graph_step_phase(dev)
         path_launches["sample"] = sample_phase(tmp, dev)
         path_launches["ood"] = ood_phase(tmp, dev)
         if args.profile is not None:

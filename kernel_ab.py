@@ -123,6 +123,8 @@ def _posterior(shape: tuple[int, ...], dev: torch.device
 PHILOX_KEY = (0x0123456789ABCDEF, 42)
 OLD_REPARAM_ARGS = 8     # the entry points before the KL was folded in
 OLD_REPARAM_BWD_ARGS = 8
+KEY_REPARAM_ARGS = 11    # the entry point that also takes the key's
+                         # device copy (null here: the key by value)
 
 
 def _reparam_launch(lib: ctypes.CDLL, mean, logvar, z, kl, samples: int):
@@ -138,9 +140,10 @@ def _reparam_launch(lib: ctypes.CDLL, mean, logvar, z, kl, samples: int):
             _ok(lib.apv_kl(mean.data_ptr(), logvar.data_ptr(), kl.data_ptr(),
                            rows, mean.numel() // rows, _stream()))
         return
+    key = (None,) if len(fn.argtypes) == KEY_REPARAM_ARGS else ()
     _ok(fn(mean.data_ptr(), logvar.data_ptr(), z.data_ptr(),
            None if kl is None else kl.data_ptr(), samples, mean.numel(),
-           mean.numel() // rows, seed, offset, _stream()))
+           mean.numel() // rows, seed, offset, *key, _stream()))
 
 
 def reparam_call(samples: int, shape: tuple[int, ...], lib: ctypes.CDLL,

@@ -273,8 +273,9 @@ def test_train_loop_spans_syncs_and_records(tmp_path):
     ``loop.readback`` a logged record, and a synchronising call at every
     site it passes: each upload of a host tensor (the VAE's and D's
     parameters and buffers, the resident train set, each valid batch),
-    each tensor read back (the logged metrics but β, three a valid batch)
-    and each storage a checkpoint save copies."""
+    each tensor read back (the logged metrics, β among them: a device
+    number of the step's block; three a valid batch) and each storage a
+    checkpoint save copies."""
     from apv_tpu_torch.training.loop import load_train_arrays, train_loop
     cfg = _cfg(tmp_path)
     state = train_loop(cfg, max_steps=8, device="cpu")
@@ -293,7 +294,7 @@ def test_train_loop_spans_syncs_and_records(tmp_path):
     _, valid_arrays = load_train_arrays(cfg)
     n_valid = len(valid_arrays["image"])
     valid_batches = n_valid // min(cfg.train.batch_size, n_valid)
-    reads = sum(len(r) - 2 for r in logged[:1]) * len(logged)  # but step, β
+    reads = sum(len(r) - 1 for r in logged[:1]) * len(logged)  # but step
     assert summary["sync_sites"] == {
         "upload": (_host_tensors(state.model) + _host_tensors(state.d)
                    + int(cfg.data.device_resident) + valid_batches),
