@@ -229,6 +229,11 @@ class VDVAE(nn.Module):
         self.decoder = Decoder(width, mid, zdim, dec_blocks, image_shape[0],
                                mixtures, dtype)
 
+    @property
+    def layers(self) -> int:
+        """The stochastic layers, each drawing from its own key."""
+        return len(self.decoder.dec_blocks)
+
     def forward(self, x_in: torch.Tensor, x_target: torch.Tensor, *,
                 generator=None, eps=None
                 ) -> tuple[torch.Tensor, list[torch.Tensor]]:

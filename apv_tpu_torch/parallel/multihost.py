@@ -148,7 +148,7 @@ def agree_max(value: int | None) -> int | None:
 def average_(tensors: list[torch.Tensor], group=None) -> None:
     """Average ``tensors`` over ``group`` (default: the whole group) in
     place, through one flattened float32 bucket and one ``all_reduce``."""
-    if not tensors:
+    if not tensors or not active():
         return
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
     dist.all_reduce(flat, group=group)
@@ -181,6 +181,26 @@ def group_mean(t: torch.Tensor) -> torch.Tensor:
     out = t.detach().to(torch.float32).clone()
     average_([out])
     return out.to(t.dtype)
+
+
+class _GroupMean(torch.autograd.Function):
+    """Forward: the group mean of a batch statistic; backward: the
+    gradient passed to the local statistic unchanged, so the gradients
+    averaged over the group are those of the global statistic."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return group_mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def group_batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a mean over this rank's rows, as the global batch's mean
+    (``t`` itself without a group)."""
+    return _GroupMean.apply(t) if active() else t
 
 
 def broadcast_(tensors: list[torch.Tensor], src: int = 0) -> None:

@@ -131,6 +131,18 @@ def r1_penalty(d_fn: Callable, x_real: torch.Tensor) -> torch.Tensor:
     return 0.5 * sq.mean()
 
 
+def loss_scale(cfg) -> float:
+    """The factor of a summed loss under ``train.loss_reduction``: 1/(H·W·C)
+    under 'mean_per_dim', 1 under 'sum'."""
+    reduction = cfg.train.loss_reduction
+    if reduction == "mean_per_dim":
+        return 1.0 / float(math.prod(cfg.model.image_shape))
+    if reduction == "sum":
+        return 1.0
+    raise ValueError(f"unknown loss_reduction {reduction!r} "
+                     "(sum|mean_per_dim)")
+
+
 def d_loss_floor(label_smoothing: float) -> float:
     """The analytic minimum of ``discriminator_loss``: 2·H(s) with label
     smoothing s (0 without smoothing); the chance plateau is 2·ln 2."""

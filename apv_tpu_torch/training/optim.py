@@ -26,10 +26,6 @@ running mean acc ← acc + (g − acc)/(n + 1), n the micro-steps already
 folded in; the k-th call clips and applies Adam to that mean and zeroes
 it, the k − 1 calls before it leave the parameters untouched. The count
 and the schedule tick once per applied update.
-
-``step(grads, scales=...)`` multiplies the applied update (after Adam, the
-moments untouched) by a 0-dim device tensor per parameter: the
-floor-adaptive D throttle, one factor per D under the biadversarial pair.
 """
 
 from __future__ import annotations
@@ -100,6 +96,20 @@ def own_hyper(opt, device: torch.device) -> torch.Tensor:
         device, non_blocking=True)
 
 
+def _copy_saved(opt, saved: dict, names: Sequence[str]) -> None:
+    """Copy ``saved``'s lists ``names`` into ``opt``'s tensors in place, and
+    its count."""
+    for name in names:
+        mine, theirs = getattr(opt, name), saved[name]
+        if len(mine) != len(theirs) or any(
+                a.shape != b.shape for a, b in zip(mine, theirs)):
+            raise ValueError(f"{type(opt).__name__}: saved {name} does not "
+                             "match this optimizer's parameters")
+        for a, b in zip(mine, theirs):
+            a.copy_(b)
+    opt.count = int(saved["count"])
+
+
 class ClippedAdam:
     """Global-norm clip then Adam, over ``params`` in place, with gradient
     accumulation over ``every_k`` calls (see module docstring).
@@ -144,10 +154,11 @@ class ClippedAdam:
              scales: Sequence[torch.Tensor] | None = None,
              hyper: torch.Tensor | None = None) -> torch.Tensor:
         """Fold in one call's gradients; on an applying call, update the
-        parameters, each update times its entry of ``scales`` (0-dim
-        device tensors, one per parameter) when given. ``hyper``: this
-        call's ``hyper()`` numbers, float32 on the parameters' device.
-        Returns this call's gradient norm."""
+        parameters, each update (after Adam, the moments untouched) times
+        its entry of ``scales`` when given: 0-dim device tensors, one per
+        parameter, the floor-adaptive D throttle. ``hyper``: this call's
+        ``hyper()`` numbers, float32 on the parameters' device. Returns
+        this call's gradient norm."""
         grads = list(grads)
         self._hyper = (own_hyper(self, self.params[0].device) if hyper is None
                        else hyper)
@@ -192,6 +203,13 @@ class ClippedAdam:
         torch._foreach_sub_(self.params, m_hat)
         self.count += 1
 
+    @torch.no_grad()
+    def ema_(self, ema: Sequence[torch.Tensor], decay: float) -> None:
+        """e ← decay·e + (1 − decay)·θ."""
+        ema = list(ema)
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, self.params, alpha=1.0 - decay)
+
     def tensors(self) -> list[torch.Tensor]:
         """The state's tensors: moments, then the accumulator."""
         return self.mu + self.nu + (self.acc or [])
@@ -211,17 +229,8 @@ class ClippedAdam:
         saved accumulator is read only by an optimizer that accumulates;
         one that accumulates starts a fresh window from a state saved
         without one."""
-        names = ("mu", "nu") + (("acc",) if self.acc is not None
-                                and "acc" in saved else ())
-        for name in names:
-            mine, theirs = getattr(self, name), saved[name]
-            if len(mine) != len(theirs) or any(
-                    a.shape != b.shape for a, b in zip(mine, theirs)):
-                raise ValueError(f"ClippedAdam: saved {name} does not match "
-                                 "this optimizer's parameters")
-            for a, b in zip(mine, theirs):
-                a.copy_(b)
-        self.count = int(saved["count"])
+        _copy_saved(self, saved, ("mu", "nu") + (
+            ("acc",) if self.acc is not None and "acc" in saved else ()))
         if self.acc is not None:
             if "acc" not in saved:
                 for a in self.acc:
@@ -332,14 +341,6 @@ class SkippingAdamW:
     def load_state_dict(self, saved: dict) -> None:
         """Copy a ``state_dict`` in place; a state saved without the device
         counts (``ClippedAdam``'s) applied every update it counted."""
-        for name in ("mu", "nu"):
-            mine, theirs = getattr(self, name), saved[name]
-            if len(mine) != len(theirs) or any(
-                    a.shape != b.shape for a, b in zip(mine, theirs)):
-                raise ValueError(f"SkippingAdamW: saved {name} does not "
-                                 "match this optimizer's parameters")
-            for a, b in zip(mine, theirs):
-                a.copy_(b)
-        self.count = int(saved["count"])
+        _copy_saved(self, saved, ("mu", "nu"))
         self.applied.fill_(float(saved.get("applied", self.count)))
         self.skipped.fill_(float(saved.get("skipped", 0.0)))

@@ -3,15 +3,14 @@
 One object carries what a run needs: the VAE and its optimizer, the D and
 its optimizer (None for a non-adversarial run; under the biadversarial
 variant the D is the ``ModuleDict`` of the latent and the pixel D, one
-optimizer over both), the step count, and
-the seed that every step's noise derives from together with the step
-(the reference's base key with ``fold_in(rng, step)``), and with
-``train.ema_decay > 0`` the VAE's Polyak average, a second module
-(``ema_model``) that the eval-side entry points read (``api._p``).
-Unlike the
-reference's immutable pytree, the modules and optimizer moments are
-updated in place by ``train_step``; ``state_dict`` and ``load_state_dict``
-are what a checkpoint saves and restores (``utils/checkpoint.py``).
+optimizer over both), the step count, and the seed that every step's
+noise derives from together with the step (the reference's base key with
+``fold_in(rng, step)``), and with ``train.ema_decay > 0`` the VAE's
+Polyak average, a second module (``ema_model``) that the eval-side entry
+points read (``api._p``). Unlike the reference's immutable pytree, the
+modules and optimizer moments are updated in place by ``train_step``;
+``state_dict`` and ``load_state_dict`` are what a checkpoint saves and
+restores (``utils/checkpoint.py``).
 
 Restoring across EMA configs follows the reference
 (``apv_tpu/utils/checkpoint.py``): a saved shadow is dropped by a state

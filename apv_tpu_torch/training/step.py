@@ -3,12 +3,24 @@ prior (N(0, I), a trained Gaussian base or a trained flow) and the
 adversarial latent prior, G phase then D phase, each with its own clipped
 Adam (counterpart of ``apv_tpu/training/step.py``).
 
-The reference jits both phases into one XLA program; here they run eagerly
-on the card, with the reparameterized sample, the KL and the Bernoulli and
-discretized-logistic likelihoods in hand-written kernels whose backward is
-a kernel too (``ops/dispatch.py``). The input stage runs on the batch's
-device: bit unpacking for the binarized MNIST configs, uniform
-dequantization of uint8 levels for CIFAR. Gradient discipline as in the reference: the G phase
+The step is one skeleton, ``make_train_fns``, with the model family's
+step behind it: ``EncodeDecodeStep`` below for the encode -> z -> decode
+families (conv, resnet), ``training/vdvae.VDVAEStep`` for the hierarchical
+one. The skeleton keeps what no family changes: the step's generator, the
+device draws, the block, the check that every key was taken, the EMA and
+the step count. The family object keeps the rest: its refusals (its
+constructor; the combinations the reference refuses raise ``ValueError``),
+``init`` -> (optimizer, D, D's optimizer), ``draw`` -> its (keys, host
+numbers, device draws) in its order, none for an entry of ``noise``,
+``critic`` (D's optimizer calls a step), ``step`` (its input stage, loss,
+optimizer calls and metrics) and ``eval_step`` (its validation ELBO).
+
+The reference jits both phases into one XLA program; here the
+reparameterized sample, the KL and the Bernoulli and discretized-logistic
+likelihoods are hand-written kernels whose backward is a kernel too
+(``ops/dispatch.py``). The input stage runs on the batch's device: bit
+unpacking for the binarized MNIST configs, uniform dequantization of uint8
+levels for CIFAR. Gradient discipline as in the reference: the G phase
 differentiates only the VAE's parameters (D's are constants there, and
 ``torch.autograd.grad`` leaves their ``.grad`` untouched); the D phase
 differentiates only D's, on posterior samples that carry no gradient.
@@ -22,20 +34,18 @@ objective), then the flow dispersion penalty's base draw u (the
 reference's ``fold_in(key, 1)``; drawn only when the penalty is on), then
 the critic's z_p (the u's and z_p on the device, from a device generator
 reseeded from the step's generator); with ``d_reuse_posterior=False``
-each critic step's key and z_p come first. The vdvae family draws one key
-a layer, in layer order. On CPU tensors ``train_step`` also takes the
-noise injected (``noise=``), which the parity tests use to hand the port
-JAX's draws.
+each critic step's key and z_p come first. On CPU tensors ``train_step``
+also takes the noise injected (``noise=``), which the parity tests use to
+hand the port JAX's draws.
 
 A step is ``draw`` then ``run``. ``draw`` takes every number the host
 chooses for the step, in that order: the device draws, and one int64
-block, written through pinned memory (``HostBlock``), of the keys (which
-the reparam kernels read on the device) and the float32 numbers β and,
-for each optimizer call, its learning rate and bias corrections
-(``hyper``). ``run`` is the device work on them and advances the host's
-counts. It reads no host number that changes from step to step, so the
-loop can capture it in a CUDA graph once and replay it
-(``training/graph.py``); the eager step is the same ``draw`` and ``run``.
+block through pinned memory (``HostBlock``) of the keys, which the reparam
+kernels read on the device, and the float32 numbers: β, then each
+optimizer call's ``hyper``. ``run`` is the device work on them and
+advances the host's counts; reading no host number that changes from step
+to step, it can be captured in a CUDA graph once and replayed
+(``training/graph.py``).
 
 The model's prior: the flow takes the single-sample MC KL log q(z|x) −
 log p_θ(z), the Gaussian base the analytic KL against (μ, 2·log σ), the
@@ -47,54 +57,35 @@ phase draws z_p from the (detached) base.
 The discriminators: the latent D may be spectrally normalized
 (``adversarial.d_spectral_norm``). Under ``variant='biadversarial'`` the
 state's D is the pair ``{"latent", "pixel"}`` with one ``ClippedAdam`` over
-both, as the reference shares one optimizer and one n_critic schedule. The
-G phase adds ``pixel_weight``·log σ(D_x(x̂)), β-free, its gradient reaching
-the decoder through the decoded mean x̂; the D phase adds the pixel BCE on
-{x_target real, x̂ fake}, x̂ reused from the G phase (or decoded from the
-D phase's own z_q). ``adversarial.r1_gamma`` γ adds γ·R1 on z_q for the
-latent D and on x_target for the pixel D: a second backward through D.
+both, as the reference shares one optimizer and one n_critic schedule.
+The pixel and R1 terms are ``g_objective``'s and ``d_objective``'s; the D
+phase reuses the G phase's x̂ (or decodes its own z_q).
 
 The training knobs: ``adversarial.d_lr_schedule`` 'cosine' decays D's
-learning rate over its updates (``max(1, steps // grad_accum)`` ×
-``max(1, n_critic)`` of them); 'floor_adaptive' multiplies each applied D
-update by clip((d_loss − floor)/(2 ln 2 − floor), 0, 1), floor the BCE's
-analytic minimum under label smoothing, a 0-dim device tensor (each D its
-own factor from its own loss under the biadversarial pair; Adam's moments
-still take the full gradient). ``train.grad_accum`` k averages both
-optimizers' gradients over k micro-steps and applies them on the k-th
-(``ClippedAdam``'s ``every_k``; D's micro-steps are its critic
-iterations). ``train.ema_decay`` d keeps the VAE's Polyak average in
-``state.ema_model``, e ← d·e + (1 − d)·θ once per micro-step after the D
-phases; validation reads the raw parameters.
+learning rate over its updates (``_make_d_optimizer``); 'floor_adaptive'
+multiplies each applied D update by a factor from that D's loss
+(``d_lr_factor``; Adam's moments still take the full gradient).
+``train.grad_accum`` k averages both optimizers' gradients over k
+micro-steps and applies them on the k-th (``ClippedAdam``'s ``every_k``;
+D's micro-steps are its critic iterations). ``train.ema_decay`` d keeps
+the VAE's Polyak average in ``state.ema_model`` (the optimizer's ``ema_``)
+once per micro-step after the D phases; validation reads the raw
+parameters.
 
 Data parallelism: under a process group (``parallel/multihost.py``) each
 rank runs the step on its rows of the global batch, and the step averages
-each phase's gradients over the group in one flattened float32 bucket
-between ``torch.autograd.grad`` and the optimizer, the counterpart of the
-all-reduce XLA inserts: clip, Adam and ``grad_norm`` see the global
-gradient. The floor-adaptive factors come from the group mean of the D
-losses, carried in D's bucket, as the reference's global-batch loss gives
-them: a factor from the local loss would let the replicas drift apart.
-The statistics that the loss takes of a whole batch before a nonlinearity
-(the free-bits floors, the dispersion penalty's mean norms) are replaced
-by their group means with the gradient passed through to the local ones,
-so the averaged gradient is the global batch's. With more than one rank
-the rank is folded into each step's generator (and the eval step's), so
-the ranks draw distinct noise; a group of one draws what no group draws.
-
-The hierarchical family (``model.family='vdvae'``, the port's own) has
-no single encode -> z -> decode: its step feeds the uint8 levels at
-VDVAE's scaling (``models/vdvae.prepare``), runs the model's encoder,
-top-down pass and mixture head, each layer drawing its z and KL from its
-own key of the step's generator (``ops.reparam_prior_kl``) in layer
-order, and takes the loss distortion + Σ_layers KL (per dimension under
-``mean_per_dim``). Its optimizer is VDVAE's skipping AdamW
-(``optim.SkippingAdamW``), whose skip is decided on the device; the
-cumulative count of skipped updates is read back with each logged record
-(``skipped_updates``), and a record carries the batch mean of each
-layer's KL (``kl_layers``).
-
-The combinations the reference refuses raise ``ValueError``.
+each phase's gradients over the group between ``torch.autograd.grad`` and
+the optimizer (``multihost.average_``): clip, Adam and ``grad_norm`` see
+the global gradient. The floor-adaptive factors come from the group mean
+of the D losses, carried in D's bucket, as the reference's global-batch
+loss gives them: a factor from the local loss would let the replicas drift
+apart. The statistics that the loss takes of a whole batch before a
+nonlinearity (the free-bits floors, the dispersion penalty's mean norms)
+are replaced by their group means with the gradient passed through to the
+local ones (``multihost.group_batch_mean``), so the averaged gradient is
+the global batch's. With more than one rank the rank is folded into each
+step's generator (and the eval step's), so the ranks draw distinct noise;
+a group of one draws what no group draws.
 """
 
 from __future__ import annotations
@@ -109,15 +100,14 @@ from apv_tpu_torch.core import distributions as D
 from apv_tpu_torch.data.preprocess import (normalize_center,
                                            uniform_dequantize, unpack_bits)
 from apv_tpu_torch.models import (build_model, latent_d_params,
-                                  make_discriminators, vdvae)
+                                  make_discriminators)
 from apv_tpu_torch.ops import kernels as K
 from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.training import losses as L
-from apv_tpu_torch.training.optim import (ClippedAdam, SkippingAdamW,
-                                          constant, cosine_decay,
-                                          warmup_constant,
+from apv_tpu_torch.training.optim import (ClippedAdam, constant, cosine_decay,
                                           warmup_cosine_decay)
 from apv_tpu_torch.training.state import TrainState
+from apv_tpu_torch.training.vdvae import VDVAEStep
 from apv_tpu_torch.utils.config import Config
 from apv_tpu_torch.utils.device import resolve_device
 from apv_tpu_torch.utils.logging import span, waits
@@ -186,17 +176,11 @@ class HostBlock:
         return out
 
 
-def _make_optimizer(cfg: Config, params) -> ClippedAdam | SkippingAdamW:
+def _make_optimizer(cfg: Config, params) -> ClippedAdam:
     """Clip-by-global-norm then Adam on a warmup-cosine schedule from 0:
     the first update has lr 0. Warmup stays under half the run, so short
-    runs still get a valid schedule; decay_steps includes the warmup.
-    The vdvae family takes VDVAE's skipping AdamW instead, on its linear
-    warmup to a constant rate."""
+    runs still get a valid schedule; decay_steps includes the warmup."""
     t = cfg.train
-    if cfg.model.family == "vdvae":
-        lr = warmup_constant(t.lr, max(1, t.lr_warmup_steps))
-        return SkippingAdamW(params, lr, clip_norm=t.grad_clip_norm,
-                             b2=t.adam_b2)
     updates_total = max(1, t.steps // t.grad_accum)
     warmup = max(1, min(t.lr_warmup_steps // t.grad_accum,
                         updates_total // 2))
@@ -271,24 +255,9 @@ def step_generator(seed: int, step: int,
                                          | int(words[1]))
 
 
-class _GroupMean(torch.autograd.Function):
-    """Forward: the group mean of a batch statistic; backward: the
-    gradient passed to the local statistic unchanged, so the gradients
-    averaged over the group are those of the global statistic."""
-
-    @staticmethod
-    def forward(ctx, t):
-        return multihost.group_mean(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g
-
-
-def group_batch_mean(t: torch.Tensor) -> torch.Tensor:
-    """``t``, a mean over this rank's rows, as the global batch's mean
-    (``t`` itself without a process group)."""
-    return _GroupMean.apply(t) if multihost.active() else t
+def host_seed(gen: torch.Generator) -> int:
+    """One draw of the step's generator, the seed of a device draw."""
+    return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=gen))
 
 
 def sync_d(grads: list[torch.Tensor], losses: list[torch.Tensor]) -> None:
@@ -297,18 +266,8 @@ def sync_d(grads: list[torch.Tensor], losses: list[torch.Tensor]) -> None:
     multihost.average_(grads + losses)
 
 
-def _loss_scale(cfg: Config) -> float:
-    h, w, c = cfg.model.image_shape
-    if cfg.train.loss_reduction == "mean_per_dim":
-        return 1.0 / float(h * w * c)
-    if cfg.train.loss_reduction == "sum":
-        return 1.0
-    raise ValueError(f"unknown loss_reduction {cfg.train.loss_reduction!r} "
-                     "(sum|mean_per_dim)")
-
-
 def _check_knobs(cfg: Config) -> None:
-    """Raise on the combinations the reference refuses."""
+    """Raise on the combinations the reference refuses, in every family."""
     t, a = cfg.train, cfg.adversarial
     prior = cfg.model.prior
     if t.objective not in ("elbo", "iwae"):
@@ -338,16 +297,6 @@ def _check_knobs(cfg: Config) -> None:
     if t.grad_accum < 1:
         raise ValueError(f"train.grad_accum must be >= 1, got "
                          f"{t.grad_accum}")
-    if cfg.model.family == "vdvae" and (
-            a.enabled or t.objective != "elbo" or prior != "standard"
-            or t.free_bits > 0.0 or cfg.data.dequantize
-            or cfg.data.binarize or t.grad_accum > 1):
-        raise ValueError("the vdvae family trains its own ELBO on uint8 "
-                         "levels with its skipping AdamW: no adversarial D, "
-                         "objective 'elbo', its learned priors only "
-                         "(model.prior 'standard'), no free bits, no "
-                         "dequantization or binarization, no gradient "
-                         "accumulation")
 
 
 def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
@@ -403,7 +352,7 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
         per_sample = per_sample + cfg.adversarial.pixel_weight * px_term
         aux["g_px"] = px_term.mean()
         aux["x_hat"] = x_hat.detach()
-    gm = group_batch_mean
+    gm = multihost.group_batch_mean
     if t.free_bits > 0.0:
         if prior == "gaussian":
             kl_obj = L.free_bits_kl_gaussian_base(mean, logvar, mu_p,
@@ -424,7 +373,7 @@ def g_objective(cfg: Config, model, d, x_in: torch.Tensor,
         objective = objective - t.flow_dispersion_penalty * excess.square()
         aux["flow_dispersion"] = (m_s / m_q).detach()
     aux["elbo"] = (recon - kl).mean()
-    return -objective * _loss_scale(cfg), aux, z
+    return -objective * L.loss_scale(cfg), aux, z
 
 
 def g_objective_iwae(cfg: Config, model, d, x_in: torch.Tensor,
@@ -444,7 +393,7 @@ def g_objective_iwae(cfg: Config, model, d, x_in: torch.Tensor,
         adv_weight=a.weight, px=px, px_weight=a.pixel_weight,
         generator=generator, eps=eps)
     aux["elbo"] = aux["recon"] - aux["kl"]
-    return -objective * _loss_scale(cfg), aux, z_q
+    return -objective * L.loss_scale(cfg), aux, z_q
 
 
 def d_objective(cfg: Config, d, z_q: torch.Tensor, z_p: torch.Tensor,
@@ -476,129 +425,60 @@ def d_objective(cfg: Config, d, z_q: torch.Tensor, z_p: torch.Tensor,
     return total, metrics
 
 
-def make_train_fns(cfg: Config, *, device=None,
-                   dtype: torch.dtype = torch.bfloat16) -> TrainFns:
-    """The init, train and eval steps of ``cfg`` on ``device`` (``None``:
-    the CUDA card, raising if there is none), computing in ``dtype``."""
-    _check_knobs(cfg)
-    _loss_scale(cfg)
-    dev = resolve_device(device)
-    adv = cfg.adversarial.enabled
-    a = cfg.adversarial
-    biadv = adv and a.variant == "biadversarial"
-    gauss_prior = cfg.model.prior == "gaussian"
-    trainable_prior = cfg.model.prior in ("gaussian", "flow")
-    noise_gen = torch.Generator(device=dev)
-    staging = HostBlock(dev, cfg.train.steps_per_call)
+class EncodeDecodeStep:
+    """The encode -> z -> decode families' step (conv, resnet): the G
+    phase on the ELBO or the IWAE bound, D's phases in the reference's
+    order with the throttle, and the validation ELBO."""
 
-    ema_decay = cfg.train.ema_decay
-    hier = cfg.model.family == "vdvae"
-    throttle = adv and a.d_lr_schedule == "floor_adaptive"
-    penalty = (cfg.model.prior == "flow"
-               and cfg.train.flow_dispersion_penalty > 0.0)
-    sync = multihost.active()          # average gradients over the group
-    fold = (multihost.process_index() if multihost.process_count() > 1
-            else None)                 # the rank in each step's generator
+    def __init__(self, cfg: Config):
+        a = cfg.adversarial
+        self.cfg, self.a, self.adv = cfg, a, a.enabled
+        self.biadv = self.adv and a.variant == "biadversarial"
+        self.throttle = self.adv and a.d_lr_schedule == "floor_adaptive"
+        self.penalty = (cfg.model.prior == "flow"
+                        and cfg.train.flow_dispersion_penalty > 0.0)
+        self.critic = a.n_critic if self.adv else 0     # D's calls a step
 
-    def init_fn(seed: int) -> TrainState:
-        model = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
-        d = (make_discriminators(a, cfg.model.z_dim, cfg.model.image_shape,
-                                 device=dev, seed=seed + 1, dtype=dtype)
-             if adv else None)
-        ema = None
-        if ema_decay > 0.0:
-            ema = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
-            ema.load_state_dict(model.state_dict())
-            ema.requires_grad_(False)
-        return TrainState(
-            step=0, model=model, opt=_make_optimizer(cfg, model.parameters()),
-            d=d, d_opt=_make_d_optimizer(cfg, d.parameters()) if adv else None,
-            seed=seed, ema_model=ema)
+    def init(self, model, seed: int, dtype: torch.dtype, dev) -> tuple:
+        opt = _make_optimizer(self.cfg, model.parameters())
+        if not self.adv:
+            return opt, None, None
+        d = make_discriminators(self.a, self.cfg.model.z_dim,
+                                self.cfg.model.image_shape, device=dev,
+                                seed=seed + 1, dtype=dtype)
+        return opt, d, _make_d_optimizer(self.cfg, d.parameters())
 
-    def host_seed(gen: torch.Generator) -> int:
-        """One draw of the step's generator, the seed of a device draw."""
-        return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=gen))
+    def draw(self, state: TrainState, batch: dict, noise: dict,
+             gen: torch.Generator) -> tuple[list, list, list]:
+        cfg, a, critic = self.cfg, self.a, range(self.critic)
+        keys, zp, disp = [], [], None
+        u = (host_seed(gen) if cfg.data.dequantize and "u" not in noise
+             and "image_packed" not in batch else None)
+        if self.adv and not a.d_reuse_posterior:    # D's phases come first
+            for _ in critic:
+                if "d_eps" not in noise:
+                    keys.append(K.draw_key(gen))
+                if "z_p" not in noise:
+                    zp.append(host_seed(gen))
+        if "eps" not in noise:
+            keys.append(K.draw_key(gen))
+        if self.penalty and "u_disp" not in noise:
+            disp = host_seed(gen)
+        if self.adv and a.d_reuse_posterior and "z_p" not in noise:
+            zp = [host_seed(gen) for _ in critic]
+        rz = (next(iter(batch.values())).shape[0], cfg.model.z_dim)
+        draws = [] if u is None else [("u", batch["image"].shape, u, False)]
+        if zp:
+            draws.append(("z_p", rz, zp, True))
+        if disp is not None:
+            draws.append(("u_disp", rz, disp, True))
+        return keys, [_beta(cfg, state.step)], draws
 
-    def fill(t: torch.Tensor | None, shape, seed: int,
-             normal: bool) -> torch.Tensor:
-        """``t`` (or a new float32 tensor of ``shape``) filled with the
-        draw of the device generator reseeded with ``seed``: N(0, I) or
-        U[0, 1), the bits of ``torch.randn``/``torch.rand``."""
-        if t is None:
-            t = torch.empty(shape, dtype=torch.float32, device=dev)
-        g = noise_gen.manual_seed(seed)
-        return t.normal_(generator=g) if normal else t.uniform_(generator=g)
-
-    def uniform_fn(gen: torch.Generator) -> Callable:
-        """shape -> U[0, 1) on the device, seeded from the step's
-        generator when called."""
-        return lambda shape: fill(None, shape, host_seed(gen), False)
-
-    def draw(state: TrainState, batch: dict, *, noise: dict | None = None,
-             out: dict | None = None) -> dict:
-        """The step's inputs that the host chooses (module docstring), for
-        ``run``: the device draws, and the block of the reparameterization
-        keys and the numbers β and each optimizer call's ``hyper``, in
-        the step's order from its generator. ``noise`` entries are taken
-        as they are and not drawn; ``out`` (a captured step's static
-        inputs, the dict an earlier ``draw`` returned) is written in
-        place."""
-        noise, out = noise or {}, out or {}
-        gen = step_generator(state.seed, state.step, fold)
-        keys: list = []
-        u_seed = disp_seed = None
-        zp_seeds: list = []
-        critic = range(a.n_critic if adv else 0)
-        if hier:
-            if "eps" not in noise:      # one key a layer, in layer order
-                keys = [K.draw_key(gen)
-                        for _ in state.model.decoder.dec_blocks]
-        else:
-            if (cfg.data.dequantize and "image_packed" not in batch
-                    and "u" not in noise):
-                u_seed = host_seed(gen)
-            if adv and not a.d_reuse_posterior:    # D's phases come first
-                for _ in critic:
-                    if "d_eps" not in noise:
-                        keys.append(K.draw_key(gen))
-                    if "z_p" not in noise:
-                        zp_seeds.append(host_seed(gen))
-            if "eps" not in noise:
-                keys.append(K.draw_key(gen))
-            if penalty and "u_disp" not in noise:
-                disp_seed = host_seed(gen)
-            if adv and a.d_reuse_posterior and "z_p" not in noise:
-                zp_seeds = [host_seed(gen) for _ in critic]
-        hyper = [] if hier else [_beta(cfg, state.step)]
-        hyper += state.opt.hyper()[0]
-        if adv:
-            for h in state.d_opt.hyper(a.n_critic):
-                hyper += h
-        inputs = dict(noise)
-        rows = next(iter(batch.values())).shape[0]
-        z = cfg.model.z_dim
-        if u_seed is not None:
-            inputs["u"] = fill(out.get("u"), batch["image"].shape, u_seed,
-                               False)
-        if zp_seeds:
-            inputs["z_p"] = out.get("z_p")
-            if inputs["z_p"] is None:
-                inputs["z_p"] = torch.empty((len(zp_seeds), rows, z),
-                                            device=dev)
-            for t, sd in zip(inputs["z_p"], zp_seeds):
-                fill(t, None, sd, True)
-        if disp_seed is not None:
-            inputs["u_disp"] = fill(out.get("u_disp"), (rows, z), disp_seed,
-                                    True)
-        block = staging.put(host_words(keys, hyper), out.get("block"))
-        n = 2 * len(keys)
-        inputs.update(block=block, keys=block[:n].view(len(keys), 2),
-                      hyper=block[n:].view(torch.float32)[:len(hyper)])
-        return inputs
-
-    def g_phase(state, x_in, x_target, beta, keys, eps, u_disp, hyper):
-        lat = latent_d_params(a.variant, state.d)
-        px = state.d["pixel"] if biadv else None
+    def g_phase(self, state, x_in, x_target, beta, keys, eps, u_disp,
+                hyper):
+        cfg = self.cfg
+        lat = latent_d_params(self.a.variant, state.d)
+        px = state.d["pixel"] if self.biadv else None
         if cfg.train.objective == "iwae":
             loss, aux, z = g_objective_iwae(cfg, state.model, lat, x_in,
                                             x_target, beta, generator=keys,
@@ -609,27 +489,28 @@ def make_train_fns(cfg: Config, *, device=None,
                 generator=keys, eps=eps, draw_u=lambda shape: u_disp, px=px)
         x_hat = aux.pop("x_hat", None)
         grads = torch.autograd.grad(loss, state.opt.params)
-        if sync:
-            multihost.average_(list(grads))
+        multihost.average_(list(grads))
         with span("step.g_opt"):
             grad_norm = state.opt.step(grads, hyper=hyper)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
         return metrics, z.detach(), x_hat
 
-    def d_phase(state, x_in, x_target, z_q, x_hat, keys, d_eps, z_p, hyper):
+    def d_phase(self, state, x_in, x_target, z_q, x_hat, keys, d_eps, z_p,
+                hyper):
+        cfg = self.cfg
         if z_q is None:
             # posterior samples with no gradient into the VAE
             with torch.no_grad():
                 mean, logvar = state.model.encode(x_in)
                 z_q = ops.reparam_sample(mean, logvar, generator=keys,
                                          eps=d_eps)
-        if gauss_prior:
+        if cfg.model.prior == "gaussian":
             # D separates q(z) from the model's own base N(μ, σ): the shaped
             # prior is p*(z) ∝ N(μ, σ)·e^{D(z)}; the base trains in G only
             with torch.no_grad():
                 z_p = state.model.prior_sample_from(z_p)
-        if biadv and x_hat is None:
+        if self.biadv and x_hat is None:
             with torch.no_grad():
                 x_hat = L.likelihood_pixel_mean(
                     state.model.decode(z_q), cfg.model.likelihood,
@@ -639,14 +520,13 @@ def make_train_fns(cfg: Config, *, device=None,
         grads = list(torch.autograd.grad(total, state.d_opt.params))
         # the throttle's losses: the group's means under a process group
         losses = ([metrics[n].detach().clone() for n in ("d_loss", "px_d_loss")
-                   if n in metrics] if throttle else [])
-        if sync:
-            sync_d(grads, losses)
+                   if n in metrics] if self.throttle else [])
+        sync_d(grads, losses)
         scales = None
-        if throttle:
+        if self.throttle:
             # one factor a D, each from its own loss, on the device
             metrics["d_lr_factor"] = f = d_lr_factor(cfg, losses[0])
-            if biadv:
+            if self.biadv:
                 metrics["px_d_lr_factor"] = pf = d_lr_factor(cfg, losses[1])
                 scales = ([f for _ in state.d["latent"].parameters()]
                           + [pf for _ in state.d["pixel"].parameters()])
@@ -656,60 +536,11 @@ def make_train_fns(cfg: Config, *, device=None,
             state.d_opt.step(grads, scales, hyper=hyper)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def hier_terms(model, batch, gen, eps):
-        """The hierarchical family's pass -> (loss, distortion and rate
-        per image, the layers' KLs [L, B]), in nats; ``gen`` gives the
-        layers' keys."""
-        x_in, x_target = vdvae.prepare(batch["image"])
-        distortion, kls = model(x_in, x_target, generator=gen, eps=eps)
-        kls = torch.stack(kls)
-        rate = kls.sum(dim=0)
-        loss = (distortion + rate).mean() * _loss_scale(cfg)
-        return loss, distortion, rate, kls
-
-    def hier_step(state: TrainState, batch: dict, inputs: dict,
-                  keys: K.StepKeys):
-        """The vdvae family's step: its top-down pass, the loss (distortion
-        + Σ_layers KL, per dimension under ``mean_per_dim``), and the
-        optimizer, skipping on the device where it skips."""
-        with span("step.g_phase", marks="start"):
-            loss, distortion, rate, kls = hier_terms(
-                state.model, batch, keys, inputs.get("eps"))
-            grads = torch.autograd.grad(loss, state.opt.params)
-            if sync:
-                multihost.average_(list(grads))
-            with span("step.g_opt"):
-                grad_norm = state.opt.step(
-                    grads, (distortion.mean(), rate.mean()),
-                    hyper=inputs["hyper"])
-        dims = float(np.prod(cfg.model.image_shape))
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
-                   "distortion": distortion.detach().mean() / dims,
-                   "rate": rate.detach().mean() / dims,
-                   "elbo": -(distortion + rate).detach().mean(),
-                   "kl_layers": kls.detach().mean(dim=1),
-                   "skipped_updates": state.opt.skipped.clone()}
-        return metrics
-
-    def update_ema(state: TrainState) -> None:
-        """The Polyak average after the step's update (one the skipping
-        optimizer skipped leaves it as it was)."""
-        if state.ema_model is None:
-            return
-        with span("step.ema", marks="start"), torch.no_grad():
-            ema = list(state.ema_model.parameters())
-            if isinstance(state.opt, SkippingAdamW):
-                state.opt.ema_(ema, ema_decay)
-            else:
-                torch._foreach_mul_(ema, ema_decay)
-                torch._foreach_add_(ema, state.opt.params,
-                                    alpha=1.0 - ema_decay)
-
-    def flat_step(state: TrainState, batch: dict, inputs: dict,
-                  keys: K.StepKeys) -> dict:
-        """The encode -> z -> decode families' step: D's phases and G's in
-        the reference's order, then the EMA."""
-        x_in, x_target = prepare_batch(cfg, batch, None, inputs.get("u"))
+    def step(self, state: TrainState, batch: dict, inputs: dict,
+             keys: K.StepKeys) -> dict:
+        """D's phases and G's in the reference's order -> metrics."""
+        a = self.a
+        x_in, x_target = prepare_batch(self.cfg, batch, None, inputs.get("u"))
         hyper = inputs["hyper"]
         beta = hyper[0]
         g_end = 1 + state.opt.HYPER
@@ -719,7 +550,7 @@ def make_train_fns(cfg: Config, *, device=None,
             d_ms, n = [], ClippedAdam.HYPER
             for i in range(a.n_critic):
                 with span("step.d_phase", marks="start"):
-                    d_ms.append(d_phase(
+                    d_ms.append(self.d_phase(
                         state, x_in, x_target, z_q, x_hat, keys,
                         inputs["d_eps"][i] if "d_eps" in inputs else None,
                         inputs["z_p"][i],
@@ -728,33 +559,113 @@ def make_train_fns(cfg: Config, *, device=None,
                 metrics.update({k: torch.stack([m[k] for m in d_ms]).mean()
                                 for k in d_ms[0]})
 
-        if adv and not a.d_reuse_posterior:
+        if self.adv and not a.d_reuse_posterior:
             run_d_phases(None, None)    # reference order: D, then G
         with span("step.g_phase", marks="start"):
-            g_metrics, z_q, x_hat = g_phase(state, x_in, x_target, beta, keys,
-                                            inputs.get("eps"),
-                                            inputs.get("u_disp"),
-                                            hyper[1:g_end])
+            g_metrics, z_q, x_hat = self.g_phase(
+                state, x_in, x_target, beta, keys, inputs.get("eps"),
+                inputs.get("u_disp"), hyper[1:g_end])
         metrics.update(g_metrics)
-        if adv and a.d_reuse_posterior:
+        if self.adv and a.d_reuse_posterior:
             # G then D: D sees z_q (and x̂) made under the pre-update params
             run_d_phases(z_q, x_hat)
-        update_ema(state)
         metrics["beta"] = beta
         return metrics
 
+    def eval_step(self, state: TrainState, batch: dict,
+                  gen: torch.Generator, draw_u: Callable) -> dict:
+        """Single-sample ELBO; with a trained prior the KL is the MC
+        log q(z|x) − log p_θ(z)."""
+        cfg, model = self.cfg, state.model
+        x_in, x_target = prepare_batch(cfg, batch, draw_u)
+        with torch.no_grad():
+            if cfg.model.prior in ("gaussian", "flow"):
+                mean, logvar = model.encode(x_in)
+                z = ops.reparam_sample(mean, logvar, generator=gen)
+                recon = L.recon_log_likelihood(x_target, model.decode(z),
+                                               cfg.model.likelihood)
+                kl = (torch.sum(D.gaussian_logpdf(z, mean, logvar), dim=-1)
+                      - model.prior_logpdf(z))
+            else:
+                recon, kl, _ = L.elbo_terms(model.encode, model.decode, x_in,
+                                            x_target, cfg.model.likelihood,
+                                            generator=gen)
+        return {"valid_elbo": (recon - kl).mean(),
+                "valid_recon": recon.mean(), "valid_kl": kl.mean()}
+
+
+def make_train_fns(cfg: Config, *, device=None,
+                   dtype: torch.dtype = torch.bfloat16) -> TrainFns:
+    """The init, train and eval steps of ``cfg`` on ``device`` (``None``:
+    the CUDA card, raising if there is none), computing in ``dtype``."""
+    _check_knobs(cfg)
+    family = (VDVAEStep if cfg.model.family == "vdvae"
+              else EncodeDecodeStep)(cfg)
+    L.loss_scale(cfg)
+    dev = resolve_device(device)
+    noise_gen = torch.Generator(device=dev)
+    staging = HostBlock(dev, cfg.train.steps_per_call)
+    ema_decay = cfg.train.ema_decay
+    fold = (multihost.process_index() if multihost.process_count() > 1
+            else None)                 # the rank in each step's generator
+
+    def init_fn(seed: int) -> TrainState:
+        model = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
+        ema = None
+        if ema_decay > 0.0:
+            ema = build_model(cfg.model, dtype=dtype, device=dev, seed=seed)
+            ema.load_state_dict(model.state_dict())
+            ema.requires_grad_(False)
+        opt, d, d_opt = family.init(model, seed, dtype, dev)
+        return TrainState(step=0, model=model, opt=opt, d=d, d_opt=d_opt,
+                          seed=seed, ema_model=ema)
+
+    def fill(t: torch.Tensor | None, shape, seed: int | list[int],
+             normal: bool) -> torch.Tensor:
+        """``t`` (or a new float32 tensor of ``shape``) filled with the
+        draw of the device generator reseeded with ``seed``: N(0, I) or
+        U[0, 1), the bits of ``torch.randn``/``torch.rand``; with a list
+        of seeds a stack [len, *shape], row i drawn from seed i."""
+        if isinstance(seed, list):
+            if t is None:
+                t = torch.empty((len(seed), *shape), device=dev)
+            for row, s in zip(t, seed):
+                fill(row, None, s, normal)
+            return t
+        if t is None:
+            t = torch.empty(shape, dtype=torch.float32, device=dev)
+        g = noise_gen.manual_seed(seed)
+        return t.normal_(generator=g) if normal else t.uniform_(generator=g)
+
+    def draw(state: TrainState, batch: dict, *, noise: dict | None = None,
+             out: dict | None = None) -> dict:
+        """The step's inputs that the host chooses (module docstring); a
+        family's device draw is ``fill``'s (name, shape, seed, normal).
+        ``out`` (an earlier ``draw``'s dict) is written in place."""
+        noise, out = noise or {}, out or {}
+        gen = step_generator(state.seed, state.step, fold)
+        keys, numbers, draws = family.draw(state, batch, noise, gen)
+        numbers = numbers + state.opt.hyper()[0]
+        if state.d_opt is not None:
+            for h in state.d_opt.hyper(family.critic):
+                numbers += h
+        inputs = dict(noise)
+        for name, shape, seed, normal in draws:
+            inputs[name] = fill(out.get(name), shape, seed, normal)
+        block = staging.put(host_words(keys, numbers), out.get("block"))
+        n = 2 * len(keys)
+        inputs.update(block=block, keys=block[:n].view(len(keys), 2),
+                      hyper=block[n:].view(torch.float32)[:len(numbers)])
+        return inputs
+
     def run(state: TrainState, batch: dict, inputs: dict):
-        """One step on a batch of device tensors and ``draw``'s inputs, in
-        place: the device work, and the host's counts (the state's step,
-        the optimizers' counts) advanced -> (state, metrics). It reads no
-        host number that changes from step to step, so a CUDA graph
-        captured of it replays any step whose inputs it is handed."""
+        """One step on a batch and ``draw``'s inputs, in place: the
+        family's step, the Polyak average, the host's counts advanced."""
         keys = K.StepKeys(inputs["keys"])
-        if hier:
-            metrics = hier_step(state, batch, inputs, keys)
-            update_ema(state)
-        else:
-            metrics = flat_step(state, batch, inputs, keys)
+        metrics = family.step(state, batch, inputs, keys)
+        if state.ema_model is not None:
+            with span("step.ema", marks="start"):
+                state.opt.ema_(state.ema_model.parameters(), ema_decay)
         if keys.taken != keys.keys.shape[0]:
             raise RuntimeError(f"the step drew {keys.taken} of its "
                                f"{keys.keys.shape[0]} reparameterization "
@@ -779,33 +690,11 @@ def make_train_fns(cfg: Config, *, device=None,
         return run(state, batch, draw(state, batch, noise=noise))
 
     def eval_step(state: TrainState, batch: dict) -> dict:
-        """Single-sample ELBO on a batch; deterministic in (seed, batch).
-        With a trained prior the KL is the MC log q(z|x) − log p_θ(z); the
-        hierarchical family's is the sum of its layers' KLs."""
+        """The family's single-sample validation ELBO on a batch;
+        deterministic in (seed, batch)."""
         gen = step_generator(state.seed, 0x7FFFFFFF, fold)
-        if hier:
-            with torch.no_grad():
-                _, distortion, rate, _ = hier_terms(state.model, batch, gen,
-                                                    None)
-            return {"valid_elbo": -(distortion + rate).mean(),
-                    "valid_recon": -distortion.mean(),
-                    "valid_kl": rate.mean()}
-        x_in, x_target = prepare_batch(cfg, batch, uniform_fn(gen))
-        model = state.model
-        with torch.no_grad():
-            if trainable_prior:
-                mean, logvar = model.encode(x_in)
-                z = ops.reparam_sample(mean, logvar, generator=gen)
-                recon = L.recon_log_likelihood(x_target, model.decode(z),
-                                               cfg.model.likelihood)
-                kl = (torch.sum(D.gaussian_logpdf(z, mean, logvar), dim=-1)
-                      - model.prior_logpdf(z))
-            else:
-                recon, kl, _ = L.elbo_terms(model.encode, model.decode, x_in,
-                                            x_target, cfg.model.likelihood,
-                                            generator=gen)
-        return {"valid_elbo": (recon - kl).mean(),
-                "valid_recon": recon.mean(), "valid_kl": kl.mean()}
+        return family.eval_step(state, batch, gen, lambda shape: fill(
+            None, shape, host_seed(gen), False))
 
     return TrainFns(init_fn=init_fn, train_step=train_step,
                     eval_step=eval_step, device=dev, draw=draw, run=run)

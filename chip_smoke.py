@@ -1733,9 +1733,9 @@ def grad_check(cfg, state, x_in, x_target, dev, phase="train") -> dict:
     can round to another bf16 value and move every later layer)."""
     from apv_tpu_torch import build_model, ops
     from apv_tpu_torch.ops import kernels as K
-    from apv_tpu_torch.training.losses import \
-        decoder_output_to_likelihood_params
-    from apv_tpu_torch.training.step import _loss_scale, g_objective
+    from apv_tpu_torch.training.losses import (
+        decoder_output_to_likelihood_params, loss_scale)
+    from apv_tpu_torch.training.step import g_objective
     with deterministic_cudnn():
         m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
         m32.load_state_dict(state.model.state_dict())
@@ -1757,7 +1757,7 @@ def grad_check(cfg, state, x_in, x_target, dev, phase="train") -> dict:
             recon = K.disc_logistic_plain(x_target, *lik)
         adv = cfg.adversarial.weight * beta * state.d(z)
         loss_p = -((recon + adv).mean() - beta * K.kl_plain(
-            mean, logvar).mean()) * _loss_scale(cfg)
+            mean, logvar).mean()) * loss_scale(cfg)
         grads_p = torch.autograd.grad(loss_p, params)
         torch.cuda.synchronize()
     rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -2205,9 +2205,8 @@ def iwae_plain_objective(cfg, model, d, x_in, x_target, key):
     from apv_tpu_torch.core.distributions import (gaussian_logpdf,
                                                   standard_gaussian_logpdf)
     from apv_tpu_torch.ops import kernels as K
-    from apv_tpu_torch.training.losses import \
-        decoder_output_to_likelihood_params
-    from apv_tpu_torch.training.step import _loss_scale
+    from apv_tpu_torch.training.losses import (
+        decoder_output_to_likelihood_params, loss_scale)
     k, b = cfg.train.iwae_k, x_in.shape[0]
     mean, logvar = model.encode(x_in)
     z = K.reparam_plain(mean, logvar, k, *key)                 # [k, B, Z]
@@ -2225,7 +2224,7 @@ def iwae_plain_objective(cfg, model, d, x_in, x_target, key):
     holder["w"] = w = torch.softmax(log_w.detach(), dim=0)
     bound = (torch.logsumexp(log_w, dim=0) - math.log(k)).mean()
     surrogate = (w * recon + w.square() * prior).sum(0).mean()
-    return -bound * _loss_scale(cfg), -surrogate * _loss_scale(cfg)
+    return -bound * loss_scale(cfg), -surrogate * loss_scale(cfg)
 
 
 def iwae_grad_check(cfg, state, x_in, x_target, dev) -> dict:
@@ -2775,10 +2774,9 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev, seed: int = SEED,
     from apv_tpu_torch import build_model
     from apv_tpu_torch.models import PixelDiscriminator
     from apv_tpu_torch.ops import kernels as K
-    from apv_tpu_torch.training.losses import \
-        decoder_output_to_likelihood_params
-    from apv_tpu_torch.training.step import (_loss_scale, d_objective,
-                                             g_objective)
+    from apv_tpu_torch.training.losses import (
+        decoder_output_to_likelihood_params, loss_scale)
+    from apv_tpu_torch.training.step import d_objective, g_objective
     a = cfg.adversarial
     with deterministic_cudnn():
         m32 = build_model(cfg.model, dtype=torch.float32, device=dev)
@@ -2801,7 +2799,7 @@ def biadv_grad_check(cfg, state, x_in, x_target, dev, seed: int = SEED,
         per = (K.disc_logistic_plain(x_target, *lik) + a.weight * lat(z)
                - a.pixel_weight * F.softplus(-px(x_hat)))
         loss_p = -(per.mean() - K.kl_plain(mean, logvar).mean()) \
-            * _loss_scale(cfg)
+            * loss_scale(cfg)
         grads_p = torch.autograd.grad(loss_p, params)
 
         zq, xh = z_k.detach(), aux["x_hat"]

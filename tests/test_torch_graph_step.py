@@ -26,6 +26,7 @@ from apv_tpu_torch.parallel import multihost
 from apv_tpu_torch.training import graph as G
 from apv_tpu_torch.training import loop as tloop
 from apv_tpu_torch.training import step as tstep
+from apv_tpu_torch.training.vdvae import VDVAEStep
 from apv_tpu_torch.utils import logging as L
 from apv_tpu_torch.utils.config import apply_overrides, get_preset
 
@@ -184,6 +185,26 @@ def test_loop_on_the_cpu_runs_every_step_eagerly(tmp_path, monkeypatch):
     (summary,) = L.summaries()
     assert made == [False]
     assert summary["captures"] == summary["replayed_steps"] == 0
+
+
+# -- the family behind the step ----------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_each_preset_takes_its_familys_step(case, monkeypatch):
+    """``make_train_fns`` picks the family's step at one place: VDVAE's for
+    the vdvae preset, the encode -> z -> decode step for the others; a
+    train step runs that family's ``step`` once and no other's."""
+    ran = []
+    for cls in (tstep.EncodeDecodeStep, VDVAEStep):
+        def spy(self, *args, real=cls.step):
+            ran.append(type(self))
+            return real(self, *args)
+        monkeypatch.setattr(cls, "step", spy)
+    cfg = _cfg(case)
+    fns = tstep.make_train_fns(cfg, device="cpu", dtype=torch.float32)
+    fns.train_step(_state(fns, cfg), _batches(cfg, 1)[0])
+    assert ran == [VDVAEStep if CASES[case][0] == "vdvae_cifar10"
+                   else tstep.EncodeDecodeStep]
 
 
 # -- the step's host block and device draws ----------------------------------

@@ -485,6 +485,25 @@ def test_ema_params_recurrence_and_eval_selection():
     assert "ema_model" not in state_off.state_dict()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clipped_adam_ema_is_the_two_foreach_calls(dtype):
+    """``ClippedAdam.ema_`` is e ← d·e, then e ← e + (1 − d)·θ: the two
+    foreach calls in that order, bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    shapes = [(3, 4), (5,), (2, 2, 3)]
+    params = [torch.randn(s, generator=g).to(dtype) for s in shapes]
+    ema = [torch.randn(s, generator=g).to(dtype) for s in shapes]
+    want = [e.clone() for e in ema]
+    torch._foreach_mul_(want, 0.999)
+    torch._foreach_add_(want, params, alpha=1.0 - 0.999)
+    opt = tstep.ClippedAdam(params, lambda c: 1e-3, clip_norm=1.0)
+    before = [e.clone() for e in ema]
+    opt.ema_(iter(ema), 0.999)
+    for e, w, b in zip(ema, want, before):
+        assert e.dtype == dtype and not torch.equal(e, b)
+        assert torch.equal(e.view(torch.uint8), w.view(torch.uint8))
+
+
 def _restore(cfg, path):
     fresh = tstep.make_train_fns(cfg, device="cpu",
                                  dtype=torch.float32).init_fn(0)
